@@ -1,0 +1,88 @@
+"""Random draws of the incremental engine.
+
+The JAX engine draws at four points, each from a key made by a fixed
+formula of ``set_seed`` and the session index (engine/incremental.py):
+
+  * base-exemplar augmentation  ``set_seed*7919 + 17``       (:1348)
+  * support augmentation         ``set_seed*100003 + idx``    (:1547)
+  * head growth                  ``set_seed*61 + 1000 + idx`` (:1576)
+  * dropout / DropBlock          ``set_seed*31 + idx``        (:1633)
+
+The port's engine takes these from a draw provider.  ``TorchDraws`` seeds a
+``torch.Generator`` from the same formulas; threefry's bits cannot be
+reproduced, so it matches the JAX draws in distribution only
+(docs/PARITY.md:70-77).  A test can pass any object with the same four
+methods, e.g. one that returns the numbers ``jax.random`` draws on the same
+keys, and then holds the two engines to exact epoch counts.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..data.transforms import AugmentSpec
+from ..models.head import torch_linear_init
+from ..ops.augment import AugmentDraws
+
+
+def base_augment_seed(set_seed: int) -> int:
+    return set_seed * 7919 + 17
+
+
+def support_augment_seed(set_seed: int, idx: int) -> int:
+    return set_seed * 100003 + idx
+
+
+def head_growth_seed(set_seed: int, idx: int) -> int:
+    return set_seed * 61 + 1000 + idx
+
+
+def dropout_seed(set_seed: int, idx: int) -> int:
+    return set_seed * 31 + idx
+
+
+class TorchDraws:
+    """Production draw provider: one ``torch.Generator`` per draw point,
+    seeded from the JAX engine's key formulas, drawing on ``device``."""
+
+    def __init__(self, set_seed: int, device):
+        self.set_seed = set_seed
+        self.device = torch.device(device)
+
+    def _gen(self, seed: int) -> torch.Generator:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(seed)
+        return g
+
+    def _augment(self, seed: int, n: int, spec: AugmentSpec) -> AugmentDraws:
+        g = self._gen(seed)
+        kw = dict(generator=g, device=self.device)
+        offsets = torch.randint(0, 2 * spec.padding + 1, (n, 2), **kw)
+        flip = torch.rand((n,), **kw) < 0.5
+        lo, hi = 1.0 - spec.color_jitter, 1.0 + spec.color_jitter
+        factors = lo + (hi - lo) * torch.rand((n, 3), **kw)
+        order = torch.argsort(torch.rand((n, 3), **kw), dim=1)
+        return AugmentDraws(offsets=offsets, flip=flip,
+                            jitter_factors=factors, jitter_order=order)
+
+    def base_augment(self, n: int, spec: AugmentSpec) -> AugmentDraws:
+        return self._augment(base_augment_seed(self.set_seed), n, spec)
+
+    def support_augment(self, idx: int, n: int,
+                        spec: AugmentSpec) -> AugmentDraws:
+        return self._augment(support_augment_seed(self.set_seed, idx), n,
+                             spec)
+
+    def head_growth(self, idx: int, n_rows: int, in_dim: int,
+                    with_bias: bool
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """A fresh (n_rows, in_dim) torch.nn.Linear default init,
+        U(-1/sqrt(in_dim), 1/sqrt(in_dim)), and the bias alike."""
+        g = self._gen(head_growth_seed(self.set_seed, idx))
+        return torch_linear_init(n_rows, in_dim, with_bias, g, self.device)
+
+    def dropout(self, idx: int) -> torch.Generator:
+        """The generator of session ``idx``'s train-mode forwards."""
+        return self._gen(dropout_seed(self.set_seed, idx))

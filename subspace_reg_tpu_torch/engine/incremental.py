@@ -1,0 +1,673 @@
+"""Incremental FSCIL engine — counterpart of
+``subspace_reg_tpu/engine/incremental.py`` on its default path
+(``freeze_backbone_at == 1``, no per-epoch tracking), reference
+eval/language_eval.py:71-454.
+
+Each session:
+
+  epoch 1   train-mode backbone forwards of the support set, then of the
+            padded replay memory with masked BN statistics (skipped while
+            the memory is empty); CE (+ replay CE + the regularizers) on the
+            head, gradient by autograd on the head only, one optimizer step.
+            The reference leaves the net in eval mode after every epoch, so
+            this is the only train-mode work of a session.
+  cache     eval-mode features of support, memory, queries and base batch,
+            constant for epochs 2..N.
+  epochs 2+ K1 (ops/finetune.py): the whole head fine-tune loop in one
+            launch on the card, or its plain twin on the CPU.
+  evaluate  per-session novel query chunks and the fixed base batch.
+
+The host loop keeps the reference's global ``np.random`` stream contract
+(episode sampling reseeds per item; the replay-memory index draw continues
+the stream).  The engine's other random numbers come from a draw provider
+(engine/draws.py).
+
+Not ported yet (ROADMAP.md queue A): per-epoch tracked / vis mode,
+``freeze_backbone_at != 1``, prediction dumps, the semantic and mapping
+attractors, multi-seed.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import MAX_SESSIONS
+from ..data.episodes import EpisodeSampler, get_vocabs
+from ..data.transforms import transforms_test_options
+from ..models import head as head_lib
+from ..models import lang_puller as lp
+from ..ops import augment as aug_ops
+from ..ops import losses
+from ..ops.finetune import LoopConfig, finetune_loop, pack_scalars
+from ..utils.device import resolve_device
+from ..utils.optim import get_optim
+from .draws import TorchDraws
+
+
+# --------------------------------------------------------------------------
+# static geometry
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class SessionGeometry:
+    n_ways: int
+    n_shots: int
+    n_aug: int
+    n_queries: int
+    n_base_support: int          # 0 or n_base (1 exemplar per base class)
+    orig_base: int               # 60 for miniImageNet continual
+    max_sessions: int
+    feat_dim: int
+    img_size: int
+    base_eval_n: int
+
+    @property
+    def n_novel_support(self) -> int:
+        return self.n_ways * self.n_shots * self.n_aug
+
+    @property
+    def n_support(self) -> int:
+        return self.n_novel_support + self.n_base_support
+
+    @property
+    def n_query_per_session(self) -> int:
+        return self.n_ways * self.n_queries
+
+    @property
+    def max_queries(self) -> int:
+        return self.max_sessions * self.n_query_per_session
+
+    @property
+    def max_novel(self) -> int:
+        return self.max_sessions * self.n_ways
+
+    @property
+    def max_classes(self) -> int:
+        return self.orig_base + self.max_novel
+
+    @property
+    def mem_add(self) -> int:
+        # hardcoded 5-way/5-shot/5-aug index math (language_eval.py:354-358)
+        return 25
+
+    @property
+    def max_memory(self) -> int:
+        return self.mem_add * self.max_sessions
+
+
+def session_count(opt) -> int:
+    """Sessions to run (reference eval/language_eval.py:132-136):
+    ``neval_episodes`` in general; 8 for miniImageNet continual, but never
+    more than the caller's (possibly class-budget-clamped)
+    ``neval_episodes``."""
+    if opt.continual and opt.dataset == "miniImageNet":
+        n = min(MAX_SESSIONS, opt.neval_episodes)
+        if n < MAX_SESSIONS:
+            print(f"WARNING: miniImageNet continual trace truncated to "
+                  f"{n} sessions (neval_episodes={opt.neval_episodes}; "
+                  f"the reference runs {MAX_SESSIONS}, "
+                  "eval/language_eval.py:132-136)")
+        return n
+    return opt.neval_episodes
+
+
+def build_geometry(opt, n_base: int, img_size: int, base_eval_n: int,
+                   feat_dim: int = 640, max_sessions: int = None,
+                   has_base_support: bool = True) -> SessionGeometry:
+    """``has_base_support=False`` forces the no-exemplar geometry even when
+    ``opt.n_base_support_samples > 0``, so the CE mean always runs over the
+    real support batch."""
+    return SessionGeometry(
+        n_ways=opt.n_ways, n_shots=opt.n_shots,
+        n_aug=opt.n_aug_support_samples, n_queries=opt.n_queries,
+        n_base_support=(n_base if (opt.n_base_support_samples > 0
+                                   and has_base_support) else 0),
+        orig_base=n_base,
+        max_sessions=(session_count(opt) if max_sessions is None
+                      else max_sessions),
+        feat_dim=feat_dim, img_size=img_size, base_eval_n=base_eval_n)
+
+
+def _trace_rows(opt) -> int:
+    """Rows of the per-epoch (loss, acc1, acc5) trace: one per possible
+    epoch 1..max_novel_epochs, rounded up to 8 as in the JAX package."""
+    return ((int(opt.max_novel_epochs) + 2 + 7) // 8) * 8
+
+
+def _label_pull(opt):
+    return (opt.label_pull
+            if getattr(opt, "pulling", "regularize") == "regularize"
+            else None)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+# --------------------------------------------------------------------------
+# one session
+# --------------------------------------------------------------------------
+def head_logits(params: Dict[str, torch.Tensor], feats: torch.Tensor,
+                n_active: int) -> torch.Tensor:
+    return head_lib.masked_logits(feats, params["w"], params.get("b"),
+                                  n_active)
+
+
+def stop_update(opt, loss, prev_loss, stable_epochs, epoch):
+    """Reference stop logic (language_eval.py:298-318) -> (stable, stop)."""
+    stop = torch.zeros((), dtype=torch.bool, device=loss.device)
+    if opt.target_train_loss == 0:
+        is_stable = torch.abs(loss - prev_loss) < opt.convergence_epsilon
+        stable_epochs = torch.where(is_stable, stable_epochs + 1,
+                                    torch.zeros_like(stable_epochs))
+        stop = stop | (stable_epochs == opt.stable_epochs)
+    stop = stop | (epoch >= opt.max_novel_epochs)
+    stop = stop | ((loss <= opt.target_train_loss)
+                   & (epoch >= opt.min_novel_epochs + 1))
+    return stable_epochs, stop
+
+
+@dataclass
+class SessionInputs:
+    """What the host loop hands one session (all on the engine device)."""
+    head_w: torch.Tensor            # (max_classes, feat)
+    head_b: Optional[torch.Tensor]  # (max_classes,) or None
+    n_active: int
+    w0: torch.Tensor
+    b0: Optional[torch.Tensor]
+    reserved: torch.Tensor          # (max_novel, feat)
+    n_reserved: int
+    support_x: torch.Tensor         # (n_support, 3, H, W)
+    support_y: torch.Tensor         # (n_support,) int64
+    memory_x: torch.Tensor          # (max_memory, 3, H, W)
+    memory_y: torch.Tensor          # (max_memory,) int64
+    memory_count: int
+    query_x: torch.Tensor           # (n_query_sessions * nq, 3, H, W)
+    query_y: torch.Tensor
+    base_x: torch.Tensor
+    base_y: torch.Tensor
+    generator: Optional[torch.Generator]
+
+
+class SessionProgram:
+    """The JAX package's ``session_fn`` (incremental.py:1071-1197) on the
+    default path.  Mutates ``backbone``'s BN running statistics and block
+    counters, as the reference does."""
+
+    def __init__(self, backbone, opt, geo: SessionGeometry, with_bias: bool):
+        self.backbone = backbone
+        self.opt = opt
+        self.geo = geo
+        self.with_bias = with_bias
+        self.optim = get_optim(opt)
+        self.memory_on = bool(opt.memory_replay)
+        self.lmbd_base = opt.lmbd_reg_transform_w
+        self.lmbd_novel = opt.lmbd_reg_novel
+        self.label_pull = _label_pull(opt)
+        self.stable_mode = opt.target_train_loss == 0
+
+    # -- epoch 1 -----------------------------------------------------------
+    @torch.no_grad()
+    def epoch1_forwards(self, s: SessionInputs):
+        """Train-mode forwards, reference order support -> memory
+        (language_eval.py:252-258).  The memory forward is skipped while
+        the buffer is empty, so it touches neither the running statistics
+        nor the counters (incremental.py:902)."""
+        bb = self.backbone.train()
+        f_sup = bb(s.support_x, generator=s.generator)
+        f_mem = torch.zeros((s.memory_x.shape[0], self.geo.feat_dim),
+                            device=f_sup.device)
+        if self.memory_on and s.memory_count > 0:
+            mask = self._memory_mask(s)
+            f_mem = bb(s.memory_x, sample_mask=mask, generator=s.generator)
+        return f_sup, f_mem
+
+    def _memory_mask(self, s: SessionInputs) -> torch.Tensor:
+        rows = torch.arange(s.memory_x.shape[0], device=s.memory_x.device)
+        return (rows < s.memory_count).to(torch.float32)
+
+    def loss_fn(self, params, s: SessionInputs, f_sup, f_mem):
+        """The session loss of make_loss_fn (incremental.py:816-849)."""
+        geo = self.geo
+        logits = head_logits(params, f_sup, s.n_active)
+        loss = losses.cross_entropy(logits, s.support_y)
+        if self.memory_on:
+            mlogits = head_logits(params, f_mem, s.n_active)
+            loss = loss + losses.cross_entropy(mlogits, s.memory_y,
+                                               self._memory_mask(s))
+        if self.lmbd_base is not None:
+            loss = loss + losses.regloss(
+                self.lmbd_base, params["w"], s.w0, geo.orig_base,
+                params.get("b"), s.b0 if self.with_bias else None)
+        if self.lmbd_novel is not None:
+            loss = loss + losses.reglossnovel(
+                self.lmbd_novel, params["w"], s.reserved, geo.orig_base,
+                s.n_reserved)
+        if self.label_pull is not None:
+            cur = params["w"][s.n_active - geo.n_ways:s.n_active]
+            # recomputed from the current weights (language_eval.py:281-283)
+            target = lp.projected_weight(s.w0[:geo.orig_base], cur)
+            loss = loss + lp.pull_loss(self.label_pull, target, cur)
+        acc1, acc5 = losses.accuracy_topk(logits, s.support_y)
+        return loss, acc1.detach(), acc5.detach()
+
+    def epoch1_step(self, s: SessionInputs, f_sup, f_mem):
+        """Gradient by autograd on the head only, then the optimizer's first
+        step written out (incremental.py:1097-1116), which exposes its state
+        to the fused loop."""
+        params = {"w": s.head_w.clone().requires_grad_(True)}
+        if self.with_bias:
+            params["b"] = s.head_b.clone().requires_grad_(True)
+        loss, a1, a5 = self.loss_fn(params, s, f_sup, f_mem)
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        params = {k: v.detach() for k, v in params.items()}
+        new, mom, nu = self.optim.first_step(
+            params, dict(zip(names, grads)))
+        return new, mom, nu, loss.detach(), a1, a5
+
+    # -- epochs 2..N -------------------------------------------------------
+    def fine_tune(self, s: SessionInputs, params, mom, nu, l1, a1, a5,
+                  stable, f_sup, f_mem):
+        """Pack the operands of K1 (incremental.py:161-279) and run it.
+        Bias heads use the [W | b] layout: the bias is one more feature
+        column and the features gain a matching ones column."""
+        geo, opt = self.geo, self.opt
+        dev = f_sup.device
+        feat = geo.feat_dim
+        cp = geo.max_classes
+        d = feat + (1 if self.with_bias else 0)
+
+        def wb(tree):
+            if not self.with_bias:
+                return tree["w"].contiguous()
+            return torch.cat([tree["w"], tree["b"][:, None]], 1)
+
+        def feats_aug(f):
+            if not self.with_bias:
+                return f.contiguous()
+            return torch.cat([f, torch.ones((f.shape[0], 1), device=dev)], 1)
+
+        w0 = reserved = pull_op = None
+        if self.lmbd_base is not None:
+            w0 = wb({"w": s.w0, "b": s.b0})
+        if self.lmbd_novel is not None:
+            reserved = torch.zeros((cp, d), device=dev)
+            reserved[geo.orig_base:geo.orig_base + geo.max_novel,
+                     :feat] = s.reserved
+        pull_mode = "none"
+        if self.label_pull is not None:
+            pull_mode = "subspace"
+            q, _ = torch.linalg.qr(s.w0[:geo.orig_base].T)   # (feat, base)
+            pull_op = torch.zeros((d, d), device=dev)
+            pull_op[:feat, :feat] = (torch.eye(feat, device=dev)
+                                     - q @ q.T)
+        hp = self.optim
+        scalars = pack_scalars(
+            dev, lr=hp.lr, wd=hp.weight_decay, momentum=hp.momentum,
+            lmbd_base=self.lmbd_base or 0.0,
+            lmbd_novel=self.lmbd_novel or 0.0,
+            gamma=self.label_pull or 0.0, eps=opt.convergence_epsilon,
+            target_loss=opt.target_train_loss,
+            min_epochs=opt.min_novel_epochs,
+            max_epochs=opt.max_novel_epochs,
+            stable_target=opt.stable_epochs, adam_b1=hp.b1, adam_b2=hp.b2,
+            adam_eps=hp.eps, prev_loss0=l1, stable0=stable, acc1_0=a1,
+            acc5_0=a5)
+        cfg = LoopConfig(
+            n_sup=geo.n_support, mem_count=s.memory_count,
+            n_active=s.n_active, n_reserved=s.n_reserved,
+            orig_base=geo.orig_base, n_ways=geo.n_ways,
+            memory_on=self.memory_on,
+            use_regbase=self.lmbd_base is not None,
+            use_regnovel=self.lmbd_novel is not None, pull_mode=pull_mode,
+            stable_mode=self.stable_mode, trace_rows=_trace_rows(opt),
+            use_adam=hp.adam, bias_col=feat if self.with_bias else None)
+        w_out, stats, trace = finetune_loop(
+            feats_aug(f_sup), s.support_y.to(torch.int32).contiguous(),
+            feats_aug(f_mem), s.memory_y.to(torch.int32).contiguous(),
+            wb(params), wb(mom), wb(nu) if nu is not None else None,
+            w0, reserved, pull_op, None, scalars, cfg)
+        new = {"w": w_out[:, :feat]}
+        if self.with_bias:
+            new["b"] = w_out[:, feat]
+        trace[1] = torch.stack([l1, a1, a5])
+        return new, stats, trace
+
+    # -- evaluation --------------------------------------------------------
+    @torch.no_grad()
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        return self.backbone.eval()(x)
+
+    @torch.no_grad()
+    def evaluate(self, params, f_query, query_y, f_base, base_y, n_active):
+        """Novel query chunks of the sessions so far + the base batch
+        (language_eval.py:18-69)."""
+        nq = self.geo.n_query_per_session
+        logits_q = head_logits(params, f_query, n_active)
+        chunk_accs = torch.stack([
+            losses.accuracy_topk(logits_q[lo:lo + nq], query_y[lo:lo + nq])[0]
+            for lo in range(0, f_query.shape[0], nq)])
+        logits_b = head_logits(params, f_base, n_active)
+        base_acc, _ = losses.accuracy_topk(logits_b, base_y)
+        return chunk_accs, base_acc
+
+    def __call__(self, s: SessionInputs):
+        f_sup_tr, f_mem_tr = self.epoch1_forwards(s)
+        params, mom, nu, l1, a1, a5 = self.epoch1_step(s, f_sup_tr, f_mem_tr)
+        one = torch.ones((), device=l1.device)
+        stable, _ = stop_update(self.opt, l1, 15.0 * one, 0.0 * one, one)
+
+        # eval-mode features, constant for epochs 2..N
+        f_sup = self.features(s.support_x)
+        f_mem = self.features(s.memory_x) if self.memory_on else f_mem_tr
+        f_query = self.features(s.query_x)
+        f_base = self.features(s.base_x)
+
+        params, stats, trace = self.fine_tune(s, params, mom, nu, l1, a1, a5,
+                                              stable, f_sup, f_mem)
+        chunk_accs, base_acc = self.evaluate(params, f_query, s.query_y,
+                                             f_base, s.base_y, s.n_active)
+        metrics = {"chunk_accs": chunk_accs, "base_acc": base_acc,
+                   "epochs": stats[1], "epoch_trace": trace}
+        return params, metrics
+
+
+@torch.no_grad()
+def eval_base(backbone, head_w, head_b, n_active: int, base_x, base_y):
+    """Standalone base-batch accuracy (reference eval_base,
+    language_eval.py:46-69) for the initial pre-session measurement."""
+    feats = backbone.eval()(base_x)
+    params = {"w": head_w} if head_b is None else {"w": head_w, "b": head_b}
+    acc1, _ = losses.accuracy_topk(head_logits(params, feats, n_active),
+                                   base_y)
+    return acc1
+
+
+# --------------------------------------------------------------------------
+# host orchestration
+# --------------------------------------------------------------------------
+@dataclass
+class IncrementalResult:
+    acc_novel_avg: float
+    acc_base_avg: float
+    weighted_avg_l: List[float]
+    acc_novel_list: List[float]
+    acc_base_list: List[float]
+    novel_session_traces: List[List[float]]
+    epochs_per_session: List[int]
+    session_seconds: List[float] = field(default_factory=list)
+
+    @property
+    def acc_average(self) -> float:
+        return (self.acc_novel_avg + self.acc_base_avg) / 2
+
+
+class _Meter:
+    """AverageMeter (reference eval/util.py:9-24)."""
+
+    def __init__(self):
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, v, n=1):
+        self.sum += v * n
+        self.count += n
+
+    @property
+    def avg(self):
+        return self.sum / max(self.count, 1)
+
+
+def _print_epoch_line(prt, epoch, loss, a1, a5):
+    """The reference's per-10-epoch fine-tune print
+    (language_eval.py:310-315)."""
+    prt("Novel Epoch {:4d}\t"
+        "Train Loss {:10.4f}\t"
+        "Acc@1 {:10.3f}\t"
+        "Acc@5 {:10.3f}".format(epoch, float(loss), float(a1), float(a5)))
+
+
+def _refuse_unported(opt, with_bias: bool):
+    if with_bias and opt.lmbd_reg_novel is not None:
+        raise NotImplementedError(
+            "reference reglossnovel bias branch crashes "
+            "(models/resnet_language.py:239)")
+    unported = []
+    if opt.freeze_backbone_at != 1:
+        unported.append("freeze_backbone_at != 1")
+    for flag in ("track_weights", "track_label_inspired_weights",
+                 "save_preds_0"):
+        if getattr(opt, flag, False):
+            unported.append(f"--{flag}")
+    if (_label_pull(opt) is not None
+            and opt.attraction_override != "distance2subspace"):
+        unported.append("the semantic/mapping attractors")
+    if unported:
+        raise NotImplementedError(
+            ", ".join(unported) + ": not ported yet (ROADMAP.md queue A); "
+            "the JAX package's eval_incremental.py serves them")
+
+
+def few_shot_finetune_incremental_test(
+        backbone, head0: head_lib.Head, meta, opt,
+        meta_sampler: EpisodeSampler, base_test_split,
+        base_support_sampler: Optional[EpisodeSampler] = None,
+        base_split_for_vocab=None, verbose: bool = True,
+        device="cuda", draws=None) -> IncrementalResult:
+    """Run the multi-session protocol (language_eval.py:71-454) on
+    ``device``.  ``backbone`` and ``head0`` are copied, never mutated.
+    ``draws`` defaults to ``TorchDraws(opt.set_seed, device)``."""
+    dev = resolve_device(device)
+    prt = print if verbose else (lambda *a, **k: None)
+    with_bias = head0.bias is not None
+    _refuse_unported(opt, with_bias)
+    np.random.seed(opt.set_seed)
+    draws = draws if draws is not None else TorchDraws(opt.set_seed, dev)
+
+    train_spec, test_spec = transforms_test_options[opt.transform]
+    img_size = base_test_split.imgs.shape[1]
+    base_eval_n = opt.test_base_batch_size // 2
+    geo = build_geometry(opt, n_base=int(head0.n_active), img_size=img_size,
+                         base_eval_n=base_eval_n, feat_dim=int(head0.in_dim),
+                         has_base_support=base_support_sampler is not None)
+    backbone = copy.deepcopy(backbone).to(dev)
+    program = SessionProgram(backbone, opt, geo, with_bias)
+
+    def upload(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # fixed base evaluation batch: the first test_base_batch_size//2
+    # samples of the base-test split (eval_incremental.py:53-57)
+    min_lbl = min(base_test_split.labels)
+    base_x = _nchw(aug_ops.normalize_batch(
+        upload(base_test_split.imgs[:base_eval_n]), test_spec))
+    base_y = upload(np.asarray(
+        [l - min_lbl for l in base_test_split.labels[:base_eval_n]],
+        np.int64))
+
+    # fixed base-class exemplars kept in every session's support
+    # (language_eval.py:112-117)
+    base_sup_x = base_sup_y = None
+    if base_support_sampler is not None:
+        ep = base_support_sampler.get(0)
+        base_sup_x = _nchw(aug_ops.augment_batch(
+            upload(ep.support_x), train_spec,
+            draws.base_augment(len(ep.support_x), train_spec).to(dev)))
+        base_sup_y = ep.support_y.astype(np.int64)
+
+    head_w = head0.weight.to(dev, torch.float32)
+    if head_w.shape[0] != geo.max_classes:
+        raise ValueError(f"head must be padded to {geo.max_classes} rows, "
+                         f"got {head_w.shape[0]}")
+    head_b = head0.bias.to(dev, torch.float32) if with_bias else None
+    n_active = int(head0.n_active)
+    w0, b0 = head_w, head_b
+    reserved = torch.zeros((geo.max_novel, geo.feat_dim), device=dev)
+    n_reserved = 0
+    memory_x = torch.zeros((geo.max_memory, 3, img_size, img_size),
+                           device=dev)
+    memory_y = torch.zeros((geo.max_memory,), dtype=torch.int64, device=dev)
+    memory_count = 0
+    nq = geo.n_query_per_session
+    query_x = torch.zeros((geo.max_queries, 3, img_size, img_size),
+                          device=dev)
+    query_y = torch.zeros((geo.max_queries,), dtype=torch.int64, device=dev)
+    # the novel split's images live on the device once; episodes are row
+    # gathers
+    novel_imgs = upload(meta_sampler.base.imgs)
+
+    acc_novel, acc_base = _Meter(), _Meter()
+    weighted_avg_l: List[float] = []
+    acc_novel_list: List[float] = []
+    acc_base_list: List[float] = []
+    traces: List[List[float]] = []
+    epochs_l: List[int] = []
+    secs: List[float] = []
+
+    # initial base accuracy (language_eval.py:128-129)
+    weighted_avg_l.append(float(eval_base(backbone, head_w, head_b, n_active,
+                                          base_x, base_y)))
+
+    iter_num = geo.max_sessions
+    vocab_base = vocab_novel = None
+    for idx in range(iter_num):
+        t0 = time.time()
+        ep = meta_sampler.get(idx)
+
+        # vocab bookkeeping (language_eval.py:155-167)
+        if idx > 0:
+            prev_vocab_base, prev_vocab_novel = vocab_base, vocab_novel
+        vb, _, vocab_novel, orig2id = get_vocabs(
+            base_split_for_vocab or base_test_split, meta_sampler.base,
+            ep.query_y)
+        vocab_base = vb if idx == 0 else prev_vocab_base + prev_vocab_novel
+
+        # reserve the previous session's novel rows (language_eval.py:169-186)
+        if idx >= 1:
+            lo = geo.orig_base + geo.n_ways * (idx - 1)
+            reserved[geo.n_ways * (idx - 1):geo.n_ways * idx] = \
+                head_w[lo:lo + geo.n_ways]
+            n_reserved = geo.n_ways * idx
+
+        novel_labels = np.sort(np.unique(ep.query_y))
+        for k in list(orig2id.keys()):
+            orig2id[k] = orig2id[k] + idx * opt.n_ways
+        query_ys_id = np.asarray([orig2id[int(y)] for y in ep.query_y],
+                                 np.int64)
+        support_ys_id = np.asarray([orig2id[int(y)] for y in ep.support_y],
+                                   np.int64)
+
+        # episode realization + augmentation on the device
+        if ep.support_idx is not None:
+            sup_u8 = novel_imgs[upload(ep.support_idx.astype(np.int64))]
+            qry_u8 = novel_imgs[upload(ep.query_idx.astype(np.int64))]
+        else:
+            sup_u8, qry_u8 = upload(ep.support_x), upload(ep.query_x)
+        support_x = _nchw(aug_ops.augment_batch(
+            sup_u8, train_spec,
+            draws.support_augment(idx, sup_u8.shape[0],
+                                  train_spec).to(dev)))
+        # grow the query collection (language_eval.py:198-204)
+        query_x[idx * nq:(idx + 1) * nq] = _nchw(
+            aug_ops.normalize_batch(qry_u8, test_spec))
+        query_y[idx * nq:(idx + 1) * nq] = upload(query_ys_id)
+
+        if base_sup_x is not None:
+            support_x = torch.cat([support_x, base_sup_x], 0)
+            support_ys_id = np.concatenate([support_ys_id, base_sup_y])
+
+        # classifier growth (language_eval.py:214): a fresh init block,
+        # rolled so that its row j lands at n_active + j
+        new_w, new_b = draws.head_growth(idx, geo.max_classes, geo.feat_dim,
+                                         with_bias)
+        grown = head_lib.augment(
+            head_lib.Head(weight=head_w, bias=head_b, n_active=n_active),
+            new_w.to(dev), None if new_b is None else new_b.to(dev),
+            len(novel_labels))
+        head_w, head_b, n_active = grown.weight, grown.bias, grown.n_active
+
+        params, metrics = program(SessionInputs(
+            head_w=head_w, head_b=head_b, n_active=n_active, w0=w0, b0=b0,
+            reserved=reserved, n_reserved=n_reserved, support_x=support_x,
+            support_y=upload(support_ys_id), memory_x=memory_x,
+            memory_y=memory_y, memory_count=memory_count,
+            query_x=query_x[:(idx + 1) * nq],
+            query_y=query_y[:(idx + 1) * nq], base_x=base_x, base_y=base_y,
+            generator=draws.dropout(idx)))
+        head_w = params["w"]
+        if with_bias:
+            head_b = params["b"]
+
+        # replay-memory update (language_eval.py:352-359)
+        if opt.memory_replay and (geo.n_ways, geo.n_shots,
+                                  geo.n_aug) != (5, 5, 5):
+            raise ValueError(
+                "memory_replay requires the 5-way/5-shot/5-aug support "
+                "layout: the reference's replay index math is hardcoded to "
+                "it (eval/language_eval.py:354-358); got "
+                f"{geo.n_ways}-way/{geo.n_shots}-shot/{geo.n_aug}-aug")
+        if opt.memory_replay:
+            inds = np.random.choice(opt.n_shots, opt.memory_replay)
+            margin = 5 * np.arange(5)
+            offset = np.arange(0, 125, 25)
+            inds = np.tile(margin + inds, (5, 1)) + (np.tile(offset, (5, 1))).T
+            inds = inds.flatten()
+            n_new = len(inds)
+            memory_x[memory_count:memory_count + n_new] = \
+                support_x[upload(inds)]
+            memory_y[memory_count:memory_count + n_new] = \
+                upload(support_ys_id[inds])
+            memory_count += n_new
+
+        # ---- per-session metrics (language_eval.py:370-404) ----
+        host = {k: v.cpu().numpy() for k, v in metrics.items()}
+        secs.append(time.time() - t0)
+        prt(f"\n**** Iteration {idx + 1}/{iter_num} ****\n")
+        epochs_run = int(host["epochs"])
+        if getattr(opt, "verbose", False):
+            tr = host["epoch_trace"]
+            for e in range(10, epochs_run + 1, 10):
+                _print_epoch_line(prt, e, tr[e, 0], tr[e, 1], tr[e, 2])
+        # the reference reports the mean of per-session accs ROUNDED to two
+        # decimals (language_eval.py:370-374)
+        session_trace = [round(float(a), 2) for a in host["chunk_accs"]]
+        prt("Novel session accuracies: ", session_trace)
+        test_acc = float(np.array(session_trace).mean())
+        acc_base_ = float(host["base_acc"])
+        acc_base.update(acc_base_)
+        acc_novel.update(test_acc)
+        # reference: 60 for mini, 200 for tiered (language_eval.py:383)
+        w1 = 200 if opt.dataset == "tieredImageNet" else 60
+        w2 = len(vocab_base) + len(vocab_novel) - 60
+        weighted_avg = (w1 * acc_base_ + w2 * test_acc) / (w1 + w2)
+        weighted_avg_l.append(round(weighted_avg, 2))
+        acc_novel_list.append(round(test_acc, 2))
+        acc_base_list.append(round(acc_base_, 2))
+        traces.append(session_trace)
+        epochs_l.append(epochs_run)
+        prt(f"***Running weighted avg: {weighted_avg}")
+        prt(f"{'Classes:':25} {novel_labels}\n"
+            f"{'Labels:':25} {vocab_novel}\n"
+            f"{'Fine-tuning epochs:':25} {epochs_run}\n"
+            f"{'Novel acc:':25} {test_acc:.4f}\n"
+            f"{'Base acc:':25} {acc_base_:.4f}\n"
+            f"{'Average:':25} {(test_acc + acc_base_) / 2:.4f}\n"
+            f"{'Runnning Base Avg:':25} {acc_base.avg:.4f}\n"
+            f"{'Running Novel Avg:':25} {acc_novel.avg:.4f}\n"
+            f"{'Running Average:':25} {(acc_base.avg + acc_novel.avg) / 2:.4f}\n",
+            flush=True)
+
+    prt("Overall continual accuracies: ", weighted_avg_l)
+    prt("Novel only incremental: ", acc_novel_list)
+    prt("Base only incremental: ", acc_base_list)
+    return IncrementalResult(
+        acc_novel_avg=acc_novel.avg, acc_base_avg=acc_base.avg,
+        weighted_avg_l=weighted_avg_l, acc_novel_list=acc_novel_list,
+        acc_base_list=acc_base_list, novel_session_traces=traces,
+        epochs_per_session=epochs_l, session_seconds=secs)

@@ -1,0 +1,61 @@
+"""The port stands alone: every module of subspace_reg_tpu_torch, and
+chip_smoke.py, imports with JAX, flax, optax and the JAX package blocked,
+and no source of the port names the JAX package in an import."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import subspace_reg_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(subspace_reg_tpu_torch.__file__)
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "subspace_reg_tpu")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [PKG], prefix="subspace_reg_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "subspace_reg_tpu_torch.engine.incremental" in mods
+    assert "subspace_reg_tpu_torch.ops.finetune" in mods
+    code = "\n".join(
+        ["import sys, importlib"]
+        + [f"sys.modules[{name!r}] = None" for name in BLOCKED]
+        + [f"importlib.import_module({m!r})" for m in mods]
+        + ["import chip_smoke",
+           "leaked = [m for m in sys.modules if m.split('.')[0] in "
+           f"{BLOCKED!r} and sys.modules[m] is not None]",
+           "assert not leaked, leaked",
+           "print('ok', len(sys.modules))"])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_source_imports_the_jax_package():
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+               if f.endswith(".py")]
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    bad = []
+    for path in sources:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path}: {n}" for n in names
+                    if n.split(".")[0] in BLOCKED]
+    assert len(sources) > 20 and not bad, bad
