@@ -1,4 +1,4 @@
-"""Random draws of the incremental engine.
+"""Random draws of the incremental engine and of pretraining.
 
 The JAX engine draws at four points, each from a key made by a fixed
 formula of ``set_seed`` and the session index (engine/incremental.py):
@@ -8,12 +8,16 @@ formula of ``set_seed`` and the session index (engine/incremental.py):
   * head growth                  ``set_seed*61 + 1000 + idx`` (:1576)
   * dropout / DropBlock          ``set_seed*31 + idx``        (:1633)
 
-The port's engine takes these from a draw provider.  ``TorchDraws`` seeds a
+Pretraining draws once per step, from ``fold_in(PRNGKey(set_seed), step)``
+split into an augmentation key and a dropout key (engine/pretrain.py:128).
+
+The port's engines take these from a draw provider.  ``TorchDraws`` seeds a
 ``torch.Generator`` from the same formulas; threefry's bits cannot be
 reproduced, so it matches the JAX draws in distribution only
 (docs/PARITY.md:70-77).  A test can pass any object with the same four
 methods, e.g. one that returns the numbers ``jax.random`` draws on the same
-keys, and then holds the two engines to exact epoch counts.
+keys, and then holds the two engines to exact epoch counts (or, for
+pretraining, to the same augmented batch).
 """
 
 from __future__ import annotations
@@ -41,6 +45,14 @@ def head_growth_seed(set_seed: int, idx: int) -> int:
 
 def dropout_seed(set_seed: int, idx: int) -> int:
     return set_seed * 31 + idx
+
+
+def pretrain_augment_seed(set_seed: int, step: int) -> int:
+    return (set_seed * 1000003 + step) * 2
+
+
+def pretrain_dropout_seed(set_seed: int, step: int) -> int:
+    return (set_seed * 1000003 + step) * 2 + 1
 
 
 class TorchDraws:
@@ -86,3 +98,14 @@ class TorchDraws:
     def dropout(self, idx: int) -> torch.Generator:
         """The generator of session ``idx``'s train-mode forwards."""
         return self._gen(dropout_seed(self.set_seed, idx))
+
+    def pretrain_augment(self, step: int, n: int,
+                         spec: AugmentSpec) -> AugmentDraws:
+        """Pretraining step ``step``'s augmentation of ``n`` images."""
+        return self._augment(pretrain_augment_seed(self.set_seed, step), n,
+                             spec)
+
+    def pretrain_dropout(self, step: int) -> torch.Generator:
+        """The generator of pretraining step ``step``'s dropout and
+        DropBlock."""
+        return self._gen(pretrain_dropout_seed(self.set_seed, step))

@@ -1,0 +1,228 @@
+"""Supervised pretraining engine (reference train_supervised.py:38-268).
+
+Counterpart of ``subspace_reg_tpu/engine/pretrain.py``.  One step:
+augmentation on the device, the bf16 train-mode forward (the module path,
+or with ``fused=True`` the fused stages 1-2 of models/fused_forward.py),
+cross-entropy plus the optional label-pull penalty, backward, and a
+``torch.optim`` SGD/Adam update whose learning rate follows the per-step
+schedule.
+
+Where JAX and PyTorch differ in form:
+
+* the JAX ``PretrainState`` is an immutable tree that each step returns
+  anew; here the state holds the backbone module, the head parameters and
+  the ``torch.optim`` optimizer, and a step updates them in place (the BN
+  running statistics and block counters included);
+* the JAX ``tx`` (an optax chain with the schedule inside) becomes the
+  state's optimizer (``init_pretrain_state``) plus ``schedule`` here;
+* the per-step random draws come from a draw provider (engine/draws.py)
+  keyed by the step, as the JAX step folds the step into its key.
+
+Distillation (``teacher``, the NCE/CRD steps) and the device mesh are not
+ported yet and raise (ROADMAP.md queue A).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..data.transforms import AugmentSpec
+from ..models.fused_forward import can_fuse, fused_forward
+from ..models.head import torch_linear_init
+from ..models.resnet import ResNetRFS
+from ..ops import augment as aug_ops
+from ..ops import losses
+from ..utils.optim import Schedule, set_lr
+
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclass
+class PretrainState:
+    backbone: ResNetRFS
+    head: Dict[str, torch.nn.Parameter]     # 'w' (n_cls, D), optional 'b'
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def init_pretrain_state(backbone: ResNetRFS, n_cls: int,
+                        tx: Callable[[list], torch.optim.Optimizer],
+                        with_bias: bool,
+                        generator: Optional[torch.Generator] = None,
+                        device="cuda") -> PretrainState:
+    """A ``torch.nn.Linear``-initialized head (drawn from ``generator``) on
+    top of ``backbone``, moved to ``device``; ``tx(params)`` builds the
+    optimizer over the backbone's parameters and the head's."""
+    backbone.to(device)
+    w, b = torch_linear_init(n_cls, backbone.feature_dim, with_bias,
+                             generator, device="cpu")
+    head = {"w": torch.nn.Parameter(w.to(device))}
+    if with_bias:
+        head["b"] = torch.nn.Parameter(b.to(device))
+    optimizer = tx(list(backbone.parameters()) + list(head.values()))
+    return PretrainState(backbone=backbone, head=head, optimizer=optimizer)
+
+
+def _logits(state: PretrainState, feats: torch.Tensor,
+            with_bias: bool) -> torch.Tensor:
+    logits = feats @ state.head["w"].T
+    if with_bias:
+        logits = logits + state.head["b"]
+    return logits
+
+
+def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
+                    spec: AugmentSpec, with_bias: bool, draws,
+                    label_pull: Optional[float] = None,
+                    pull_embeds: Optional[torch.Tensor] = None,
+                    temperature: float = 1.0, mesh=None, teacher=None,
+                    fused: bool = False, fused_backend: str = "xla"):
+    """One pretraining step: augment -> forward (train) -> CE (+ pull) ->
+    backward -> optimizer step (reference hot loop
+    train_supervised.py:216-244).
+
+    ``train_step(state, x_u8, y)`` takes a (B, H, W, 3) uint8 batch and
+    (B,) labels on the state's device and returns {"loss", "acc1", "acc5"}
+    as 0-d device tensors.  ``schedule(step)`` sets the learning rate of
+    each step.  ``draws`` provides ``pretrain_augment(step, n, spec)`` and
+    ``pretrain_dropout(step)``.  ``fused=True`` runs stages 1-2 through the
+    fused block with ``fused_backend``: ``"pallas"`` launches the
+    hand-written CUDA kernels K2/K3 (their plain versions on CPU tensors),
+    ``"xla"`` runs the same program as torch ops."""
+    if mesh is not None:
+        raise NotImplementedError("the device mesh is not ported yet")
+    if teacher is not None:
+        raise NotImplementedError("distillation is not ported yet")
+
+    def train_step(state: PretrainState, x_u8: torch.Tensor,
+                   y: torch.Tensor) -> Metrics:
+        s = state.step
+        if schedule is not None:
+            set_lr(state.optimizer, schedule(s))
+        x = aug_ops.augment_batch(
+            x_u8, spec, draws.pretrain_augment(s, x_u8.shape[0], spec))
+        # NHWC in memory is an NCHW tensor in channels_last
+        x = x.permute(0, 3, 1, 2)
+        gen = draws.pretrain_dropout(s)
+        backbone.train()
+        if fused:
+            if not can_fuse(backbone, x.shape[2], True):
+                raise ValueError("fused=True needs a bf16 backbone with "
+                                 "single-block stages 1/2, no SE and a "
+                                 "size divisible by 4")
+            feats = fused_forward(backbone, x, gen, backend=fused_backend)
+        else:
+            feats = backbone(x, generator=gen)
+        logits = _logits(state, feats, with_bias)
+        loss = losses.cross_entropy(logits, y)
+        if label_pull is not None:
+            # pretraining pull penalty (train_supervised.py:231-235):
+            # attractors computed from the classifier itself
+            w = state.head["w"]
+            scores = pull_embeds @ pull_embeds.T
+            probs = torch.softmax(scores / temperature, dim=1)
+            loss = loss + label_pull * torch.sum(torch.square(probs @ w - w))
+        acc1, acc5 = losses.accuracy_topk(logits.detach(), y)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
+
+    return train_step
+
+
+def make_train_step_device_data(backbone: ResNetRFS,
+                                schedule: Optional[Schedule],
+                                spec: AugmentSpec, with_bias: bool, draws,
+                                **kw):
+    """Device-resident dataset: the whole uint8 image store and the labels
+    live on the card and each step gathers its batch there from an index
+    vector, so no image crosses from the host per step."""
+    base = make_train_step(backbone, schedule, spec, with_bias, draws, **kw)
+
+    def train_step(state: PretrainState, data_u8: torch.Tensor,
+                   labels: torch.Tensor, idxs: torch.Tensor) -> Metrics:
+        return base(state, data_u8[idxs], labels[idxs])
+
+    return train_step
+
+
+def init_nce_training(*args, **kwargs):
+    """Contrastive (NCE/CRD) distillation state: not ported yet
+    (ROADMAP.md queue A item 8)."""
+    raise NotImplementedError("NCE/CRD distillation is not ported yet")
+
+
+def make_train_step_nce(*args, **kwargs):
+    """The contrastive-distillation step: not ported yet (ROADMAP.md queue A
+    item 8)."""
+    raise NotImplementedError("NCE/CRD distillation is not ported yet")
+
+
+def make_eval_step(backbone: ResNetRFS, spec: AugmentSpec, with_bias: bool,
+                   truncate_classes: Optional[int] = None,
+                   faithful_nbt: bool = False):
+    """Validation step (reference eval/util.py:185-232).
+    ``truncate_classes`` reproduces the tiered augment_pretrain_wtrainb
+    slice (:206-208).  ``faithful_nbt`` replicates the reference's
+    per-forward ``num_batches_tracked`` increment on eval forwards too
+    (models/resnet_language.py:269), in place on the blocks."""
+
+    @torch.no_grad()
+    def eval_step(state: PretrainState, x_u8: torch.Tensor,
+                  y: torch.Tensor) -> Metrics:
+        x = aug_ops.normalize_batch(x_u8, spec).permute(0, 3, 1, 2)
+        backbone.eval()
+        feats = backbone(x)
+        if faithful_nbt:
+            for block in backbone.blocks():
+                block.num_batches_tracked += 1
+        logits = _logits(state, feats, with_bias)
+        if truncate_classes is not None:
+            logits = logits[:, :truncate_classes]
+        loss = losses.cross_entropy(logits, y)
+        acc1, acc5 = losses.accuracy_topk(logits, y)
+        return {"loss": loss, "acc1": acc1, "acc5": acc5,
+                "n": torch.tensor(float(y.shape[0]), device=loss.device)}
+
+    eval_step.faithful_nbt = faithful_nbt
+    return eval_step
+
+
+def epoch_batches(rng: np.random.RandomState, n: int, batch_size: int,
+                  drop_last: bool = True) -> Iterator[np.ndarray]:
+    """Shuffled epoch batching (DataLoader shuffle=True, drop_last=True,
+    train_supervised.py:50-51)."""
+    order = rng.permutation(n)
+    end = (n // batch_size) * batch_size if drop_last else n
+    for i in range(0, end, batch_size):
+        yield order[i:i + batch_size]
+
+
+def run_validation(eval_step, state: PretrainState, imgs, labels,
+                   batch_size: int, device=None):
+    """Sample-weighted mean loss / acc1 / acc5 over ``imgs`` (uint8 NHWC,
+    numpy or a device tensor) in batches; one host transfer at the end.
+    With a ``faithful_nbt`` eval step, returns ``(metrics, state)`` as the
+    JAX function does (the counters advance in place)."""
+    if device is None:
+        device = state.head["w"].device
+    tot = torch.zeros(4, dtype=torch.float64, device=device)
+    for i in range(0, len(labels), batch_size):
+        x = torch.as_tensor(imgs[i:i + batch_size], device=device)
+        y = torch.as_tensor(labels[i:i + batch_size], dtype=torch.int64,
+                            device=device)
+        m = eval_step(state, x, y)
+        tot += torch.stack([m["loss"] * m["n"], m["acc1"] * m["n"],
+                            m["acc5"] * m["n"], m["n"]]).to(torch.float64)
+    loss, acc1, acc5, n = tot.tolist()
+    n = max(n, 1.0)
+    metrics = {"loss": loss / n, "acc1": acc1 / n, "acc5": acc5 / n}
+    if getattr(eval_step, "faithful_nbt", False):
+        return metrics, state
+    return metrics

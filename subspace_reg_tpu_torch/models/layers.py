@@ -11,6 +11,13 @@ Counterpart of ``subspace_reg_tpu/models/layers.py``:
   geometry and the countM/count_ones normalization) with the seeds drawn
   from a caller-supplied ``torch.Generator``.
 * ``SELayer`` is the working squeeze-excitation the JAX package ships.
+
+bf16 compute (pretraining): activations arrive in bf16 while parameters
+stay f32.  BN statistics are taken in f32 and the affine is folded into a
+bf16 scale and shift (JAX layers.py:118-125); LeakyReLU multiplies by
+bf16(0.1) and dropout divides by bf16(keep), as jnp does with its weakly
+typed constants.  Every bf16 operation rounds once, as in the JAX package.
+The f32 path is unchanged.
 """
 
 from __future__ import annotations
@@ -54,20 +61,23 @@ class TorchBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        in_dtype = x.dtype
+        # statistics always in f32
+        xs = x if in_dtype == torch.float32 else x.to(torch.float32)
         if self.training:
             axes = (0, 2, 3)
             if sample_mask is None:
-                mean = x.mean(axes)
+                mean = xs.mean(axes)
                 # single-pass biased variance (JAX layers.py:96)
-                var = (x * x).mean(axes) - mean * mean
+                var = (xs * xs).mean(axes) - mean * mean
                 n = float(x.numel() // x.shape[1])
             else:
                 # padded rows must not pollute the statistics: divide by
                 # sum(mask)*H*W, not by the padded batch size
-                m = sample_mask.reshape(-1, 1, 1, 1).to(x.dtype)
+                m = sample_mask.reshape(-1, 1, 1, 1).to(xs.dtype)
                 n = sample_mask.sum() * (x.shape[2] * x.shape[3])
-                mean = (x * m).sum(axes) / n
-                var = ((x * x) * m).sum(axes) / n - mean * mean
+                mean = (xs * m).sum(axes) / n
+                var = ((xs * xs) * m).sum(axes) / n - mean * mean
             var = torch.clamp_min(var, 0.0)
             with torch.no_grad():
                 if isinstance(n, float):
@@ -83,8 +93,14 @@ class TorchBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
         c = (1, -1, 1, 1)
-        return ((x - mean.reshape(c)) * (inv * self.weight).reshape(c)
-                + self.bias.reshape(c))
+        if in_dtype == torch.float32:
+            return ((x - mean.reshape(c)) * (inv * self.weight).reshape(c)
+                    + self.bias.reshape(c))
+        # bf16: one folded scale/shift in the compute dtype (JAX
+        # layers.py:123-125), two roundings
+        a = (inv * self.weight).to(in_dtype)
+        b = (self.bias - mean * inv * self.weight).to(in_dtype)
+        return x * a.reshape(c) + b.reshape(c)
 
 
 def apply_dropblock(x: torch.Tensor, seeds: torch.Tensor,
@@ -103,21 +119,35 @@ def apply_dropblock(x: torch.Tensor, seeds: torch.Tensor,
 
 def dropblock(x: torch.Tensor, gamma: torch.Tensor, block_size: int,
               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The seeds and the mask are f32 whatever x's dtype, so a bf16 input
+    comes out f32, as in the JAX package."""
     b, c, h, w = x.shape
     bs = block_size
     u = torch.rand((b, c, h - bs + 1, w - bs + 1), generator=generator,
-                   device=x.device, dtype=x.dtype)
-    return apply_dropblock(x, (u < gamma).to(x.dtype), bs)
+                   device=x.device, dtype=torch.float32)
+    return apply_dropblock(x, (u < gamma).to(torch.float32), bs)
 
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout`` semantics: keep with prob 1-rate, scale kept
-    values by 1/(1-rate)."""
+    values by 1/(1-rate); a bf16 input divides by bf16(1-rate)."""
     keep_prob = 1.0 - rate
     u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=x.dtype)
-    return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
+                   dtype=torch.float32)
+    scale = (keep_prob if x.dtype == torch.float32
+             else torch.tensor(keep_prob, dtype=x.dtype, device=x.device))
+    return torch.where(u < keep_prob, x / scale, torch.zeros_like(x))
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.1).  bf16: ``where(x >= 0, x, x * bf16(0.1))`` as
+    ``jax.nn.leaky_relu`` computes it (``F.leaky_relu`` multiplies by the
+    f32 slope and rounds differently on ~10% of inputs)."""
+    if x.dtype == torch.float32:
+        return F.leaky_relu(x, 0.1)
+    return torch.where(x >= 0, x, x * torch.tensor(0.1, dtype=x.dtype,
+                                                   device=x.device))
 
 
 class SELayer(nn.Module):

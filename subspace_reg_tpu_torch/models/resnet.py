@@ -18,6 +18,11 @@ Each block carries a ``num_batches_tracked`` counter (resnet_language.py:260)
 that advances on train-mode forwards only and drives the DropBlock gamma
 ramp.  It is a buffer under ``layerL.B.num_batches_tracked``; a reference
 checkpoint, which lacks it, loads with the counter at 0.
+
+``dtype=torch.bfloat16`` is the pretraining compute path (JAX
+models/resnet.py ``dtype``): convolution operands are cast to bf16 while
+the parameters stay f32, BN folds into a bf16 affine, and the features are
+pooled in f32.  ``dtype=None`` keeps everything f32.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import (SELayer, TorchBatchNorm, dropblock, dropout,
-                     kaiming_normal_fan_out_, max_pool_torch)
+                     kaiming_normal_fan_out_, leaky_relu, max_pool_torch)
 
 WIDTHS = (64, 160, 320, 640)
 
@@ -58,8 +63,9 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False, drop_rate: float = 0.0,
                  drop_block: bool = False, block_size: int = 1,
-                 use_se: bool = False):
+                 use_se: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.stride = stride
         self.drop_rate = drop_rate
         self.drop_block = drop_block
@@ -85,21 +91,28 @@ class BasicBlock(nn.Module):
                               torch.zeros((), dtype=torch.long))
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
+    def conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """``conv(x)`` with both operands in the compute dtype."""
+        if self.dtype is None:
+            return conv(x)
+        return F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype), None,
+                        1, conv.padding)
+
     def forward(self, x: torch.Tensor,
                 sample_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.training:
             self.num_batches_tracked += 1
-        act = lambda v: F.leaky_relu(v, 0.1)
-        out = act(self.bn1(self.conv1(x), sample_mask))
-        out = act(self.bn2(self.conv2(out), sample_mask))
-        out = self.bn3(self.conv3(out), sample_mask)
+        out = leaky_relu(self.bn1(self.conv(self.conv1, x), sample_mask))
+        out = leaky_relu(self.bn2(self.conv(self.conv2, out), sample_mask))
+        out = self.bn3(self.conv(self.conv3, out), sample_mask)
         if self.se is not None:
             out = self.se(out)
         residual = x
         if self.downsample is not None:
-            residual = self.downsample[1](self.downsample[0](x), sample_mask)
-        out = max_pool_torch(act(out + residual), self.stride)
+            residual = self.downsample[1](self.conv(self.downsample[0], x),
+                                          sample_mask)
+        out = max_pool_torch(leaky_relu(out + residual), self.stride)
 
         if self.drop_rate > 0 and self.training:
             if self.drop_block:
@@ -141,8 +154,13 @@ class ResNetRFS(nn.Module):
     def __init__(self, n_blocks: Sequence[int] = (1, 1, 1, 1),
                  drop_rate: float = 0.0, dropblock_size: int = 5,
                  no_dropblock: bool = False, use_se: bool = False,
-                 avg_pool: bool = True, widths: Sequence[int] = WIDTHS):
+                 avg_pool: bool = True, widths: Sequence[int] = WIDTHS,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
+        self.n_blocks = tuple(n_blocks)
+        self.use_se = use_se
+        self.drop_rate = drop_rate
         self.avg_pool = avg_pool
         self.widths = tuple(widths)
         block_size = 1 if no_dropblock else dropblock_size
@@ -156,7 +174,7 @@ class ResNetRFS(nn.Module):
                                        block_size=block_size, use_se=use_se)
             blocks = []
             for spec in specs:
-                blocks.append(BasicBlock(inplanes, **spec))
+                blocks.append(BasicBlock(inplanes, **spec, dtype=dtype))
                 inplanes = planes
             setattr(self, f"layer{li + 1}", nn.ModuleList(blocks))
         self.n_stages = len(n_blocks)
@@ -168,9 +186,20 @@ class ResNetRFS(nn.Module):
     def forward(self, x: torch.Tensor,
                 sample_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         for li in range(self.n_stages):
             for block in getattr(self, f"layer{li + 1}"):
                 x = block(x, sample_mask, generator)
+        return self.pool(x)
+
+    def blocks(self):
+        """Every BasicBlock, stage by stage."""
+        for li in range(self.n_stages):
+            yield from getattr(self, f"layer{li + 1}")
+
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The last stage's map -> features."""
         if self.avg_pool:
             # pool in f32: 640-d feature fidelity matters downstream
             return x.to(torch.float32).mean((2, 3))
@@ -180,11 +209,11 @@ class ResNetRFS(nn.Module):
 def _factory(n_blocks, use_se=False):
     def build(avg_pool: bool = False, drop_rate: float = 0.0,
               dropblock_size: int = 5, no_dropblock: bool = False,
-              widths: Sequence[int] = WIDTHS, **_) -> ResNetRFS:
+              widths: Sequence[int] = WIDTHS, dtype=None, **_) -> ResNetRFS:
         return ResNetRFS(n_blocks=n_blocks, drop_rate=drop_rate,
                          dropblock_size=dropblock_size,
                          no_dropblock=no_dropblock, use_se=use_se,
-                         avg_pool=avg_pool, widths=widths)
+                         avg_pool=avg_pool, widths=widths, dtype=dtype)
     return build
 
 

@@ -1,0 +1,203 @@
+"""Supervised backbone pretraining CLI of the port -- flag-compatible with
+the repo's ``train_supervised.py`` (reference train_supervised.py:38-202),
+plus ``--device`` (default ``cuda``; ``cpu`` runs the plain versions):
+
+  python -m subspace_reg_tpu_torch.train_supervised --trial pretrain \
+      --model_path save --tb_path tb --data_root data --classifier linear \
+      --model resnet18 --save_freq 100 --continual --no_dropblock \
+      --no_linear_bias --set_seed 1
+
+miniImageNet, continual or not.  The dataset lives on the device and each
+step gathers its batch there (the device-data path).  The step is the
+module path in bf16, as the JAX CLI builds it; the fused stages 1-2 (K2/K3)
+are reached through ``engine.pretrain.make_train_step(fused=True)``.
+Checkpoints are reference ``.pth`` files (``<model>_last.pth``,
+``ckpt_epoch_<e>.pth``), which the port's and the JAX package's loaders
+read.  Not ported yet, and refused: ``--reload_path``, distillation, other
+datasets, the mesh and the host-streamed loader (ROADMAP.md queue A).
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .config import parse_option_supervised
+from .data.mini_imagenet import load_mini_imagenet
+from .data.transforms import transforms_options
+from .engine import pretrain as pt
+from .engine.draws import TorchDraws
+from .models.factory import create_model
+from .utils import optim as optim_lib
+from .utils.device import resolve_device
+from .utils.logging import AverageMeter, MetricWriter
+from .weights import save_checkpoint
+
+# the JAX CLI stages a dataset up to this size on the device and streams
+# larger ones from the host (PrefetchLoader), which is not ported
+DEVICE_DATA_MAX_BYTES = 2 * 1024 ** 3
+
+
+def _refuse_unported(opt) -> None:
+    if opt.dataset != "miniImageNet":
+        raise NotImplementedError(
+            f"dataset {opt.dataset}: only miniImageNet pretraining is ported")
+    if opt.reload_path:
+        raise NotImplementedError("--reload_path (resume) is not ported yet")
+    if opt.distill != "none":
+        raise NotImplementedError(f"--distill {opt.distill} is not ported "
+                                  "yet")
+
+
+def main(argv=None):
+    opt = parse_option_supervised(argv)
+    _refuse_unported(opt)
+    device = resolve_device(opt.device)
+    print("************* Training arguments *************")
+    for k, v in vars(opt).items():
+        print(k, v)
+    print("End of arguments.\n")
+
+    np.random.seed(opt.set_seed)
+
+    # ---- data -----------------------------------------------------------
+    train_split = load_mini_imagenet(opt, split="train", phase="train")
+    val_split = load_mini_imagenet(opt, split="train", phase="val")
+    n_cls = 80 if opt.use_trainval else (60 if opt.continual else 64)
+    train_spec, test_spec = transforms_options[opt.transform]
+    train_labels = np.asarray(train_split.labels, np.int64)
+    val_labels = np.asarray(val_split.labels, np.int64)
+    n_train = len(train_labels)
+    steps_per_epoch = n_train // opt.batch_size
+
+    # ---- label-pull embeddings (train_supervised.py:100-118) -----------
+    pull_embeds = None
+    if opt.label_pull is not None:
+        from .models.embeds import get_embeds
+        vocab = [n for n in train_split.label2human if n != ""]
+        pth = os.path.join(opt.word_embed_path,
+                           f"{opt.dataset}_dim{opt.word_embed_size}.pickle")
+        e = np.asarray(get_embeds(pth, vocab, opt.word_embed_size),
+                       np.float32)
+        if opt.glove:
+            e = e[:, :300]
+        pull_embeds = torch.from_numpy(e).to(device)
+
+    # ---- model / optimizer ---------------------------------------------
+    torch.manual_seed(opt.set_seed)
+    backbone = create_model(opt.model, opt, dataset=opt.dataset,
+                            dtype=torch.bfloat16)
+    if opt.cosine:
+        sched = optim_lib.cosine_schedule(
+            opt.learning_rate, opt.lr_decay_rate, opt.epochs,
+            steps_per_epoch)
+    else:
+        sched = optim_lib.step_decay_schedule(
+            opt.learning_rate, opt.lr_decay_epochs_list, opt.lr_decay_rate,
+            steps_per_epoch)
+    if opt.adam:
+        tx = functools.partial(optim_lib.adam_torch,
+                               learning_rate=opt.learning_rate,
+                               weight_decay=optim_lib.ADAM_WEIGHT_DECAY)
+    else:
+        tx = functools.partial(optim_lib.sgd_torch,
+                               learning_rate=opt.learning_rate,
+                               momentum=opt.momentum,
+                               weight_decay=opt.weight_decay)
+    state = pt.init_pretrain_state(
+        backbone, n_cls, tx, with_bias=opt.linear_bias,
+        generator=torch.Generator().manual_seed(opt.set_seed),
+        device=device)
+    step = pt.make_train_step_device_data(
+        backbone, sched, train_spec, with_bias=opt.linear_bias,
+        draws=TorchDraws(opt.set_seed, device), label_pull=opt.label_pull,
+        pull_embeds=pull_embeds)
+    eval_step = pt.make_eval_step(backbone, test_spec,
+                                  with_bias=opt.linear_bias,
+                                  faithful_nbt=opt.faithful_nbt)
+
+    logger = MetricWriter(opt.tb_folder)
+    rng_np = np.random.RandomState(opt.set_seed)
+
+    # the dataset on the device: each step sends only its index vector
+    if train_split.imgs.nbytes > DEVICE_DATA_MAX_BYTES:
+        raise NotImplementedError(
+            f"a {train_split.imgs.nbytes / 1e9:.1f} GB training split needs "
+            "the host-streamed loader, which is not ported yet")
+    print(f"==> staging dataset on {device} "
+          f"({train_split.imgs.nbytes / 1e6:.0f} MB)")
+    data_dev = torch.from_numpy(np.ascontiguousarray(train_split.imgs)).to(
+        device)
+    labels_dev = torch.from_numpy(train_labels).to(device)
+    val_dev = torch.from_numpy(np.ascontiguousarray(val_split.imgs)).to(
+        device)
+
+    def save(epoch, final=False):
+        meta = {}
+        if opt.continual:
+            meta = dict(training_classes=train_split.basec_map,
+                        label2human=train_split.label2human)
+        name = (f"{opt.model}_last.pth" if final
+                else f"ckpt_epoch_{epoch}.pth")
+        save_checkpoint(os.path.join(opt.save_folder, name), backbone,
+                        state.head["w"], state.head.get("b"), epoch=epoch,
+                        **meta)
+        print("==> Saved", name)
+
+    # ---- training loop (train_supervised.py:156-202) --------------------
+    for epoch in range(1, opt.epochs + 1):
+        if not opt.eval_only:
+            print("==> training...")
+            t0 = time.time()
+            lm, a1m, a5m = AverageMeter(), AverageMeter(), AverageMeter()
+            n_img = 0
+            for bi, idxs in enumerate(pt.epoch_batches(
+                    rng_np, n_train, opt.batch_size)):
+                idx_dev = torch.from_numpy(idxs).to(device)
+                m = step(state, data_dev, labels_dev, idx_dev)
+                bsz = len(idxs)
+                n_img += bsz
+                if bi % opt.print_freq == 0:
+                    lm.update(float(m["loss"]), bsz)
+                    a1m.update(float(m["acc1"]), bsz)
+                    a5m.update(float(m["acc5"]), bsz)
+                    print(f"Epoch: [{epoch}][{bi}/{steps_per_epoch}]\t"
+                          f"Loss {lm.val:.4f} ({lm.avg:.4f})\t"
+                          f"Acc@1 {a1m.val:.3f} ({a1m.avg:.3f})\t"
+                          f"Acc@5 {a5m.val:.3f} ({a5m.avg:.3f})")
+                    sys.stdout.flush()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.time() - t0
+            ips = n_img / dt
+            print(f"epoch {epoch}, total time {dt:.2f}, "
+                  f"images/sec {ips:.1f}")
+            print(f" * Acc@1 {a1m.avg:.3f} Acc@5 {a5m.avg:.3f}")
+            logger.log_value("train_acc", a1m.avg, epoch)
+            logger.log_value("train_loss", lm.avg, epoch)
+            logger.log_value("images_per_sec", ips, epoch)
+
+        vm = pt.run_validation(eval_step, state, val_dev, val_labels,
+                               opt.batch_size // 2)
+        if opt.faithful_nbt:
+            vm, state = vm
+        print(f" * Val Acc@1 {vm['acc1']:.3f} Acc@5 {vm['acc5']:.3f}")
+        logger.log_value("test_acc", vm["acc1"], epoch)
+        logger.log_value("test_acc_top5", vm["acc5"], epoch)
+        logger.log_value("test_loss", vm["loss"], epoch)
+
+        if epoch % opt.save_freq == 0:
+            save(epoch)
+
+    save(opt.epochs, final=True)
+    logger.close()
+    return state
+
+
+if __name__ == "__main__":
+    main()

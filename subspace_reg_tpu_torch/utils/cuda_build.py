@@ -23,7 +23,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"finetune_loop": "finetune_loop.cu"}
+SOURCES = {"finetune_loop": "finetune_loop.cu",
+           "conv3x3_fused": "conv3x3_fused.cu",
+           "block_tail": "block_tail.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

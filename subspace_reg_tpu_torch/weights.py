@@ -8,8 +8,14 @@ reads a reference ``.pth`` (``{"model": state_dict, "training_classes":
 ..., "label2human": ...}``, train_supervised.py:180-202), whose state dict
 loads through ``load_state_dict`` unchanged.
 
-Reading the JAX package's own ``.ckpt`` format (flax msgpack) is still to be
-ported (ROADMAP.md queue A).
+``save_checkpoint`` writes that same ``.pth`` layout from a trained
+backbone and head, so the port's ``load_checkpoint`` and the JAX package's
+``utils/torch_import.py::import_checkpoint`` both read what pretraining
+saves.
+
+Reading and writing the JAX package's own ``.ckpt`` format (flax msgpack,
+utils/checkpoint.py:73-132) is still to be ported (ROADMAP.md queue A
+item 1).
 """
 
 from __future__ import annotations
@@ -111,3 +117,25 @@ def load_checkpoint(path: str, max_classes: Optional[int] = None):
         "has_bias": "classifier.bias" in sd,
     }
     return backbone, head, meta
+
+
+def save_checkpoint(path: str, backbone: torch.nn.Module,
+                    head_w: torch.Tensor,
+                    head_b: Optional[torch.Tensor] = None,
+                    training_classes: Optional[Dict[int, int]] = None,
+                    label2human=None, epoch: Optional[int] = None) -> None:
+    """Write ``{"model": state_dict, "training_classes", "label2human",
+    "epoch"}`` (reference train_supervised.py:180-202): the backbone's keys
+    plus ``classifier.weight`` (and ``classifier.bias``); the class metadata
+    only when given, as the continual protocol gives it."""
+    sd = {k: v.detach().cpu().clone() for k, v in
+          backbone.state_dict().items()}
+    sd["classifier.weight"] = head_w.detach().to(torch.float32).cpu().clone()
+    if head_b is not None:
+        sd["classifier.bias"] = head_b.detach().to(torch.float32).cpu().clone()
+    ckpt: Dict[str, Any] = {"model": sd, "epoch": epoch}
+    if training_classes is not None:
+        ckpt["training_classes"] = training_classes
+    if label2human is not None:
+        ckpt["label2human"] = label2human
+    torch.save(ckpt, path)

@@ -1,0 +1,342 @@
+"""The port's pretraining engine (subspace_reg_tpu_torch/engine/pretrain.py
+and what it runs) against the JAX package on the CPU, at a narrow resnet18
+(widths 8/16/24/32, 16 px, batch 8), on the same weights, batch and
+augmentation draws (the JAX step's own ``jax.random`` draws, injected).
+
+Tolerances:
+* bf16 elementwise rounding (LeakyReLU, the dropout scale, the folded BN in
+  eval mode): bit-identical;
+* f32 module-path steps (drop rate 0): loss at rtol 1e-4; every updated
+  parameter at rtol 1e-4 with atol 1e-4 of the leaf's largest value, and
+  the running statistics at atol 1e-4 (the single-pass BN variance
+  E[x^2] - mean^2 cancels, which amplifies the different sum orders of the
+  two convolution libraries in the BN gradients); counters exact;
+* a bf16 step: loss within 1%; per parameter, the port-vs-JAX update
+  difference at most 3x that of JAX's step from weights perturbed by 0.4%
+  (bf16's half ulp), or 2% of the update -- the chaos control of
+  tests/test_fused_forward.py, since bf16 rounds at other places in the
+  two convolution libraries and this narrow geometry amplifies it;
+* the port's fused step against its module step: the chaos-control
+  envelope of tests/test_fused_forward.py (``chip_smoke.step_agreement``);
+* schedules: rtol 1e-6 and atol 1e-8 (JAX evaluates them in f32);
+* validation metrics: rtol 1e-5, accuracies exact.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from chip_smoke import pretrain_backbone, pretrain_data, step_agreement
+from subspace_reg_tpu.data.transforms import transforms_options as jax_tf
+from subspace_reg_tpu.engine import pretrain as jpt
+from subspace_reg_tpu.models import layers as jlayers
+from subspace_reg_tpu.models.fused_forward import _dropout as jax_dropout
+from subspace_reg_tpu.models.resnet import ResNetRFS as JaxResNet
+from subspace_reg_tpu.utils import optim as joptim
+from subspace_reg_tpu.utils.torch_import import import_checkpoint
+from subspace_reg_tpu_torch.data.transforms import transforms_options
+from subspace_reg_tpu_torch.engine import pretrain as pt
+from subspace_reg_tpu_torch.models.layers import (TorchBatchNorm, dropout,
+                                                  leaky_relu)
+from subspace_reg_tpu_torch.models.resnet import ResNetRFS
+from subspace_reg_tpu_torch.ops.augment import AugmentDraws
+from subspace_reg_tpu_torch.utils import optim
+from subspace_reg_tpu_torch.weights import (from_jax_variables,
+                                            load_checkpoint,
+                                            save_checkpoint)
+
+WIDTHS = (8, 16, 24, 32)
+N_CLS, IMG, BATCH, SEED = 12, 16, 8, 1
+LR, SPE = 0.05, 10
+
+
+class JaxPretrainDraws:
+    """The JAX step's draws: ``split(fold_in(PRNGKey(seed), step))`` into
+    the augmentation and dropout keys, then augment_batch's own calls."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def pretrain_augment(self, step, n, spec):
+        k_aug, _ = jax.random.split(jax.random.fold_in(self.key, step))
+        kcrop, kflip, kjit = jax.random.split(k_aug, 3)
+        off = jax.random.randint(kcrop, (n, 2), 0, 2 * spec.padding + 1)
+        flip = jax.random.bernoulli(kflip, shape=(n,))
+        korder, kf = jax.random.split(kjit)
+        lo, hi = 1.0 - spec.color_jitter, 1.0 + spec.color_jitter
+        factors = jax.random.uniform(kf, (n, 3), minval=lo, maxval=hi)
+        order = jnp.argsort(jax.random.uniform(korder, (n, 3)), axis=1)
+        t = lambda a, dt: torch.from_numpy(np.asarray(a).astype(dt))
+        return AugmentDraws(offsets=t(off, np.int64), flip=t(flip, bool),
+                            jitter_factors=t(factors, np.float32),
+                            jitter_order=t(order, np.int64))
+
+    def pretrain_dropout(self, step):
+        return None                  # drop rate 0 on both sides
+
+
+def _batch(seed=0):
+    r = np.random.RandomState(seed)
+    x = r.randint(0, 256, size=(BATCH, IMG, IMG, 3)).astype(np.uint8)
+    y = r.randint(0, N_CLS, size=(BATCH,)).astype(np.int32)
+    return x, y
+
+
+def _pair(dtype, with_bias=False):
+    """A JAX state and the port's state holding the same weights."""
+    jbb = JaxResNet(n_blocks=(1, 1, 2, 2), drop_rate=0.0, no_dropblock=True,
+                    avg_pool=True, widths=WIDTHS,
+                    dtype=None if dtype == torch.float32 else jnp.bfloat16)
+    sched_j = joptim.step_decay_schedule(LR, [60, 80], 0.1, SPE)
+    tx = joptim.sgd_torch(sched_j, momentum=0.9, weight_decay=5e-4)
+    js = jpt.init_pretrain_state(jbb, jax.random.PRNGKey(0), N_CLS, IMG, tx,
+                                 with_bias=with_bias)
+    bb = ResNetRFS(n_blocks=(1, 1, 2, 2), drop_rate=0.0, no_dropblock=True,
+                   avg_pool=True, widths=WIDTHS,
+                   dtype=None if dtype == torch.float32 else dtype)
+    bb.load_state_dict(from_jax_variables(jax.tree.map(np.asarray, {
+        "params": js.params["backbone"], "batch_stats": js.batch_stats,
+        "counters": js.counters})))
+    tx_t = functools.partial(optim.sgd_torch, learning_rate=LR,
+                             momentum=0.9, weight_decay=5e-4)
+    ts = pt.init_pretrain_state(bb, N_CLS, tx_t, with_bias, device="cpu")
+    with torch.no_grad():
+        ts.head["w"].copy_(torch.from_numpy(np.array(js.params["head"]["w"])))
+        if with_bias:
+            ts.head["b"].copy_(torch.from_numpy(
+                np.array(js.params["head"]["b"])))
+    return jbb, tx, js, bb, ts
+
+
+def _jax_sd(js, with_bias):
+    """The JAX state as the port's state dict (plus the head)."""
+    sd = from_jax_variables(jax.tree.map(np.asarray, {
+        "params": js.params["backbone"], "batch_stats": js.batch_stats,
+        "counters": js.counters}))
+    sd["head.w"] = torch.from_numpy(np.array(js.params["head"]["w"]))
+    if with_bias:
+        sd["head.b"] = torch.from_numpy(np.array(js.params["head"]["b"]))
+    return sd
+
+
+def _port_sd(ts):
+    sd = dict(ts.backbone.state_dict())
+    sd.update({f"head.{k}": v.detach() for k, v in ts.head.items()})
+    return sd
+
+
+@pytest.mark.parametrize("with_bias,pull", [(False, None), (True, 0.5)])
+def test_f32_module_steps_match_jax(with_bias, pull):
+    jbb, tx, js, bb, ts = _pair(torch.float32, with_bias)
+    spec_j, _ = jax_tf["A"]
+    spec, _ = transforms_options["A"]
+    embeds = None
+    if pull is not None:
+        embeds = np.random.RandomState(4).standard_normal(
+            (N_CLS, 6)).astype(np.float32)
+    step_j = jpt.make_train_step(jbb, tx, spec_j, with_bias=with_bias,
+                                 label_pull=pull,
+                                 pull_embeds=None if embeds is None
+                                 else jnp.asarray(embeds))
+    step = pt.make_train_step(bb, optim.step_decay_schedule(
+        LR, [60, 80], 0.1, SPE), spec, with_bias, JaxPretrainDraws(SEED),
+        label_pull=pull,
+        pull_embeds=None if embeds is None else torch.from_numpy(embeds))
+    key = jax.random.PRNGKey(SEED)
+    for i in range(2):               # the second step runs on momentum
+        x, y = _batch(i)
+        js, mj = step_j(js, jnp.asarray(x), jnp.asarray(y), key)
+        m = step(ts, torch.from_numpy(x), torch.from_numpy(y).long())
+        assert float(m["loss"]) == pytest.approx(float(mj["loss"]),
+                                                 rel=1e-4)
+        assert float(m["acc1"]) == float(mj["acc1"])
+    ref, got = _jax_sd(js, with_bias), _port_sd(ts)
+    n = 0
+    for k, v in ref.items():
+        if k.endswith("num_batches_tracked"):
+            assert int(got[k]) == int(v) == 2, k
+        elif "running" in k:
+            np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0,
+                                       atol=1e-4, err_msg=k)
+        else:
+            np.testing.assert_allclose(
+                got[k].numpy(), v.numpy(), rtol=1e-4,
+                atol=1e-4 * float(v.abs().max()), err_msg=k)
+            n += 1
+    # 22 convolutions and 22 BNs' two vectors in 6 blocks, and the head
+    assert n == 67 + (1 if with_bias else 0)
+
+
+def test_bf16_step_inside_the_envelope():
+    jbb, tx, js, bb, ts = _pair(torch.bfloat16)
+    spec_j, _ = jax_tf["A"]
+    spec, _ = transforms_options["A"]
+    p0 = {k: v.clone() for k, v in _jax_sd(js, False).items()}
+    # the control: JAX's step from half-ulp-perturbed weights
+    r = np.random.RandomState(5)
+    pert = jax.tree.map(lambda p: jnp.asarray(
+        np.asarray(p) * (1.0 + 0.004 * r.standard_normal(p.shape)),
+        jnp.float32), js.params)
+    # a deep copy: the JAX step donates its state
+    js_ctl = jax.tree.map(jnp.copy, js).replace(params=pert)
+    p0_ctl = {k: v.clone() for k, v in _jax_sd(js_ctl, False).items()}
+    step_j = jpt.make_train_step(jbb, tx, spec_j, with_bias=False)
+    step = pt.make_train_step(bb, None, spec, False, JaxPretrainDraws(SEED))
+    x, y = _batch()
+    key = jax.random.PRNGKey(SEED)
+    js_ctl, _ = step_j(js_ctl, jnp.asarray(x), jnp.asarray(y), key)
+    js, mj = step_j(js, jnp.asarray(x), jnp.asarray(y), key)
+    m = step(ts, torch.from_numpy(x), torch.from_numpy(y).long())
+    assert float(m["loss"]) == pytest.approx(float(mj["loss"]), rel=1e-2)
+    ref, got = _jax_sd(js, False), _port_sd(ts)
+    ctl = _jax_sd(js_ctl, False)
+    for k, v0 in p0.items():
+        if "running" in k or k.endswith("num_batches_tracked"):
+            continue
+        u_ref, u_got = ref[k] - v0, got[k] - v0
+        u_ctl = ctl[k] - p0_ctl[k]
+        d = float((u_got - u_ref).norm())
+        allow = max(3.0 * float((u_ctl - u_ref).norm()),
+                    0.02 * float(u_ref.norm()))
+        assert d <= allow, (k, d, allow)
+
+
+def test_bf16_elementwise_rounding_is_bit_exact():
+    r = np.random.RandomState(0)
+    v = r.standard_normal((4, 16, 8, 8)).astype(np.float32)
+    xj = jnp.asarray(v.transpose(0, 2, 3, 1), jnp.bfloat16)
+    xt = torch.from_numpy(v).to(torch.bfloat16)
+    nhwc = lambda t: t.float().permute(0, 2, 3, 1).numpy()
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+    # LeakyReLU: jax.nn.leaky_relu on bf16
+    np.testing.assert_array_equal(nhwc(leaky_relu(xt)),
+                                  f32(jax.nn.leaky_relu(xj, 0.1)))
+    # dropout: kept values divided by bf16(keep), as the JAX fused path's
+    # dropout (and flax nn.Dropout) divide; the masks differ by generator,
+    # so the values are compared where both kept
+    out = nhwc(dropout(xt, 0.1, torch.Generator().manual_seed(0)))
+    ref = f32(jax_dropout(jax.random.PRNGKey(0), xj, 0.1))
+    both = (out != 0) & (ref != 0)
+    assert both.mean() > 0.75
+    np.testing.assert_array_equal(out[both], ref[both])
+    # folded BN in eval mode: bf16 scale and shift, two roundings
+    c = 16
+    bn = TorchBatchNorm(c).eval()
+    stats = {"mean": r.standard_normal(c).astype(np.float32),
+             "var": r.uniform(0.5, 2.0, c).astype(np.float32)}
+    params = {"scale": r.uniform(0.5, 1.5, c).astype(np.float32),
+              "bias": (0.1 * r.standard_normal(c)).astype(np.float32)}
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(params["scale"]))
+        bn.bias.copy_(torch.from_numpy(params["bias"]))
+        bn.running_mean.copy_(torch.from_numpy(stats["mean"]))
+        bn.running_var.copy_(torch.from_numpy(stats["var"]))
+    ref = jlayers.TorchBatchNorm(c).apply(
+        {"params": params, "batch_stats": stats}, xj, False)
+    with torch.no_grad():
+        got = bn(xt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(nhwc(got), f32(ref))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_fused_step_agrees_with_module_step(backend):
+    data, labels = pretrain_data("cpu", n_cls=N_CLS, per_class=4, img=IMG)
+    idxs = torch.from_numpy(np.random.RandomState(0).randint(
+        0, len(labels), BATCH))
+    l_ref, l_fus, worst = step_agreement(
+        "cpu", pretrain_backbone(widths=WIDTHS), data, labels, idxs,
+        backend=backend, n_cls=N_CLS)
+    assert worst <= 1.0 and abs(l_fus - l_ref) <= 0.03 * abs(l_ref)
+
+
+def test_fused_forward_counts_and_refuses_unfusable():
+    bb = pretrain_backbone(widths=WIDTHS)
+    ts = pt.init_pretrain_state(bb, N_CLS, functools.partial(
+        optim.sgd_torch, learning_rate=LR), False, device="cpu")
+    spec, _ = transforms_options["A"]
+    draws = JaxPretrainDraws(SEED)
+    draws.pretrain_dropout = lambda s: torch.Generator().manual_seed(s)
+    step = pt.make_train_step(bb, None, spec, False, draws, fused=True,
+                              fused_backend="pallas")
+    x, y = _batch()
+    step(ts, torch.from_numpy(x), torch.from_numpy(y).long())
+    assert all(int(b.num_batches_tracked) == 1 for b in bb.blocks())
+    bf32 = ResNetRFS(n_blocks=(1, 1, 2, 2), widths=WIDTHS)
+    ts32 = pt.init_pretrain_state(bf32, N_CLS, functools.partial(
+        optim.sgd_torch, learning_rate=LR), False, device="cpu")
+    with pytest.raises(ValueError, match="bf16"):
+        pt.make_train_step(bf32, None, spec, False, draws, fused=True)(
+            ts32, torch.from_numpy(x), torch.from_numpy(y).long())
+    with pytest.raises(NotImplementedError):
+        pt.make_train_step(bb, None, spec, False, draws, teacher=object())
+    for unported in (pt.make_train_step_nce, pt.init_nce_training):
+        with pytest.raises(NotImplementedError, match="NCE"):
+            unported(bb)
+
+
+@pytest.mark.parametrize("cosine", [False, True])
+def test_schedules_match_jax_at_every_epoch_boundary(cosine):
+    epochs, spe = 100, 7
+    if cosine:
+        ref = joptim.cosine_schedule(LR, 0.1, epochs, spe)
+        got = optim.cosine_schedule(LR, 0.1, epochs, spe)
+    else:
+        ref = joptim.step_decay_schedule(LR, [60, 80], 0.1, spe)
+        got = optim.step_decay_schedule(LR, [60, 80], 0.1, spe)
+    steps = sorted({s for e in range(epochs + 1)
+                    for s in (e * spe - 1, e * spe) if s >= 0})
+    for s in steps:
+        assert got(s) == pytest.approx(float(ref(s)), rel=1e-6, abs=1e-8), s
+
+
+@pytest.mark.parametrize("faithful", [False, True])
+def test_eval_step_and_validation_match_jax(faithful):
+    jbb, _, js, bb, ts = _pair(torch.float32)
+    _, spec_j = jax_tf["A"]
+    _, spec = transforms_options["A"]
+    r = np.random.RandomState(9)
+    imgs = r.randint(0, 256, size=(10, IMG, IMG, 3)).astype(np.uint8)
+    labels = r.randint(0, N_CLS, size=(10,)).astype(np.int32)
+    ev_j = jpt.make_eval_step(jbb, spec_j, with_bias=False,
+                              faithful_nbt=faithful)
+    ev = pt.make_eval_step(bb, spec, with_bias=False, faithful_nbt=faithful)
+    ref = jpt.run_validation(ev_j, js, imgs, labels, 4)
+    got = pt.run_validation(ev, ts, imgs, labels, 4)
+    if faithful:
+        (ref, js), (got, ts) = ref, got
+        counters = jax.tree_util.tree_leaves(js.counters)
+        assert [int(c) for c in counters] == [
+            int(b.num_batches_tracked) for b in bb.blocks()] == [3] * 6
+    assert got["loss"] == pytest.approx(ref["loss"], rel=1e-5)
+    assert got["acc1"] == ref["acc1"] and got["acc5"] == ref["acc5"]
+
+
+def test_saved_pth_reads_back_in_both_packages(tmp_path):
+    bb = pretrain_backbone(widths=WIDTHS)
+    w = torch.randn(N_CLS, WIDTHS[-1])
+    path = str(tmp_path / "resnet18_last.pth")
+    save_checkpoint(path, bb, w, training_classes={3: 0, 7: 1},
+                    label2human=["a", "b"], epoch=4)
+    variables, head, meta = import_checkpoint(path, device=False)
+    assert meta["epoch"] == 4 and meta["training_classes"] == {3: 0, 7: 1}
+    assert meta["label2human"] == ["a", "b"] and not meta["has_bias"]
+    np.testing.assert_array_equal(np.asarray(head.weight), w.numpy())
+    sd = bb.state_dict()
+    back = from_jax_variables(variables)
+    assert set(back) == {k for k in sd if not k.endswith(
+        "num_batches_tracked")}
+    for k, v in back.items():
+        np.testing.assert_array_equal(v.numpy(), sd[k].float().numpy(), k)
+    sd_t, head_t, meta_t = load_checkpoint(path)
+    assert meta_t["epoch"] == 4 and head_t.bias is None
+    torch.testing.assert_close(head_t.weight, w, rtol=0, atol=0)
+    again = ResNetRFS(n_blocks=(1, 1, 2, 2), widths=WIDTHS)
+    again.load_state_dict(sd_t)
+    for k, v in again.state_dict().items():
+        assert torch.equal(v, sd[k]), k
