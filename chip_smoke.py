@@ -9,7 +9,9 @@ Phases; any failure raises and the script exits non-zero:
   1. device   the card's name and count, ``nvidia-smi``'s name and power
               limit; TF32 off for matmuls and cuDNN convolutions.
   2. build    every CUDA kernel of the port from csrc/, one nvcc per source,
-              all started together; build seconds and ``-Xptxas -v``.
+              all started together; build seconds, ``-Xptxas -v`` and each
+              library's count of HGMMA (wgmma) instructions in its SASS
+              (``cuobjdump -sass``; K2's must be above 0).
   3. kernels  K1 (the fused head fine-tune loop) against its plain torch
               version on the card at the main path's shapes (100 classes,
               D=640, 185 support rows, 200 replay rows; the last session's
@@ -45,11 +47,17 @@ Phases; any failure raises and the script exits non-zero:
               synthetic images) to a saved ``.pth``, read back.
 
 Phase 3 also holds K2 and K3 against their plain versions at every shape
-of the fused step (K2 within 1 bf16 ulp, K3 bit-identical) and times them
-beside ``F.conv2d``.  The line before the last is one JSON object with each
-kernel's launches on its path, its error against the plain version, its
-time, the plain version's time, its roofline bound and the library call's
-time; the last line is ``{"ok": true, "device": ...}``.
+of the fused step (K2 within 1 bf16 ulp, K3 bit-identical) and K2 at
+ragged and edge shapes (``K2_EDGE_SHAPES``), checks that K2 at 160->160
+reruns bit-identically, and times them beside ``F.conv2d`` (each K2
+shape's share of its bound and ratio to ``F.conv2d``).  The line before
+the last is one JSON object with each kernel's launches on its path, its
+error against the plain version, its time, the plain version's time, its
+roofline bound and the library call's time; the last line is
+``{"ok": true, "device": ...}``.
+
+``--only-kernels`` stops after phase 3 for quick iteration on a kernel: it
+prints the kernels line (launches null) and no ok line.
 """
 
 from __future__ import annotations
@@ -186,6 +194,17 @@ K2_SHAPES = (("stage1 3->64", 3, 64, 84, False),
 # (name, C, H = W) of the two block tails
 K3_SHAPES = (("stage1", 64, 84), ("stage2", 160, 42))
 BATCH = 64
+# (name, Cin, Cout, H = W, prologue, batch): ragged tiles, a one-pixel
+# image, the scalar halo path (Cin not a multiple of 8), channel padding
+# (Cin not a multiple of 16) and output widths padded up to 64 or 160
+K2_EDGE_SHAPES = (("13x13 b1 64->64", 64, 64, 13, True, 1),
+                  ("13x13 b1 160->160", 160, 160, 13, True, 1),
+                  ("13x13 b2 3->64", 3, 64, 13, False, 2),
+                  ("42x42 b8 160->8", 160, 8, 42, True, 8),
+                  ("21x21 b2 64->96", 64, 96, 21, True, 2),
+                  ("9x9 b2 24->40", 24, 40, 9, True, 2),
+                  ("7x7 b2 5->16", 5, 16, 7, True, 2),
+                  ("1x1 b3 3->8", 3, 8, 1, False, 3))
 
 
 def k2_case(cin: int, cout: int, hw: int, prologue: bool, device,
@@ -255,6 +274,25 @@ def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor, floor=None):
     ulp = torch.exp2(e - 7)
     d = (a - b).abs() / ulp
     return float(d.max()), float((a != b).to(torch.float32).mean())
+
+
+def k2_agreement(x, w, aff, pro: bool):
+    """K2 against its plain version on one input: (y, stats, max ulps,
+    share of elements that differ, statistics relative error, max |dy|).
+    The statistics are held to the sums of the kernel's own rounded y."""
+    from subspace_reg_tpu_torch.ops import conv_fused as cf
+    y, st = cf.conv3x3_fused(x, w, aff, relu_in=pro)
+    yp, _ = cf.conv3x3_fused_plain(x, w, aff, relu_in=pro)
+    torch.cuda.synchronize()
+    check(y.shape == yp.shape and y.is_contiguous(
+        memory_format=torch.channels_last), "K2 output shape or layout")
+    ulps, share = bf16_ulp_diff(y, yp, k2_term_scale(x, w, aff, pro))
+    yf = y.double()
+    ref = torch.stack([yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))])
+    scale = torch.stack([yf.abs().sum((0, 2, 3)), ref[1]]).clamp_min(1e-30)
+    st_err = float(((st.double() - ref).abs() / scale).max())
+    err = float((y.float() - yp.float()).abs().max())
+    return y, st, ulps, share, st_err, err
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -335,22 +373,28 @@ def phase_k2_k3():
     k2 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
               max_abs_err=0.0, shapes=[])
     ops_ms = bytes_ms = 0.0
+    for name, cin, cout, hw, pro, batch in K2_EDGE_SHAPES:
+        x, w, aff = k2_case(cin, cout, hw, pro, dev, batch=batch)
+        _, _, ulps, share, st_err, err = k2_agreement(x, w, aff, pro)
+        print(f"[kernels] K2 edge {name}: {ulps:.2f} ulp max, "
+              f"{100 * share:.4f}% of y differ, max |dy| {err:.3e}, stats "
+              f"rel err {st_err:.2e}")
+        check(ulps <= 1.0 and share <= 1e-3,
+              f"K2 edge {name}: {ulps} ulp, {share} of elements differ")
+        check(st_err <= 1e-4, f"K2 edge {name}: stats rel err {st_err}")
     for name, cin, cout, hw, pro in K2_SHAPES:
         x, w, aff = k2_case(cin, cout, hw, pro, dev)
-        y, st = cf.conv3x3_fused(x, w, aff, relu_in=pro)
-        yp, stp = cf.conv3x3_fused_plain(x, w, aff, relu_in=pro)
-        torch.cuda.synchronize()
-        ulps, share = bf16_ulp_diff(y, yp, k2_term_scale(x, w, aff, pro))
-        yf = y.double()
-        ref = torch.stack([yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))])
-        scale = torch.stack([yf.abs().sum((0, 2, 3)), ref[1]])
-        st_err = float(((st.double() - ref).abs() / scale).max())
-        err = float((y.float() - yp.float()).abs().max())
+        y, st, ulps, share, st_err, err = k2_agreement(x, w, aff, pro)
         print(f"[kernels] K2 {name}: {ulps:.2f} ulp max, {100 * share:.4f}% "
               f"of y differ, max |dy| {err:.3e}, stats rel err {st_err:.2e}")
         check(ulps <= 1.0 and share <= 1e-3,
               f"K2 {name}: {ulps} ulp, {share} of elements differ")
         check(st_err <= 1e-4, f"K2 {name}: stats rel err {st_err}")
+        if cin == cout == 160:
+            y2, st2 = cf.conv3x3_fused(x, w, aff, relu_in=pro)
+            same = torch.equal(y, y2) and torch.equal(st, st2)
+            print(f"[kernels] K2 {name}: rerun bit-identical {same}")
+            check(same, f"K2 {name}: a rerun differs")
         wb = w.to(torch.bfloat16)
         ms = cuda_ms(lambda: cf.conv3x3_fused(x, w, aff, relu_in=pro), 20)
         plain_ms = cuda_ms(
@@ -364,10 +408,13 @@ def phase_k2_k3():
         reps = 1 if cin == 3 or name.endswith("64->160") else 2
         print(f"[kernels] K2 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
               f" ms, F.conv2d bf16 {lib_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({by}); {reps} launch(es) per step")
+              f"({by}); {100 * bound / ms:.1f}% of the bound, "
+              f"{ms / lib_ms:.2f}x F.conv2d; {reps} launch(es) per step")
         k2["shapes"].append(dict(shape=name, ms=ms, plain_ms=plain_ms,
                                  library_ms=lib_ms, bound_ms=bound,
-                                 bound_by=by, ulps=ulps, share=share))
+                                 bound_by=by, ulps=ulps, share=share,
+                                 bound_share=bound / ms,
+                                 vs_library=ms / lib_ms))
         for key, v in (("ms", ms), ("plain_ms", plain_ms),
                        ("library_ms", lib_ms), ("bound_ms", bound)):
             k2[key] += reps * v
@@ -377,6 +424,10 @@ def phase_k2_k3():
     # the step's launches each take at least their own bound; the row
     # names the class that bounds most of their sum
     k2["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"[kernels] K2 per step: kernel {k2['ms']:.4f} ms, bound "
+          f"{k2['bound_ms']:.4f} ms ({100 * k2['bound_ms'] / k2['ms']:.1f}%),"
+          f" F.conv2d {k2['library_ms']:.4f} ms "
+          f"({k2['ms'] / k2['library_ms']:.2f}x)")
     k3 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
               shapes=[])
     for name, c, hw in K3_SHAPES:
@@ -875,7 +926,27 @@ def phase_pretrain_cli(tmp):
           "checkpoint read back")
 
 
-def main() -> int:
+def sass_count(lib: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS, read with the
+    toolkit's ``cuobjdump -sass``."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(tool), "cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    import re
+    pat = re.compile(r"\b" + opcode + r"\b")
+    return sum(1 for line in sass.splitlines() if pat.search(line))
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only-kernels", action="store_true",
+                    help="stop after phase 3: print the kernels line and "
+                    "not the final ok line")
+    only_kernels = ap.parse_args(argv).only_kernels
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -898,10 +969,18 @@ def main() -> int:
     for kname, info in build_all().items():
         print(f"[build] {kname}: {info['seconds']:.1f} s -> {info['path']}")
         print(info["ptxas"].strip())
+        n_hgmma = sass_count(info["path"], "HGMMA")
+        print(f"[build] {kname}: {n_hgmma} HGMMA instructions in its SASS")
+        if kname == "conv3x3_fused":
+            check(n_hgmma > 0, "K2's library holds no HGMMA instruction")
 
     # phase 3: kernels against their plain versions
     rows = phase_kernels(dev)
     rows.update(phase_k2_k3())
+    if only_kernels:
+        print(smi)
+        print(json.dumps({"kernels": list(rows.values())}))
+        return 0
 
     from subspace_reg_tpu_torch.ops.conv_fused import (block_tail,
                                                        conv3x3_fused)

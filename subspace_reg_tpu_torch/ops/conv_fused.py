@@ -35,17 +35,52 @@ raises.  Each wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 BF16 = torch.bfloat16
 CL = torch.channels_last
-# the kernels' limits (csrc/conv3x3_fused.cu: MAX_NTILES * 8 output channels)
+# K2's limits and layout, mirrored from csrc/conv3x3_fused.cu: output widths
+# padded to one of K2_WIDTHS, halo rows padded by K2_CPAD bf16, the packed
+# weights' core matrices K2_LBO bytes apart along K and K2_SBO along N
 MAX_COUT = 160
+K2_WIDTHS = (64, 160)
+K2_CPAD = 8
+K2_LBO = 128
+K2_SBO = 256
+# K chunks of 16 input channels in one weight unit; dynamic shared memory
+# of one block
+K2_KG = 5
+K2_SMEM_MAX = 232448
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
+
+
+class K2Plan(NamedTuple):
+    """How K2 covers one call.  ``tiles`` tiles per image, each ``m_tile``
+    = ``nc`` x 64 consecutive flat positions of the image read at the
+    padded width ``wp`` = W + 2 (``nc`` consumer warpgroups of 64 rows);
+    ``grid`` persistent blocks walk the ``n_blk`` = B x tiles tiles.
+    Output widths padded to ``n_pad``, input channels to ``cin_pad``;
+    ``stages`` weight slots of one unit (up to 5 K chunks of 16 of one
+    tap), all 9 taps held for the block's life when ``resident``;
+    ``nbuf`` halo buffers (2: the next tile's halo is in flight during this
+    tile's math); ``smem`` bytes of shared memory per block."""
+    n_pad: int
+    cin_pad: int
+    wp: int
+    nc: int
+    m_tile: int
+    stages: int
+    resident: bool
+    nbuf: int
+    tiles: int
+    n_blk: int
+    grid: int
+    smem: int
 
 
 def _round(v: torch.Tensor, dtype) -> torch.Tensor:
@@ -187,12 +222,93 @@ def _launch_failed(name: str, err: int):
     raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def _k2_units(cin_pad: int) -> Tuple[int, int]:
+    """(K chunks of 16 in one weight unit, units in the 9 taps)."""
+    kch = cin_pad // 16
+    kgn = min(kch, K2_KG)
+    return kgn, 9 * -(-kch // kgn)
+
+
+def k2_smem_bytes(n_pad: int, cin_pad: int, stages: int, nc: int,
+                  nbuf: int, w: int) -> int:
+    """Shared memory of one K2 block (csrc/conv3x3_fused.cu::layout): the
+    weight ring, the halo buffers, the bf16 affine table, the statistics
+    scratch, the mbarriers (of the ring slots and the two halo buffers)."""
+    ring = stages * _k2_units(cin_pad)[0] * 16 * n_pad * 2
+    halo = nbuf * (nc * 64 + 2 * (w + 2) + 2) * (cin_pad + K2_CPAD) * 2
+    return (ring + halo + cin_pad * 4 + nc * 4 * 2 * n_pad * 4
+            + (2 * stages + 4) * 8)
+
+
+@functools.lru_cache(maxsize=256)
+def k2_plan(b: int, h: int, w: int, cin: int, cout: int,
+            n_sm: int = 132) -> K2Plan:
+    """K2's launch plan on a card of ``n_sm`` SMs: one persistent block per
+    SM of consumer warpgroups and two producer warpgroups, as many consumer
+    warpgroups (3 at 64 output channels, 2 at 160) and
+    weight slots (all units, if they fit) as one block's shared memory
+    holds with two halo buffers, then with one; fewer warpgroups, then a
+    single slot, where a wide image leaves no room.  Raises if even that
+    does not fit."""
+    n_pad = next(n for n in K2_WIDTHS if cout <= n)
+    cin_pad = -(-cin // 16) * 16
+    units = _k2_units(cin_pad)[1]
+    max_nc = 3 if n_pad == 64 else 2
+    for least in (2, 1):
+        for nc in range(max_nc, 0, -1):
+            for nbuf in ((2, 1) if cin % 8 == 0 else (1,)):
+                stages = next(
+                    (s for s in range(units, least - 1, -1)
+                     if k2_smem_bytes(n_pad, cin_pad, s, nc, nbuf, w)
+                     <= K2_SMEM_MAX), None)
+                if stages is None:
+                    continue
+                m_tile = nc * 64
+                tiles = -(-(h * (w + 2)) // m_tile)
+                return K2Plan(
+                    n_pad, cin_pad, w + 2, nc, m_tile, stages,
+                    stages >= units, nbuf, tiles, b * tiles,
+                    min(b * tiles, n_sm),
+                    k2_smem_bytes(n_pad, cin_pad, stages, nc, nbuf, w))
+    raise ValueError(f"conv3x3_fused: a {w}-pixel-wide image with {cin} "
+                     "input channels does not fit K2's shared memory")
+
+
+def pack_k2_weights(w: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) weights -> bf16 (9, Cin/16, n_pad/8, 2, 8, 8), the
+    shared-memory image of each tap's wgmma B operand: for tap kh*3 + kw,
+    K chunk of 16 input channels, group of 8 output channels and half of
+    the chunk, one 8 x 8 core matrix (8 output channels x 16 bytes of
+    input channels).  Element (tap, n, k) lies at byte
+    tap*cin_pad*n_pad*2 + (k//16)*(n_pad//8)*K2_SBO + (n//8)*K2_SBO
+    + ((k%16)//8)*K2_LBO + (n%8)*16 + (k%8)*2.  Output channels are padded
+    to ``n_pad`` and input channels to a multiple of 16 with zeros."""
+    cout, cin = w.shape[:2]
+    cin_pad = -(-cin // 16) * 16
+    if (cout, cin) != (n_pad, cin_pad):
+        w = F.pad(w, (0, 0, 0, 0, 0, cin_pad - cin, 0, n_pad - cout))
+    # (n/8, n%8, k/16, (k%16)/8, k%8, kh, kw) -> (kh, kw, k/16, n/8,
+    # (k%16)/8, n%8, k%8), cast to bf16 in the same copy
+    src = w.view(n_pad // 8, 8, cin_pad // 16, 2, 8, 3, 3).permute(
+        5, 6, 2, 0, 3, 1, 4)
+    out = torch.empty((9, cin_pad // 16, n_pad // 8, 2, 8, 8), dtype=BF16,
+                      device=w.device)
+    out.view(3, 3, cin_pad // 16, n_pad // 8, 2, 8, 8).copy_(src)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def conv3x3_fused(x: torch.Tensor, w: torch.Tensor,
                   affine: Optional[Affine] = None, relu_in: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: see ``conv3x3_fused_plain`` for the function.  CUDA tensors:
     x bf16 channels_last, w (Cout, Cin, 3, 3) with Cout a multiple of 8 up
-    to 160; the weights are cast to bf16 once per call."""
+    to 160; the weights are cast to bf16 and packed once per call
+    (``pack_k2_weights``)."""
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, w, affine, relu_in)
     if x.device.type != "cuda":
@@ -213,16 +329,17 @@ def conv3x3_fused(x: torch.Tensor, w: torch.Tensor,
     if affine is not None:
         a = _check_vec("conv3x3_fused: affine scale", affine[0], cin, dev)
         bb = _check_vec("conv3x3_fused: affine shift", affine[1], cin, dev)
-    # (9, Cout, Cin): one tap's weights are a contiguous (Cout, Cin) matrix
-    wt = w.to(BF16).permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
+    plan = k2_plan(b, h, wd, cin, cout, _sm_count(dev))
+    wt = pack_k2_weights(w, plan.n_pad)
     y = torch.empty((b, cout, h, wd), dtype=BF16, device=dev,
                     memory_format=CL)
-    n_blk = b * -(-h // 8) * -(-wd // 16)
-    partials = torch.empty((2, cout, n_blk), dtype=torch.float32, device=dev)
+    partials = torch.empty((2, cout, plan.n_blk * plan.nc),
+                           dtype=torch.float32, device=dev)
     stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
-    err = _fn("conv3x3_fused", "k2_conv3x3_fused", 7, 7)(
+    err = _fn("conv3x3_fused", "k2_conv3x3_fused", 7, 11)(
         _ptr(x), _ptr(wt), _ptr(a), _ptr(bb), _ptr(y), _ptr(partials),
-        _ptr(stats), b, h, wd, cin, cout, int(relu_in), n_blk,
+        _ptr(stats), b, h, wd, cin, cout, int(relu_in), plan.nc,
+        plan.stages, plan.nbuf, plan.grid, plan.n_blk,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         _launch_failed("conv3x3_fused", err)

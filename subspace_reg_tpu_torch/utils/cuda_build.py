@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source has a plain ``extern "C"`` launcher and is built
 with ``nvcc`` into a shared library under ``subspace_reg_tpu_torch/_build/``
 (listed in ``.gitignore``) at first use, then loaded with ``ctypes``.  The
-library name carries a hash of the source and the flags, so an edited source
-is rebuilt.  Nothing here runs at import time, and a failed build raises.
+library name carries a hash of the source, the headers under ``csrc/`` and
+the flags, so an edited source or header is rebuilt.  Nothing here runs at
+import time, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -45,8 +46,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, every header
+    under csrc/ (any source may include one) and the flags."""
+    h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

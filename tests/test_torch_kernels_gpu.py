@@ -16,8 +16,9 @@ sums in a different order.  K2 and K3: stated at each test.  No JAX here."""
 import pytest
 import torch
 
-from chip_smoke import (K2_SHAPES, K3_SHAPES, bf16_ulp_diff, k1_case,
-                        k2_case, k2_term_scale, k3_case)
+from chip_smoke import (K2_EDGE_SHAPES, K2_SHAPES, K3_SHAPES,
+                        bf16_ulp_diff, k1_case, k2_agreement, k2_case,
+                        k2_term_scale, k3_case)
 from subspace_reg_tpu_torch.ops import conv_fused as cf
 from subspace_reg_tpu_torch.ops import finetune as ft
 from subspace_reg_tpu_torch.utils.device import resolve_device
@@ -99,8 +100,23 @@ def test_k2_matches_plain(cuda, case):
     assert torch.all((st.double() - ref).abs() <= 1e-4 * scale)
 
 
-def test_k2_is_deterministic(cuda):
-    x, w, aff = k2_case(64, 64, 84, True, cuda, batch=8)
+@pytest.mark.parametrize("case", range(len(K2_EDGE_SHAPES)),
+                         ids=[s[0] for s in K2_EDGE_SHAPES])
+def test_k2_edge_shapes_match_plain(cuda, case):
+    """Ragged tiles, a one-pixel image, Cin = 3 and 5 (the scalar halo
+    path), Cin = 24 and 160, Cout = 8, 40 and 96 (output widths padded to
+    64 or 160): the same rule as at the fused step's shapes."""
+    _, cin, cout, hw, pro, batch = K2_EDGE_SHAPES[case]
+    x, w, aff = k2_case(cin, cout, hw, pro, cuda, batch=batch)
+    _, _, ulps, share, st_err, _ = k2_agreement(x, w, aff, pro)
+    assert ulps <= 1.0 and share <= 1e-3, (ulps, share)
+    assert st_err <= 1e-4, st_err
+
+
+@pytest.mark.parametrize("cin,cout,hw,batch", [(64, 64, 84, 8),
+                                               (160, 160, 42, 64)])
+def test_k2_is_deterministic(cuda, cin, cout, hw, batch):
+    x, w, aff = k2_case(cin, cout, hw, True, cuda, batch=batch)
     a = cf.conv3x3_fused(x, w, aff, relu_in=True)
     b = cf.conv3x3_fused(x, w, aff, relu_in=True)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
