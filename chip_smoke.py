@@ -12,11 +12,16 @@ Phases; any failure raises and the script exits non-zero:
               all started together; build seconds, ``-Xptxas -v`` and each
               library's count of HGMMA (wgmma) instructions in its SASS
               (``cuobjdump -sass``; K2's must be above 0).
-  3. kernels  K1 (the fused head fine-tune loop) against its plain torch
-              version on the card at the main path's shapes (100 classes,
-              D=640, 185 support rows, 200 replay rows; the last session's
+  3. kernels  K1 (the fused head fine-tune loop, a cooperative grid of P
+              blocks, one per SM) against its plain torch version on the
+              card at the main path's shapes (100 classes, D=640, 185
+              support rows, 175 of 200 replay rows; the last session's
               counts), for SGD + subspace pull + memory, Adam, and the
-              [W | b] bias column; CUDA-event times of both.
+              [W | b] bias column (99 epochs): us/epoch, each phase's and
+              barrier's share of a block's time, the grid barrier alone;
+              then at the golden run's 1000 epochs: agreement, a
+              bit-identical rerun, CUDA-event times of the kernel and the
+              plain version, and the bound.
   4. agree    the port's 8-session engine on the card against the same
               engine on the CPU (plain twin) at a small size with the same
               draws: equal epoch counts, accuracies within 0.5.
@@ -29,7 +34,8 @@ Phases; any failure raises and the script exits non-zero:
               just after; K1 must have launched once per session, K2/K3
               never.
   6. profile  the same run again under torch.profiler: device time of K1,
-              of the convolutions and of the rest, and the busy share.
+              of the convolutions and of the rest per 8-session run, and
+              the busy share.
   7. pretrain-agree  the fused-"pallas" pretraining step (K2 + K3) against
               the module step at full resnet18 width, 84 px, batch 64, from
               the same weights and batch: loss, running statistics,
@@ -100,21 +106,26 @@ def check(cond, msg: str):
 # --------------------------------------------------------------------------
 # K1 operands at the main path's shapes
 # --------------------------------------------------------------------------
-def k1_case(kind: str, device, max_epochs: int = 100, seed: int = 0):
-    """Operands of the last session of the golden run: 100 active classes,
-    185 support rows (125 novel + 60 base exemplars), 175 of 200 replay
-    rows, 35 reserved rows.  ``kind``: 'sgd' (subspace pull + memory),
-    'adam', 'bias' (the [W | b] layout, no novel anchor), 'semantic' (the
-    semantic pull) or 'plain' (no pull, no memory)."""
+def k1_case(kind: str, device, max_epochs: int = 100, seed: int = 0,
+            session: int = N_SESSIONS, stable_target: int = 10):
+    """Operands of session ``session`` (1..8, default the last) of the
+    golden run: 60 + 5*session active classes of 100, 185 support rows (125
+    novel + 60 base exemplars), 25*(session-1) of 200 replay rows,
+    5*(session-1) reserved rows.  ``kind``: 'sgd' (subspace pull +
+    memory), 'adam', 'bias' (the [W | b] layout, D = 641, no novel anchor),
+    'semantic' (the semantic pull) or 'plain' (no pull, no memory).  A
+    ``stable_target`` no run reaches makes the loop run to ``max_epochs``,
+    as the golden run on random weights does."""
     from subspace_reg_tpu_torch.ops.finetune import LoopConfig, pack_scalars
     r = np.random.RandomState(seed)
     cp, feat, ns, nm = 100, 640, 185, 200
-    n_active, mem_count, orig_base, n_ways = 100, 175, 60, 5
+    orig_base, n_ways = 60, 5
+    n_active, mem_count = orig_base + 5 * session, 25 * (session - 1)
     bias, adam = kind == "bias", kind == "adam"
     memory_on = kind != "plain"
     pull_mode = {"semantic": "semantic", "plain": "none"}.get(kind,
                                                              "subspace")
-    n_reserved = 0 if bias else 35
+    n_reserved = 0 if bias else 5 * (session - 1)
     d = feat + (1 if bias else 0)
     f32 = np.float32
     f_sup = (0.5 * np.abs(r.randn(ns, d))).astype(f32)
@@ -123,10 +134,12 @@ def k1_case(kind: str, device, max_epochs: int = 100, seed: int = 0):
     if bias:
         f_sup[:, feat] = 1.0
         f_mem[:, feat] = 1.0
-    y_sup = np.concatenate([np.repeat(np.arange(95, 100), 25),
-                            np.arange(60)]).astype(np.int32)
+    y_sup = np.concatenate([np.repeat(np.arange(n_active - n_ways,
+                                                n_active), 25),
+                            np.arange(orig_base)]).astype(np.int32)
     y_mem = np.zeros(nm, np.int32)
-    y_mem[:mem_count] = np.repeat(np.arange(60, 95), 5)
+    y_mem[:mem_count] = np.repeat(np.arange(orig_base, n_active - n_ways),
+                                  5)
     k = 1.0 / math.sqrt(feat)
     w = r.uniform(-k, k, (cp, d)).astype(f32)
     w0 = np.zeros_like(w)
@@ -153,8 +166,8 @@ def k1_case(kind: str, device, max_epochs: int = 100, seed: int = 0):
         device, lr=0.002, wd=5e-4, momentum=0.9, lmbd_base=0.2,
         lmbd_novel=0.0 if bias else 0.1, gamma=1.0, eps=1e-4,
         target_loss=0.0, min_epochs=20, max_epochs=max_epochs,
-        stable_target=10, adam_b1=0.9, adam_b2=0.999, adam_eps=1e-8,
-        prev_loss0=5.0, stable0=0.0)
+        stable_target=stable_target, adam_b1=0.9, adam_b2=0.999,
+        adam_eps=1e-8, prev_loss0=5.0, stable0=0.0)
     cfg = LoopConfig(n_sup=ns, mem_count=mem_count, n_active=n_active,
                      n_reserved=n_reserved, orig_base=orig_base,
                      n_ways=n_ways, memory_on=memory_on, use_regbase=True,
@@ -310,45 +323,154 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def k1_agreement(kind: str, ops, cfg, out, acc_flips: int = 0):
+    """K1's output against its plain version on the same operands: epochs
+    exact, max |dW| <= 1e-4, the last loss and accuracies to 1e-4
+    relative, the loss of every epoch run to rtol 1e-4.  The accuracies of
+    every epoch agree to rtol 1e-4 too, except on at most ``acc_flips``
+    epochs, where they may differ by one support row: over a long run a
+    support row's logits come within an ulp of a rival class's, and the
+    two sum orders may rank it either side.  Returns (epochs, max
+    |dW|)."""
+    from subspace_reg_tpu_torch.ops.finetune import finetune_loop_plain
+    w_k, st_k, tr_k = out
+    w_p, st_p, tr_p = finetune_loop_plain(**ops, cfg=cfg)
+    torch.cuda.synchronize()
+    st_k, st_p = st_k.cpu().numpy(), st_p.cpu().numpy()
+    err = float((w_k - w_p).abs().max())
+    ep = int(st_k[1])
+    print(f"[kernels] K1 {kind}: epochs kernel {ep} plain {int(st_p[1])}"
+          f" max|dW| {err:.3e} loss {st_k[0]:.6f}/{st_p[0]:.6f} "
+          f"acc1 {st_k[3]:.4f}/{st_p[3]:.4f} "
+          f"acc5 {st_k[4]:.4f}/{st_p[4]:.4f}")
+    check(ep == int(st_p[1]), f"K1 {kind}: epochs differ")
+    check(ep > 2, f"K1 {kind}: the loop ran no epoch")
+    check(err <= 1e-4, f"K1 {kind}: max|dW| {err} > 1e-4")
+    for i, name in ((0, "loss"), (3, "acc1"), (4, "acc5")):
+        check(abs(st_k[i] - st_p[i]) <= 1e-4 * abs(st_p[i]),
+              f"K1 {kind}: {name} {st_k[i]} vs {st_p[i]}")
+    t_k, t_p = tr_k[2:ep + 1].double(), tr_p[2:ep + 1].double()
+    loss_rel = float(((t_k[:, 0] - t_p[:, 0]).abs()
+                      / t_p[:, 0].abs().clamp_min(1e-30)).max())
+    off = ~torch.isclose(t_k[:, 1:], t_p[:, 1:], rtol=1e-4, atol=1e-5)
+    flips = int(off.any(1).sum())
+    rows_off = float((t_k[:, 1:] - t_p[:, 1:]).abs().max()) * cfg.n_sup / 100
+    print(f"[kernels] K1 {kind} trace: loss max rel diff {loss_rel:.2e}; "
+          f"accuracy differs on {flips} of {ep - 1} epochs, by at most "
+          f"{rows_off:.3f} support rows")
+    check(torch.allclose(t_k[:, 0], t_p[:, 0], rtol=1e-4, atol=1e-5),
+          f"K1 {kind}: the loss trace differs")
+    check(flips <= acc_flips and rows_off <= 1.001,
+          f"K1 {kind}: the accuracy trace differs on {flips} epochs")
+    return ep, err
+
+
+def k1_phase_times(ops, cfg, blocks: int, epochs: int):
+    """Where a K1 block's time goes, us per epoch from the kernel's own
+    per-block clocks: phase A (its product part apart), the wait at the
+    first barrier, phase B (its slot reduction, G product and update
+    epilogue apart), the wait at the second; blocks grouped by what they
+    own (phase A: a logits tile, a pull chunk or nothing; phase B: a tile
+    with the product G, a tile without it, or nothing), mean and max over
+    each group."""
+    from subspace_reg_tpu_torch.ops import finetune as ft
+    prof = torch.zeros((blocks, ft.K1_PROF_SLOTS), dtype=torch.int64,
+                       device=ops["w"].device)
+    ft._launch(ops, cfg, blocks=blocks, prof=prof)
+    torch.cuda.synchronize()
+    c = (prof.double() / (1e3 * epochs)).cpu().numpy()
+    plan = ft._plan_for(cfg, *ops["w"].shape, blocks)
+    work = [ft.k1_work(plan, b) for b in range(blocks)]
+    has_g = [any(u[4] for u in w["update"]) for w in work]
+    a_groups = (("logits", [b for b in range(blocks) if work[b]["logits"]]),
+                ("pull", [b for b in range(blocks) if work[b]["pull"]
+                          and not work[b]["logits"]]),
+                ("idle", [b for b in range(blocks) if not (
+                    work[b]["logits"] or work[b]["pull"])]))
+    b_groups = (("G tile", [b for b in range(blocks) if has_g[b]]),
+                ("tile without G", [b for b in range(blocks)
+                                    if work[b]["update"] and not has_g[b]]),
+                ("idle", [b for b in range(blocks) if not work[b]["update"]]))
+    parts = {"phase A": (c[:, 0] + c[:, 4], a_groups,
+                         (("product", c[:, 4]),)),
+             "barrier 1": (c[:, 1], (), ()),
+             "phase B": (c[:, 2] + c[:, 5] + c[:, 6] + c[:, 7], b_groups,
+                         (("slot reduction", c[:, 5]), ("G", c[:, 6]),
+                          ("update", c[:, 7]))),
+             "barrier 2": (c[:, 3], (), ())}
+    for name, (total, groups, subs) in parts.items():
+        out = [f"all {total.mean():.2f} (max {total.max():.2f})"]
+        for label, idx in groups:
+            if idx:
+                sub = "".join(f", {s} {v[idx].mean():.2f}" for s, v in subs)
+                out.append(f"{label} x{len(idx)} {total[idx].mean():.2f} "
+                           f"(max {total[idx].max():.2f}{sub})")
+        print(f"[kernels] K1 sgd {name}, us/epoch per block: "
+              + "; ".join(out))
+
+
+def k1_barrier_us(dev, blocks: int, iters: int = 20000) -> float:
+    """Microseconds per grid barrier of K1's kind on ``blocks`` blocks: one
+    cooperative launch that runs ``iters`` barriers and nothing else."""
+    from subspace_reg_tpu_torch.ops import finetune as ft
+    fn = ft._kernel_fn("k1_barrier_probe", 1, 2)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        bar = torch.zeros(1, dtype=torch.int32, device=dev)
+        check(fn(bar.data_ptr(), blocks, iters, stream) == 0,
+              "the barrier probe did not launch")
+    return 1e3 * cuda_ms(run, 3) / iters
+
+
 def phase_kernels(dev):
-    from subspace_reg_tpu_torch.ops.finetune import (finetune_loop,
-                                                     finetune_loop_plain)
-    rows = {}
+    """K1 against its plain version at the last golden session's shapes
+    (SGD + subspace pull + memory, Adam, the bias column; 99 epochs), its
+    time per epoch there, where a block's time goes (phase A, barrier,
+    phase B, barrier), the barrier alone, and K1 at the golden run's 1000
+    epochs: agreement, a bit-identical rerun, the time per launch, the
+    plain version's and the bound."""
+    from subspace_reg_tpu_torch.ops import finetune as ft
+    p = ft.k1_blocks(dev)
+    print(f"[kernels] K1 grid: P = {p} blocks of {ft.K1_THREADS} threads "
+          f"(one per SM)")
     for kind in ("sgd", "adam", "bias"):
         ops, cfg = k1_case(kind, dev)
-        w_k, st_k, tr_k = finetune_loop(**ops, cfg=cfg)
-        w_p, st_p, tr_p = finetune_loop_plain(**ops, cfg=cfg)
-        torch.cuda.synchronize()
-        st_k, st_p = st_k.cpu().numpy(), st_p.cpu().numpy()
-        err = float((w_k - w_p).abs().max())
-        ep = int(st_k[1])
-        print(f"[kernels] K1 {kind}: epochs kernel {ep} plain {int(st_p[1])}"
-              f" max|dW| {err:.3e} loss {st_k[0]:.6f}/{st_p[0]:.6f} "
-              f"acc1 {st_k[3]:.4f}/{st_p[3]:.4f} "
-              f"acc5 {st_k[4]:.4f}/{st_p[4]:.4f}")
-        check(ep == int(st_p[1]), f"K1 {kind}: epochs differ")
-        check(ep > 2, f"K1 {kind}: the loop ran no epoch")
-        check(err <= 1e-4, f"K1 {kind}: max|dW| {err} > 1e-4")
-        for i, name in ((0, "loss"), (3, "acc1"), (4, "acc5")):
-            check(abs(st_k[i] - st_p[i]) <= 1e-4 * abs(st_p[i]),
-                  f"K1 {kind}: {name} {st_k[i]} vs {st_p[i]}")
-        check(torch.allclose(tr_k[2:ep + 1], tr_p[2:ep + 1], rtol=1e-4,
-                             atol=1e-5), f"K1 {kind}: trace differs")
+        ep, _ = k1_agreement(kind, ops, cfg, ft.finetune_loop(**ops, cfg=cfg))
         if kind == "sgd":
-            ms = cuda_ms(lambda: finetune_loop(**ops, cfg=cfg), 10)
-            plain_ms = cuda_ms(lambda: finetune_loop_plain(**ops, cfg=cfg), 3)
-            bound_ms, bound_by = k1_bound(ops, cfg, ep - 1)
+            ms = cuda_ms(lambda: ft.finetune_loop(**ops, cfg=cfg), 10)
+            us_epoch = 1e3 * ms / (ep - 1)
             print(f"[kernels] K1 sgd: {ep - 1} epochs/launch, kernel "
-                  f"{ms:.3f} ms ({1e3 * ms / (ep - 1):.2f} us/epoch), plain "
-                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-            rows["finetune_loop"] = dict(
-                name="finetune_loop", route="cuda",
-                source="subspace_reg_tpu_torch/csrc/finetune_loop.cu",
-                replaces="subspace_reg_tpu/ops/pallas/finetune.py:324",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                epochs_per_launch=ep - 1, us_per_epoch=1e3 * ms / (ep - 1))
-    return rows
+                  f"{ms:.3f} ms = {us_epoch:.2f} us/epoch at P = {p}")
+            k1_phase_times(ops, cfg, p, ep - 1)
+    bar_us = k1_barrier_us(dev, p)
+    print(f"[kernels] K1 grid barrier alone: {bar_us:.3f} us at P = {p}")
+    # the golden run: random weights never meet the stable rule, so every
+    # session runs all 1000 epochs
+    ops, cfg = k1_case("sgd", dev, max_epochs=1000, stable_target=10 ** 6)
+    out = ft.finetune_loop(**ops, cfg=cfg)
+    ep, err = k1_agreement("sgd 1000 epochs", ops, cfg, out, acc_flips=10)
+    check(ep == 1000, f"K1 ran {ep} of 1000 epochs")
+    again = ft.finetune_loop(**ops, cfg=cfg)
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    print(f"[kernels] K1 sgd 1000 epochs: rerun at P = {p} bit-identical "
+          f"{same}")
+    check(same, "K1: a rerun at the full grid differs")
+    ms = cuda_ms(lambda: ft.finetune_loop(**ops, cfg=cfg), 5)
+    plain_ms = cuda_ms(lambda: ft.finetune_loop_plain(**ops, cfg=cfg), 1)
+    bound_ms, bound_by = k1_bound(ops, cfg, ep - 1)
+    print(f"[kernels] K1 sgd: {ep - 1} epochs/launch, kernel {ms:.3f} ms "
+          f"({1e3 * ms / (ep - 1):.2f} us/epoch), plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.2f}% of the bound")
+    return {"finetune_loop": dict(
+        name="finetune_loop", route="cuda",
+        source="subspace_reg_tpu_torch/csrc/finetune_loop.cu",
+        replaces="subspace_reg_tpu/ops/pallas/finetune.py:352",
+        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        epochs_per_launch=ep - 1, us_per_epoch=1e3 * ms / (ep - 1),
+        us_per_epoch_99=us_epoch, blocks=p, barrier_us=bar_us)}
 
 
 def roofline_ms(flops: float, nbytes: float):
@@ -460,12 +582,12 @@ def phase_k2_k3():
         "conv3x3_fused": dict(
             name="conv3x3_fused", route="cuda",
             source="subspace_reg_tpu_torch/csrc/conv3x3_fused.cu",
-            replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:140",
+            replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:168",
             launches=None, **k2),
         "block_tail": dict(
             name="block_tail", route="cuda",
             source="subspace_reg_tpu_torch/csrc/block_tail.cu",
-            replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:251",
+            replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:278",
             launches=None, library_ms=None, **k3)}
     return rows
 
@@ -665,6 +787,9 @@ def phase_profile(run):
                ("convolution", _CONV_MARKS)])
     check(groups["K1"] > 0, "the profiler saw no K1 launch")
     print_breakdown("profile", groups, busy, by_name, wall)
+    print(f"[profile] per 8-session run: K1 device time "
+          f"{groups['K1'] / 1e6:.3f} s, convolutions "
+          f"{groups['convolution'] / 1e6:.3f} s, wall {wall:.2f} s")
 
 
 # --------------------------------------------------------------------------

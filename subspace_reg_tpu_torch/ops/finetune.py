@@ -34,6 +34,7 @@ epoch run; trace (trace_rows, 3) whose row e holds epoch e's pre-update
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Union
 
@@ -245,23 +246,139 @@ def finetune_loop_plain(f_sup, y_sup, f_mem, y_mem, w, mom, nu, w0, reserved,
 
 
 # --------------------------------------------------------------------------
+# the kernel's launch plan
+# --------------------------------------------------------------------------
+# K1's tiling: csrc/finetune_loop.cu's constants of the same names, which
+# its launcher checks the plan against
+K1_THREADS = 256        # threads per block (8 warps)
+K1_TR = 8               # logits rows per phase-A tile (a warp per row)
+K1_PULL_COLS = 8        # subspace-pull columns per phase-A chunk
+K1_VG = 8               # pull rows per pass
+K1_TC, K1_TJ = 20, 32   # classes x feature columns per phase-B update tile
+# partial sums per block: phase A's loss_sup, loss_mem, hits1, hits5,
+# sum V^2, then two alternating sets of the anchor sums
+K1_NQ = 5 + 2 * 4
+K1_SMEM_MAX = 232448    # dynamic shared memory one block may use
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k1_smem_bytes(d_pad: int, ldl: int, rows: int) -> int:
+    """Shared memory of one K1 block: the phase-A region (a logits tile's F
+    rows and logits, or a pull chunk's M columns, current rows and k-slice
+    partials), then the phase-B region (the update tile's F columns over
+    all rows, then dlog's columns, later the per-warp partials of G)."""
+    a = max(K1_TR * (d_pad + ldl),
+            (K1_PULL_COLS + K1_VG) * d_pad
+            + (K1_THREADS // K1_PULL_COLS) * K1_VG * K1_PULL_COLS)
+    b = rows * K1_TJ + max(rows * K1_TC, (K1_THREADS // 32) * K1_TC * K1_TJ)
+    return 4 * (a + b)
+
+
+@dataclass(frozen=True)
+class K1Plan:
+    """One K1 launch: ``blocks`` persistent blocks, each epoch in two
+    phases.  Phase A deals its items round-robin (item i to block i %
+    blocks): ``row_tiles`` logits tiles of K1_TR rows, then
+    ``pull_chunks`` chunks of K1_PULL_COLS pull columns.  Phase B deals
+    its ``class_tiles`` x ``col_tiles`` update tiles the same way (tile u =
+    class tile u // col_tiles, column tile u % col_tiles); an update tile
+    also sums the anchor terms of its elements."""
+    blocks: int
+    rows: int           # support rows then valid replay rows
+    n_active: int
+    c_pad: int
+    d_pad: int          # feature width padded to a multiple of 4
+    ldl: int            # row stride of the dlog scratch
+    row_tiles: int
+    pull_chunks: int
+    class_tiles: int
+    col_tiles: int
+    slots: int          # floats of the partial-sum scratch
+    smem: int           # dynamic shared memory per block, bytes
+
+    @property
+    def items(self) -> int:
+        return self.row_tiles + self.pull_chunks
+
+    @property
+    def tiles(self) -> int:
+        return self.class_tiles * self.col_tiles
+
+
+def k1_plan(rows: int, n_active: int, c_pad: int, d: int, n_ways: int,
+            blocks: int) -> K1Plan:
+    """The launch plan for ``rows`` support + valid replay rows, ``n_active``
+    of ``c_pad`` classes, ``d`` features and the subspace pull over
+    ``n_ways`` rows (0: no subspace pull) on ``blocks`` blocks."""
+    if blocks < 1 or rows < 1 or not 0 < n_active <= c_pad:
+        raise ValueError(f"k1_plan: no plan for {rows} rows, {n_active} of "
+                         f"{c_pad} classes on {blocks} blocks")
+    d_pad = _cdiv(d, 4) * 4
+    ldl = _cdiv(c_pad, K1_TC) * K1_TC
+    smem = k1_smem_bytes(d_pad, ldl, rows)
+    if smem > K1_SMEM_MAX:
+        raise ValueError(f"finetune_loop: {rows} rows of {d} features do "
+                         "not fit K1's shared memory")
+    return K1Plan(blocks=blocks, rows=rows, n_active=n_active, c_pad=c_pad,
+                  d_pad=d_pad, ldl=ldl, row_tiles=_cdiv(rows, K1_TR),
+                  pull_chunks=_cdiv(d_pad, K1_PULL_COLS) if n_ways else 0,
+                  class_tiles=_cdiv(c_pad, K1_TC),
+                  col_tiles=_cdiv(d_pad, K1_TJ), slots=blocks * K1_NQ,
+                  smem=smem)
+
+
+def k1_work(plan: K1Plan, block: int) -> Dict[str, list]:
+    """What block ``block`` owns in each epoch, as the kernel walks it:
+    ``logits`` row ranges and ``pull`` column ranges (phase A), ``update``
+    tiles (class lo, hi, column lo, hi, and whether the tile runs the
+    product G = dlog^T F) (phase B), and its ``slots`` (the floats it
+    writes: quantity q at q * blocks + block).  Ranges are clipped to the
+    valid rows, the padded feature width and the head."""
+    out = {"logits": [], "pull": [], "update": [],
+           "slots": [q * plan.blocks + block for q in range(K1_NQ)]}
+    for i in range(block, plan.items, plan.blocks):
+        if i < plan.row_tiles:
+            lo = i * K1_TR
+            out["logits"].append((lo, min(plan.rows, lo + K1_TR)))
+        else:
+            lo = (i - plan.row_tiles) * K1_PULL_COLS
+            out["pull"].append((lo, min(plan.d_pad, lo + K1_PULL_COLS)))
+    for u in range(block, plan.tiles, plan.blocks):
+        c0 = (u // plan.col_tiles) * K1_TC
+        j0 = (u % plan.col_tiles) * K1_TJ
+        out["update"].append((c0, min(plan.c_pad, c0 + K1_TC), j0,
+                              min(plan.d_pad, j0 + K1_TJ),
+                              c0 < plan.n_active))
+    return out
+
+
+# --------------------------------------------------------------------------
 # the kernel
 # --------------------------------------------------------------------------
-_PTR_ARGS = 20
-_INT_ARGS = 11
-# the subspace pull keeps two output columns per thread of its 512
-_MAX_PULL_D = 1024
+_PTR_ARGS = 22
+_INT_ARGS = 18
+_OPERANDS = ("f_sup", "y_sup", "f_mem", "y_mem", "w", "mom", "nu", "w0",
+             "reserved", "pull_op", "pull_tgt", "scalars")
 
 
-def _kernel_fn():
+def _kernel_fn(symbol: str = "k1_finetune_loop", n_ptr: int = _PTR_ARGS,
+               n_int: int = _INT_ARGS):
     from ..utils.cuda_build import load
-    lib = load("finetune_loop")
-    fn = lib.k1_finetune_loop
+    fn = getattr(load("finetune_loop"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * _PTR_ARGS
-                       + [ctypes.c_int] * _INT_ARGS + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                       + [ctypes.c_int] * n_int + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def k1_blocks(device: torch.device) -> int:
+    """K1's default grid on ``device``: one block per SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(name, t, shape: Sequence[int], dtype, device):
@@ -296,9 +413,6 @@ def _validate(ops: Dict[str, Optional[torch.Tensor]], cfg: LoopConfig):
         raise ValueError("finetune_loop: class counts exceed the head")
     if cfg.bias_col is not None and not 0 <= cfg.bias_col < d:
         raise ValueError("finetune_loop: bias_col outside the feature axis")
-    if cfg.pull_mode == "subspace" and d > _MAX_PULL_D:
-        raise ValueError(f"finetune_loop: the subspace pull takes at most "
-                         f"{_MAX_PULL_D} features, got {d}")
     need = {"f_sup": (ns, d), "y_sup": (ns,), "f_mem": (nm, d),
             "y_mem": (nm,), "w": (cp, d), "mom": (cp, d),
             "scalars": (N_SCALARS,)}
@@ -319,42 +433,97 @@ def _validate(ops: Dict[str, Optional[torch.Tensor]], cfg: LoopConfig):
         raise ValueError("finetune_loop: trace_rows must be >= 2")
 
 
-def _launch(ops, cfg: LoopConfig):
+def _plan_for(cfg: LoopConfig, c_pad: int, d: int, blocks: int) -> K1Plan:
+    rows = cfg.n_sup + (cfg.mem_count if cfg.memory_on else 0)
+    return k1_plan(rows, cfg.n_active, c_pad, d,
+                   cfg.n_ways if cfg.pull_mode == "subspace" else 0, blocks)
+
+
+def kernel_operands(ops: Dict[str, Optional[torch.Tensor]],
+                    d_pad: int) -> Dict[str, Optional[torch.Tensor]]:
+    """The operands as the kernel reads them: each feature-wide tensor
+    widened with zero columns to ``d_pad`` (``pull_op`` along both axes),
+    every tensor starting on a 16-byte boundary.  Zero columns of F, W,
+    mom, nu, W0, reserved, M and the target stay zero and add nothing to
+    any sum, so the loop over the widened operands is the loop over the
+    given ones."""
+    out = {}
+    for name, t in ops.items():
+        if t is not None and name not in ("y_sup", "y_mem", "scalars"):
+            extra = d_pad - t.shape[-1]
+            if extra:
+                pad = (0, extra, 0, extra) if name == "pull_op" else (0, extra)
+                t = torch.nn.functional.pad(t, pad)
+            elif t.data_ptr() % 16:
+                t = t.clone()
+        out[name] = t
+    return out
+
+
+def k1_scratch(plan: K1Plan, cfg: LoopConfig,
+               device) -> Dict[str, Optional[torch.Tensor]]:
+    """Every buffer a launch writes (the kernel allocates nothing): the
+    outputs w, stats and trace, the optimizer state mom (and nu for Adam),
+    dlog (rows x ldl), the pull's V (n_ways x d_pad), the partial-sum
+    slots and the grid barrier's counter, zeroed."""
+    f32 = torch.float32
+    head = (plan.c_pad, plan.d_pad)
+    return dict(
+        w=torch.empty(head, dtype=f32, device=device),
+        mom=torch.empty(head, dtype=f32, device=device),
+        nu=torch.empty(head, dtype=f32, device=device) if cfg.use_adam
+        else None,
+        stats=torch.zeros(8, dtype=f32, device=device),
+        trace=torch.empty((cfg.trace_rows, 3), dtype=f32, device=device),
+        dlog=torch.empty((plan.rows, plan.ldl), dtype=f32, device=device),
+        pullv=torch.empty((max(cfg.n_ways, 1), plan.d_pad), dtype=f32,
+                          device=device),
+        slots=torch.empty(plan.slots, dtype=f32, device=device),
+        bar=torch.zeros(1, dtype=torch.int32, device=device))
+
+
+# per-block clocks of a profiled launch (csrc/finetune_loop.cu::Clock):
+# phase A after its product, barrier 1, phase B after its update, barrier
+# 2, then phase A's product, phase B's slot reduction, its G product and
+# its update epilogue
+K1_PROF_SLOTS = 8
+
+
+def _launch(ops, cfg: LoopConfig, blocks: Optional[int] = None,
+            prof: Optional[torch.Tensor] = None):
+    """Launch the kernel on ``blocks`` blocks (default: one per SM); a grid
+    the card cannot hold resident at once is refused and raises.  With
+    ``prof`` ((blocks, K1_PROF_SLOTS) int64), each block adds the
+    nanoseconds of each part of its epochs (``K1_PROF_SLOTS``)."""
     w = ops["w"]
     cp, d = w.shape
-    ns, nm = ops["f_sup"].shape[0], ops["f_mem"].shape[0]
     dev = w.device
-    out_w = torch.empty_like(w)
-    out_mom = torch.empty_like(w)
-    out_nu = torch.empty_like(w) if cfg.use_adam else None
-    stats = torch.zeros(8, dtype=torch.float32, device=dev)
-    trace = torch.empty((cfg.trace_rows, 3), dtype=torch.float32, device=dev)
-    # scratch: logits of the support rows then the replay rows, the CE
-    # gradient, and the n_ways rows of cur @ M
-    logits = torch.empty((ns + nm, cp), dtype=torch.float32, device=dev)
-    grad = torch.empty((cp, d), dtype=torch.float32, device=dev)
-    pullv = torch.empty((max(cfg.n_ways, 1), d), dtype=torch.float32,
-                        device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = _plan_for(cfg, cp, d, k1_blocks(dev) if blocks is None else blocks)
+    kops = kernel_operands(ops, plan.d_pad)
+    out = k1_scratch(plan, cfg, dev)
+    if prof is not None:
+        _check("prof", prof, (plan.blocks, K1_PROF_SLOTS), torch.int64,
+               dev)
     err = _kernel_fn()(
-        ptr(ops["f_sup"]), ptr(ops["y_sup"]), ptr(ops["f_mem"]),
-        ptr(ops["y_mem"]), ptr(w), ptr(ops["mom"]), ptr(ops["nu"]),
-        ptr(ops["w0"]), ptr(ops["reserved"]), ptr(ops["pull_op"]),
-        ptr(ops["pull_tgt"]), ptr(ops["scalars"]),
-        ptr(out_w), ptr(out_mom), ptr(out_nu), ptr(stats), ptr(trace),
-        ptr(logits), ptr(grad), ptr(pullv),
-        cp, d, cfg.n_sup, cfg.mem_count, cfg.n_active, cfg.n_reserved,
-        cfg.orig_base, cfg.n_ways,
+        *(_ptr(kops[name]) for name in _OPERANDS),
+        *(_ptr(out[name]) for name in ("w", "mom", "nu", "stats", "trace",
+                                       "dlog", "pullv", "slots", "bar")),
+        _ptr(prof),
+        cp, plan.d_pad, cfg.n_sup, cfg.mem_count, cfg.n_active,
+        cfg.n_reserved, cfg.orig_base, cfg.n_ways,
         -1 if cfg.bias_col is None else cfg.bias_col, cfg.flags,
-        cfg.trace_rows, stream)
+        cfg.trace_rows, plan.blocks, plan.ldl, plan.row_tiles,
+        plan.pull_chunks, plan.class_tiles, plan.col_tiles, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"finetune_loop kernel launch failed: cudaError "
-                           f"{err}")
-    return out_w, stats, trace
+        raise RuntimeError(f"finetune_loop kernel launch on {plan.blocks} "
+                           f"blocks failed: cudaError {err}")
+    finetune_loop.launches += 1
+    w_out = out["w"] if plan.d_pad == d else out["w"][:, :d].contiguous()
+    return w_out, out["stats"], out["trace"]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def finetune_loop(f_sup, y_sup, f_mem, y_mem, w, mom, nu, w0, reserved,
@@ -369,9 +538,7 @@ def finetune_loop(f_sup, y_sup, f_mem, y_mem, w, mom, nu, w0, reserved,
         return finetune_loop_plain(**ops, cfg=cfg)
     if w.device.type != "cuda":
         raise ValueError(f"finetune_loop: unsupported device {w.device}")
-    out = _launch(ops, cfg)
-    finetune_loop.launches += 1
-    return out
+    return _launch(ops, cfg)
 
 
 finetune_loop.launches = 0

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain torch versions on the card: K1 at
 the evaluation path's shapes (chip_smoke.py's ``k1_case``) in every
-configuration the engine uses; K2 and K3 at the fused pretraining step's
-shapes (``k2_case``, ``k3_case``).  Marked ``gpu``: it skips where no card
+configuration the engine uses, at each golden session's shapes, and on
+grids of 1, 3, 17 blocks and one block per SM; K2 and K3 at the fused
+pretraining step's shapes (``k2_case``, ``k3_case``).  Marked ``gpu``: it skips where no card
 is present and runs on the card with
 
     python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py
@@ -33,11 +34,8 @@ def cuda():
     return resolve_device("cuda")
 
 
-@pytest.mark.parametrize("kind", ["sgd", "adam", "bias", "semantic",
-                                  "plain"])
-def test_kernel_matches_twin(cuda, kind):
-    ops, cfg = k1_case(kind, cuda, max_epochs=60)
-    w_k, st_k, tr_k = ft.finetune_loop(**ops, cfg=cfg)
+def _assert_matches_twin(ops, cfg, out):
+    w_k, st_k, tr_k = out
     w_p, st_p, tr_p = ft.finetune_loop_plain(**ops, cfg=cfg)
     torch.cuda.synchronize()
     ep = int(st_p[1])
@@ -48,6 +46,48 @@ def test_kernel_matches_twin(cuda, kind):
     torch.testing.assert_close(tr_k[:ep + 1], tr_p[:ep + 1], rtol=1e-4,
                                atol=1e-5)
     assert torch.all(tr_k[ep + 1:] == 0)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adam", "bias", "semantic",
+                                  "plain"])
+def test_kernel_matches_twin(cuda, kind):
+    ops, cfg = k1_case(kind, cuda, max_epochs=60)
+    _assert_matches_twin(ops, cfg, ft.finetune_loop(**ops, cfg=cfg))
+
+
+@pytest.mark.parametrize("session", range(1, 9))
+def test_k1_session_shapes_match_twin(cuda, session):
+    """Each golden session's counts: 65..100 active classes, 0..175 replay
+    rows, 0..35 reserved rows."""
+    ops, cfg = k1_case("sgd", cuda, max_epochs=40, session=session)
+    _assert_matches_twin(ops, cfg, ft.finetune_loop(**ops, cfg=cfg))
+
+
+@pytest.mark.parametrize("kind", ["sgd", "bias"])
+@pytest.mark.parametrize("blocks", [1, 3, 17, None])
+def test_k1_block_counts_match_twin(cuda, kind, blocks):
+    """The grid's size changes who owns what, not the result (None: one
+    block per SM)."""
+    ops, cfg = k1_case(kind, cuda, max_epochs=30)
+    ft._validate(ops, cfg)
+    _assert_matches_twin(ops, cfg, ft._launch(ops, cfg, blocks=blocks))
+
+
+def test_k1_full_grid_rerun_is_bit_identical_at_1000_epochs(cuda):
+    ops, cfg = k1_case("sgd", cuda, max_epochs=1000, stable_target=10 ** 6)
+    a = ft.finetune_loop(**ops, cfg=cfg)
+    b = ft.finetune_loop(**ops, cfg=cfg)
+    assert int(a[1][1]) == 1000
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_k1_grid_that_cannot_be_resident_raises(cuda):
+    ops, cfg = k1_case("sgd", cuda, max_epochs=5)
+    before = ft.finetune_loop.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ft._launch(ops, cfg, blocks=ft.k1_blocks(cuda) + 1)
+    assert ft.finetune_loop.launches == before
 
 
 def test_kernel_is_deterministic(cuda):
