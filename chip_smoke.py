@@ -11,7 +11,8 @@ Phases; any failure raises and the script exits non-zero:
   2. build    every CUDA kernel of the port from csrc/, one nvcc per source,
               all started together; build seconds, ``-Xptxas -v`` and each
               library's count of HGMMA (wgmma) instructions in its SASS
-              (``cuobjdump -sass``; K2's must be above 0).
+              (``cuobjdump -sass``; K2's must be above 0); each K3
+              instance within 64 registers and without spills.
   3. kernels  K1 (the fused head fine-tune loop, a cooperative grid of P
               blocks, one per SM) against its plain torch version on the
               card at the main path's shapes (100 classes, D=640, 185
@@ -53,10 +54,13 @@ Phases; any failure raises and the script exits non-zero:
               synthetic images) to a saved ``.pth``, read back.
 
 Phase 3 also holds K2 and K3 against their plain versions at every shape
-of the fused step (K2 within 1 bf16 ulp, K3 bit-identical) and K2 at
-ragged and edge shapes (``K2_EDGE_SHAPES``), checks that K2 at 160->160
-reruns bit-identically, and times them beside ``F.conv2d`` (each K2
-shape's share of its bound and ratio to ``F.conv2d``).  The line before
+of the fused step (K2 within 1 bf16 ulp, K3 bit-identical) and at edge
+shapes (``K2_EDGE_SHAPES``, ``K3_EDGE_SHAPES``), checks that K2 at
+160->160 and K3 at both step shapes rerun bit-identically, times K2 beside
+``F.conv2d`` (each shape's share of its bound and ratio to ``F.conv2d``)
+and K3 alone (bare launches in a CUDA graph; torch.profiler's mean kernel
+duration must agree within ``K3_PROFILER_SHARE``) and through its wrapper, beside a device-to-device copy of
+each shape's y3 (effective GB/s of both).  The line before
 the last is one JSON object with each kernel's launches on its path, its
 error against the plain version, its time, the plain version's time, its
 roofline bound and the library call's time; the last line is
@@ -218,6 +222,22 @@ K2_EDGE_SHAPES = (("13x13 b1 64->64", 64, 64, 13, True, 1),
                   ("9x9 b2 24->40", 24, 40, 9, True, 2),
                   ("7x7 b2 5->16", 5, 16, 7, True, 2),
                   ("1x1 b3 3->8", 3, 8, 1, False, 3))
+# (name, C, H, W, batch): K3 at each vector width (8 channels a thread
+# where C is a multiple of 8, then 4, 2, 1), a single window, non-square
+# maps and a channel count below one group of threads
+K3_EDGE_SHAPES = (("2x2 b1 c3", 3, 2, 2, 1),
+                  ("6x10 b3 c3", 3, 6, 10, 3),
+                  ("6x10 b3 c6", 6, 6, 10, 3),
+                  ("14x14 b3 c6", 6, 14, 14, 3),
+                  ("6x10 b1 c20", 20, 6, 10, 1),
+                  ("14x14 b64 c20", 20, 14, 14, 64),
+                  ("2x2 b3 c24", 24, 2, 2, 3),
+                  ("6x10 b64 c24", 24, 6, 10, 64),
+                  ("84x84 b1 c64", 64, 84, 84, 1),
+                  ("14x14 b3 c160", 160, 14, 14, 3))
+# K3's kernel-alone time from the CUDA graph and torch.profiler's mean
+# kernel duration agree within this share of the former
+K3_PROFILER_SHARE = 0.05
 
 
 def k2_case(cin: int, cout: int, hw: int, prologue: bool, device,
@@ -237,14 +257,14 @@ def k2_case(cin: int, cout: int, hw: int, prologue: bool, device,
     return x, w.to(device), aff
 
 
-def k3_case(c: int, hw: int, device, ties: bool = False,
+def k3_case(c: int, h: int, w: int, device, ties: bool = False,
             batch: int = BATCH, seed: int = 0):
     """K3 operands: raw conv3 / downsample outputs (B, C, H, W) bf16
     channels_last and the two folded affines.  ``ties``: values on a grid of
     five levels around 0 with identity affines, so pooling windows hold
     ties and exact zeros."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    shape = (batch, c, hw, hw)
+    shape = (batch, c, h, w)
     if ties:
         y3 = torch.randint(-2, 3, shape, generator=g).to(torch.float32)
         res = torch.zeros(shape)
@@ -261,6 +281,20 @@ def k3_case(c: int, hw: int, device, ties: bool = False,
     res = res.to(device=device, dtype=torch.bfloat16).contiguous(**cl)
     affs = [t.to(device) for t in affs]
     return y3, res, (affs[0], affs[1]), (affs[2], affs[3])
+
+
+def k3_agreement(ops):
+    """K3 against its plain version on one input: (out, idx, bit-identical,
+    max |d out|)."""
+    from subspace_reg_tpu_torch.ops import conv_fused as cf
+    out, idx = cf.block_tail(*ops)
+    out_p, idx_p = cf.block_tail_plain(*ops)
+    torch.cuda.synchronize()
+    same = (out.shape == out_p.shape and idx.shape == idx_p.shape
+            and torch.equal(out.view(torch.int16), out_p.view(torch.int16))
+            and torch.equal(idx, idx_p))
+    err = float((out.float() - out_p.float()).abs().max())
+    return out, idx, same, err
 
 
 def k2_term_scale(x, w, aff, relu_in: bool) -> torch.Tensor:
@@ -321,6 +355,49 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
+    """Mean device ms per call of ``fn`` with the host out of the way:
+    ``reps`` calls captured in one CUDA graph, replayed ``replays`` times
+    after a warm-up replay, CUDA events around the replays (the gaps
+    between kernels included)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def profiled_kernel_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device duration in ms of the kernel named ``kernel`` over
+    ``reps`` calls of ``fn``, from torch.profiler's device events (the
+    tracer may drop a record; the mean is over those it kept)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    check(len(us) >= reps // 2, f"the profiler saw {len(us)} of {reps} "
+          f"{kernel} launches")
+    return sum(us) / len(us) / 1e3
 
 
 def k1_agreement(kind: str, ops, cfg, out, acc_flips: int = 0):
@@ -482,13 +559,13 @@ def roofline_ms(flops: float, nbytes: float):
     return 1e3 * t_bytes, "bytes"
 
 
-def phase_k2_k3():
-    """K2 and K3 against their plain versions at every shape of the fused
-    step (batch 64), with CUDA-event times of the kernel, the plain version
-    and, for K2, the one-call yardstick ``F.conv2d`` in bf16 channels_last
-    (the convolution alone, without prologue or statistics).  The kernels'
-    rows sum each time over one step's launches (K2: conv1 once and conv2/
-    conv3 twice per stage; K3: once per stage)."""
+def phase_k2():
+    """K2 against its plain version at the edge shapes and every shape of
+    the fused step (batch 64), with CUDA-event times of the wrapper call,
+    the plain version and the one-call yardstick ``F.conv2d`` in bf16
+    channels_last (the convolution alone, without prologue or
+    statistics); its row sums each time over one step's launches (conv1
+    once and conv2/conv3 twice per stage)."""
     from subspace_reg_tpu_torch.ops import conv_fused as cf
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -550,46 +627,106 @@ def phase_k2_k3():
           f"{k2['bound_ms']:.4f} ms ({100 * k2['bound_ms'] / k2['ms']:.1f}%),"
           f" F.conv2d {k2['library_ms']:.4f} ms "
           f"({k2['ms'] / k2['library_ms']:.2f}x)")
-    k3 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
-              shapes=[])
+    return dict(name="conv3x3_fused", route="cuda",
+                source="subspace_reg_tpu_torch/csrc/conv3x3_fused.cu",
+                replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:168",
+                launches=None, **k2)
+
+
+def k3_bytes(y3) -> int:
+    """K3's bytes: y3 and r read once, the four f32 affines, the bf16 pooled
+    map and the int8 record written once."""
+    n_in, c = y3.numel(), y3.shape[1]
+    return 2 * n_in * 2 + 4 * c * 4 + (n_in // 4) * 3
+
+
+def phase_k3(dev):
+    """K3 against its plain version, bit for bit, at the edge shapes and at
+    both shapes of the fused step (random and with ties, and a rerun);
+    then per step shape: the kernel alone (outputs allocated once, bare
+    launches in a CUDA graph; cross-checked with torch.profiler), the
+    wrapper call, the plain version, the bytes bound, the share of it and
+    the effective GB/s, beside a device-to-device copy of the shape's y3
+    as the rate this card reaches.  The row sums each time over one step's
+    two launches; its copy is stage 1's."""
+    from subspace_reg_tpu_torch.ops import conv_fused as cf
+    k3 = dict(ms=0.0, wrapper_ms=0.0, profiler_ms=0.0, plain_ms=0.0,
+              bound_ms=0.0, max_abs_err=0.0, shapes=[])
+    for name, c, h, w, batch in K3_EDGE_SHAPES:
+        for ties in (False, True):
+            ops = k3_case(c, h, w, dev, ties=ties, batch=batch)
+            _, _, same, err = k3_agreement(ops)
+            print(f"[kernels] K3 edge {name}{' ties' if ties else ''}: "
+                  f"bit-identical {same}")
+            check(same, f"K3 edge {name} (ties={ties}) differs from plain")
+            k3["max_abs_err"] = max(k3["max_abs_err"], err)
+    nbytes_all = 0
     for name, c, hw in K3_SHAPES:
         for ties in (False, True):
-            ops = k3_case(c, hw, dev, ties=ties)
-            out, idx = cf.block_tail(*ops)
-            out_p, idx_p = cf.block_tail_plain(*ops)
-            torch.cuda.synchronize()
-            same = (torch.equal(out.view(torch.int16),
-                                out_p.view(torch.int16))
-                    and torch.equal(idx, idx_p))
+            ops = k3_case(c, hw, hw, dev, ties=ties)
+            out, idx, same, err = k3_agreement(ops)
             print(f"[kernels] K3 {name}{' ties' if ties else ''}: "
                   f"bit-identical {same}")
             check(same, f"K3 {name} (ties={ties}) differs from plain")
-        ops = k3_case(c, hw, dev)
-        ms = cuda_ms(lambda: cf.block_tail(*ops), 20)
+            k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        out2, idx2 = cf.block_tail(*ops)
+        same = torch.equal(out.view(torch.int16), out2.view(
+            torch.int16)) and torch.equal(idx, idx2)
+        print(f"[kernels] K3 {name}: rerun bit-identical {same}")
+        check(same, f"K3 {name}: a rerun differs")
+        ops = k3_case(c, hw, hw, dev)
+        vecs, out, idx = cf._k3_operands(*ops)
+
+        def bare():
+            cf._k3_launch(ops[0], ops[1], vecs, out, idx)
+        ms = graph_ms(bare)
+        prof_ms = profiled_kernel_ms(bare, "block_tail")
+        # the graph's time adds the gaps between launches to the kernels'
+        check(abs(prof_ms - ms) <= K3_PROFILER_SHARE * ms,
+              f"K3 {name}: the profiler's {prof_ms:.4f} ms and the graph's "
+              f"{ms:.4f} ms differ by more than "
+              f"{100 * K3_PROFILER_SHARE:.0f}%")
+        wrapper_ms = cuda_ms(lambda: cf.block_tail(*ops), 20)
         plain_ms = cuda_ms(lambda: cf.block_tail_plain(*ops), 5)
-        n_in = ops[0].numel()
-        bound, by = roofline_ms(0.0, 2 * n_in * 2 + 4 * c * 4
-                                + (n_in // 4) * 3)
-        print(f"[kernels] K3 {name}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-        k3["shapes"].append(dict(shape=name, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound, bound_by=by))
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+        nbytes = k3_bytes(ops[0])
+        nbytes_all += nbytes
+        bound, by = roofline_ms(0.0, nbytes)
+        gbs = nbytes / ms / 1e6
+        print(f"[kernels] K3 {name}: kernel alone {ms:.4f} ms (profiler "
+              f"{prof_ms:.4f}), wrapper call {wrapper_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+              f"{nbytes / 1e6:.1f} MB); {100 * bound / ms:.1f}% of the "
+              f"bound, {gbs:.0f} GB/s")
+        k3["shapes"].append(dict(shape=name, ms=ms, profiler_ms=prof_ms,
+                                 wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by,
+                                 bound_share=bound / ms, gb_per_s=gbs))
+        for key, v in (("ms", ms), ("wrapper_ms", wrapper_ms),
+                       ("profiler_ms", prof_ms), ("plain_ms", plain_ms),
                        ("bound_ms", bound)):
             k3[key] += v
         k3["bound_by"] = by
-    rows = {
-        "conv3x3_fused": dict(
-            name="conv3x3_fused", route="cuda",
-            source="subspace_reg_tpu_torch/csrc/conv3x3_fused.cu",
-            replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:168",
-            launches=None, **k2),
-        "block_tail": dict(
-            name="block_tail", route="cuda",
-            source="subspace_reg_tpu_torch/csrc/block_tail.cu",
-            replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:278",
-            launches=None, library_ms=None, **k3)}
-    return rows
+        # the yardstick: a device-to-device copy of this shape's y3
+        dst = torch.empty_like(ops[0])
+        copy_ms = graph_ms(lambda: dst.copy_(ops[0]))
+        moved = 2 * ops[0].numel() * 2
+        copy_gbs = moved / copy_ms / 1e6
+        print(f"[kernels] K3 {name}: copy of y3 ({moved / 1e6:.1f} MB "
+              f"moved) {copy_ms:.4f} ms, {copy_gbs:.0f} GB/s; K3 at "
+              f"{100 * gbs / copy_gbs:.1f}% of the copy's rate")
+        k3["shapes"][-1].update(copy_ms=copy_ms, copy_gb_per_s=copy_gbs)
+    k3.update(bound_share=k3["bound_ms"] / k3["ms"],
+              gb_per_s=nbytes_all / k3["ms"] / 1e6,
+              copy_ms=k3["shapes"][0]["copy_ms"],
+              copy_gb_per_s=k3["shapes"][0]["copy_gb_per_s"])
+    print(f"[kernels] K3 per step: kernel alone {k3['ms']:.4f} ms, wrapper "
+          f"calls {k3['wrapper_ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms "
+          f"({100 * k3['bound_share']:.1f}%), {k3['gb_per_s']:.0f} GB/s; "
+          f"the copy of stage 1's y3 {k3['copy_gb_per_s']:.0f} GB/s")
+    return dict(name="block_tail", route="cuda",
+                source="subspace_reg_tpu_torch/csrc/block_tail.cu",
+                replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:278",
+                launches=None, library_ms=None, **k3)
 
 
 # --------------------------------------------------------------------------
@@ -1065,6 +1202,23 @@ def sass_count(lib: str, opcode: str) -> int:
     return sum(1 for line in sass.splitlines() if pat.search(line))
 
 
+def ptxas_usage(log: str, entry: str):
+    """(registers, spill store bytes) of each entry function whose name
+    holds ``entry``, from nvcc's ``-Xptxas -v`` report."""
+    import re
+    usage, cur, spill = [], False, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur, spill = entry in line, None
+        elif cur and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif cur and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            usage.append((regs, spill))
+            cur = False
+    return usage
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1098,10 +1252,19 @@ def main(argv=None) -> int:
         print(f"[build] {kname}: {n_hgmma} HGMMA instructions in its SASS")
         if kname == "conv3x3_fused":
             check(n_hgmma > 0, "K2's library holds no HGMMA instruction")
+        if kname == "block_tail" and info["ptxas"]:
+            # __launch_bounds__(256, 4): 64 registers a thread at most
+            usage = ptxas_usage(info["ptxas"], "block_tail_kernel")
+            print(f"[build] block_tail: (registers, spill stores) of its "
+                  f"{len(usage)} instances {usage}")
+            check(len(usage) == 4 and all(
+                regs <= 64 and spill == 0 for regs, spill in usage),
+                "K3's instances exceed 64 registers or spill")
 
     # phase 3: kernels against their plain versions
     rows = phase_kernels(dev)
-    rows.update(phase_k2_k3())
+    rows["conv3x3_fused"] = phase_k2()
+    rows["block_tail"] = phase_k3(dev)
     if only_kernels:
         print(smi)
         print(json.dumps({"kernels": list(rows.values())}))

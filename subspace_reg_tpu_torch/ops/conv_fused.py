@@ -55,6 +55,12 @@ K2_SBO = 256
 # of one block
 K2_KG = 5
 K2_SMEM_MAX = 232448
+# K3's limits, mirrored from csrc/block_tail.cu: threads a block may have,
+# resident blocks per SM its register budget allows and vector widths (bf16
+# channels a thread owns)
+K3_THREADS = 256
+K3_MIN_BLOCKS = 4
+K3_WIDTHS = (8, 4, 2, 1)
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
 
@@ -81,6 +87,21 @@ class K2Plan(NamedTuple):
     n_blk: int
     grid: int
     smem: int
+
+
+class K3Plan(NamedTuple):
+    """How K3 covers one call.  Each thread owns ``v`` consecutive channels
+    of one pooled pixel; a block is ``gx`` channel groups x ``py`` pooled
+    pixels; the C / v channel groups fall into ``gtiles`` tiles of gx.
+    Pixel p of the batch is pooled row q = p // (W/2) (b*H/2 + ph), which
+    reads input rows 2q and 2q + 1.  One launch of ``grid`` persistent
+    blocks walks the tiles t = group tile * pixel tiles + pixel tile,
+    block k taking t = k, k + grid, ..."""
+    v: int
+    gx: int
+    py: int
+    gtiles: int
+    grid: int
 
 
 def _round(v: torch.Tensor, dtype) -> torch.Tensor:
@@ -201,15 +222,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_act(name: str, t: torch.Tensor, device):
+def _check_act(name: str, t: torch.Tensor, device, align: int = 16):
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if t.dtype != BF16:
         raise ValueError(f"{name} is {t.dtype}; the kernel takes bf16")
     if t.dim() != 4 or not t.is_contiguous(memory_format=CL):
         raise ValueError(f"{name} must be a 4-d channels_last tensor")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary")
 
 
 def _check_vec(name: str, t: torch.Tensor, c: int, device) -> torch.Tensor:
@@ -302,6 +323,48 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_threads(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(
+        dev).max_threads_per_multi_processor
+
+
+def k3_width(c: int, ptrs: Tuple[int, int, int, int]) -> int:
+    """K3's vector width: the largest of K3_WIDTHS that divides C, with
+    y3, r and out (bf16) aligned to 2V bytes and idx (int8) to V bytes.
+    ``ptrs``: the four data pointers (y3, r, out, idx)."""
+    for v in K3_WIDTHS:
+        if (c % v == 0 and all(p % (2 * v) == 0 for p in ptrs[:3])
+                and ptrs[3] % v == 0):
+            return v
+    raise ValueError("block_tail: a bf16 operand is not 2-byte aligned")
+
+
+def k3_plan(b: int, h: int, w: int, c: int,
+            ptrs: Tuple[int, int, int, int] = (0, 0, 0, 0),
+            n_sm: int = 132, sm_threads: int = 2048) -> K3Plan:
+    """K3's launch plan for (B, C, H, W) operands at ``ptrs`` (y3, r, out,
+    idx) on a card of ``n_sm`` SMs of ``sm_threads`` threads: the vector
+    width (``k3_width``), blocks of up to K3_THREADS threads (all C / v
+    channel groups of up to ``py`` pixels, or tiles of K3_THREADS groups
+    where there are more), and a grid of as many blocks as the
+    SMs hold resident (K3_MIN_BLOCKS each, fewer where a block's threads
+    fill the SM), at most one per tile."""
+    return _k3_plan(b, h, w, c, k3_width(c, ptrs), n_sm, sm_threads)
+
+
+@functools.lru_cache(maxsize=256)
+def _k3_plan(b: int, h: int, w: int, c: int, v: int, n_sm: int,
+             sm_threads: int) -> K3Plan:
+    groups = c // v
+    gx = min(groups, K3_THREADS)
+    py = K3_THREADS // gx
+    gtiles = -(-groups // gx)
+    tiles = -(-b * (h // 2) * (w // 2) // py) * gtiles
+    resident = n_sm * max(1, min(K3_MIN_BLOCKS, sm_threads // (gx * py)))
+    return K3Plan(v, gx, py, gtiles, min(tiles, resident))
+
+
 def conv3x3_fused(x: torch.Tensor, w: torch.Tensor,
                   affine: Optional[Affine] = None, relu_in: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -350,22 +413,20 @@ def conv3x3_fused(x: torch.Tensor, w: torch.Tensor,
 conv3x3_fused.launches = 0
 
 
-def block_tail(y3: torch.Tensor, res: torch.Tensor, aff3: Affine,
-               affd: Affine) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: see ``block_tail_plain`` for the function.  CUDA tensors: y3 and
-    res bf16 channels_last of one shape with even H and W."""
-    if y3.device.type == "cpu":
-        return block_tail_plain(y3, res, aff3, affd)
-    if y3.device.type != "cuda":
-        raise ValueError(f"block_tail: unsupported device {y3.device}")
+def _k3_operands(y3: torch.Tensor, res: torch.Tensor, aff3: Affine,
+                 affd: Affine):
+    """A K3 call's checked operands on the card and its outputs, allocated
+    here: (the four affine vectors as f32, out, idx)."""
     dev = y3.device
-    _check_act("block_tail: y3", y3, dev)
-    _check_act("block_tail: res", res, dev)
+    _check_act("block_tail: y3", y3, dev, align=2)
+    _check_act("block_tail: res", res, dev, align=2)
     if res.shape != y3.shape:
         raise ValueError("block_tail: y3 and res differ in shape")
     b, c, h, w = y3.shape
     if h % 2 or w % 2:
         raise ValueError("block_tail: H and W must be even")
+    if not y3.numel():
+        raise ValueError("block_tail: empty operands")
     vecs = [_check_vec(f"block_tail: {n}", v, c, dev) for n, v in
             (("a3", aff3[0]), ("b3", aff3[1]), ("ad", affd[0]),
              ("bd", affd[1]))]
@@ -373,12 +434,37 @@ def block_tail(y3: torch.Tensor, res: torch.Tensor, aff3: Affine,
                       memory_format=CL)
     idx = torch.empty((b, c, h // 2, w // 2), dtype=torch.int8, device=dev,
                       memory_format=CL)
-    err = _fn("block_tail", "k3_block_tail", 8, 4)(
-        _ptr(y3), _ptr(res), *(_ptr(v) for v in vecs), _ptr(out), _ptr(idx),
-        b, h, w, c, torch.cuda.current_stream(dev).cuda_stream)
+    return vecs, out, idx
+
+
+def _k3_launch(y3, res, vecs, out, idx) -> None:
+    """K3's launch on checked operands, with no allocation (the kernel-alone
+    timer calls it too), by ``k3_plan`` for this card; counts it in
+    ``block_tail.launches``."""
+    b, c, h, w = y3.shape
+    dev = y3.device
+    ptrs = (y3.data_ptr(), res.data_ptr(), out.data_ptr(), idx.data_ptr())
+    plan = k3_plan(b, h, w, c, ptrs, _sm_count(dev), _sm_threads(dev))
+    err = _fn("block_tail", "k3_block_tail", 8, 8)(
+        *ptrs[:2], *(_ptr(v) for v in vecs), *ptrs[2:], b, h // 2, w // 2, c,
+        plan.v, plan.gx, plan.py, plan.grid,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         _launch_failed("block_tail", err)
     block_tail.launches += 1
+
+
+def block_tail(y3: torch.Tensor, res: torch.Tensor, aff3: Affine,
+               affd: Affine) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: see ``block_tail_plain`` for the function.  CUDA tensors: y3 and
+    res bf16 channels_last of one shape with even H and W; the launch plan
+    is ``k3_plan``."""
+    if y3.device.type == "cpu":
+        return block_tail_plain(y3, res, aff3, affd)
+    if y3.device.type != "cuda":
+        raise ValueError(f"block_tail: unsupported device {y3.device}")
+    vecs, out, idx = _k3_operands(y3, res, aff3, affd)
+    _k3_launch(y3, res, vecs, out, idx)
     return out, idx
 
 

@@ -2,8 +2,10 @@
 the evaluation path's shapes (chip_smoke.py's ``k1_case``) in every
 configuration the engine uses, at each golden session's shapes, and on
 grids of 1, 3, 17 blocks and one block per SM; K2 and K3 at the fused
-pretraining step's shapes (``k2_case``, ``k3_case``).  Marked ``gpu``: it skips where no card
-is present and runs on the card with
+pretraining step's shapes (``k2_case``, ``k3_case``) and at edge shapes
+(``K2_EDGE_SHAPES``, ``K3_EDGE_SHAPES``; K3 also at each vector width its
+pointers' alignment forces).  Marked
+``gpu``: it skips where no card is present and runs on the card with
 
     python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py
 
@@ -17,9 +19,9 @@ sums in a different order.  K2 and K3: stated at each test.  No JAX here."""
 import pytest
 import torch
 
-from chip_smoke import (K2_EDGE_SHAPES, K2_SHAPES, K3_SHAPES,
-                        bf16_ulp_diff, k1_case, k2_agreement, k2_case,
-                        k2_term_scale, k3_case)
+from chip_smoke import (K2_EDGE_SHAPES, K2_SHAPES, K3_EDGE_SHAPES,
+                        K3_SHAPES, bf16_ulp_diff, k1_case, k2_agreement,
+                        k2_case, k2_term_scale, k3_agreement, k3_case)
 from subspace_reg_tpu_torch.ops import conv_fused as cf
 from subspace_reg_tpu_torch.ops import finetune as ft
 from subspace_reg_tpu_torch.utils.device import resolve_device
@@ -167,7 +169,7 @@ def test_k2_is_deterministic(cuda, cin, cout, hw, batch):
                          ids=[s[0] for s in K3_SHAPES])
 def test_k3_bit_identical_to_plain(cuda, case, ties):
     _, c, hw = K3_SHAPES[case]
-    ops = k3_case(c, hw, cuda, ties=ties)
+    ops = k3_case(c, hw, hw, cuda, ties=ties)
     out, idx = cf.block_tail(*ops)
     out_p, idx_p = cf.block_tail_plain(*ops)
     torch.cuda.synchronize()
@@ -175,6 +177,72 @@ def test_k3_bit_identical_to_plain(cuda, case, ties):
     assert torch.equal(idx, idx_p)
     if ties:
         assert int((idx & 3).max()) == 3 and int((idx & 4).min()) == 0
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("case", range(len(K3_EDGE_SHAPES)),
+                         ids=[s[0] for s in K3_EDGE_SHAPES])
+def test_k3_edge_shapes_bit_identical_to_plain(cuda, case, ties):
+    """Each vector width (C = 3, 6, 20, 24/64/160), a single window,
+    non-square maps, batches of 1, 3 and 64."""
+    _, c, h, w, batch = K3_EDGE_SHAPES[case]
+    _, _, same, _ = k3_agreement(k3_case(c, h, w, cuda, ties=ties,
+                                         batch=batch))
+    assert same
+
+
+@pytest.mark.parametrize("case", range(len(K3_SHAPES)),
+                         ids=[s[0] for s in K3_SHAPES])
+def test_k3_rerun_is_bit_identical(cuda, case):
+    _, c, hw = K3_SHAPES[case]
+    ops = k3_case(c, hw, hw, cuda)
+    out, idx = cf.block_tail(*ops)
+    out2, idx2 = cf.block_tail(*ops)
+    assert torch.equal(out.view(torch.int16), out2.view(torch.int16))
+    assert torch.equal(idx, idx2)
+
+
+@pytest.mark.parametrize("offset,width", [(0, 8), (4, 4), (2, 2), (1, 1)])
+def test_k3_pointer_alignment_picks_the_vector_width(cuda, offset, width):
+    """y3 starting ``offset`` bf16 elements into its buffer: 16-, 8-, 4- or
+    2-byte aligned, so 8, 4, 2 or 1 channels a thread."""
+    y3, res, a3, ad = k3_case(64, 6, 10, cuda, batch=3)
+    buf = torch.empty(y3.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    view = buf[offset:offset + y3.numel()].view(3, 6, 10, 64).permute(
+        0, 3, 1, 2)
+    view.copy_(y3)
+    assert view.is_contiguous(memory_format=torch.channels_last)
+    _, out, idx = cf._k3_operands(view, res, a3, ad)
+    plan = cf.k3_plan(3, 6, 10, 64, (view.data_ptr(), res.data_ptr(),
+                                     out.data_ptr(), idx.data_ptr()))
+    assert plan.v == width
+    _, _, same, _ = k3_agreement((view, res, a3, ad))
+    assert same
+
+
+def test_k3_bare_launch_counts_and_matches_plain(cuda):
+    """The launcher under the wrapper (which the kernel-alone timer calls
+    with outputs allocated once) counts each launch where it makes it."""
+    ops = k3_case(20, 6, 10, cuda, batch=3)
+    vecs, out, idx = cf._k3_operands(*ops)
+    before = cf.block_tail.launches
+    cf._k3_launch(ops[0], ops[1], vecs, out, idx)
+    assert cf.block_tail.launches == before + 1
+    out_p, idx_p = cf.block_tail_plain(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), out_p.view(torch.int16))
+    assert torch.equal(idx, idx_p)
+
+
+def test_k3_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(cf, "block_tail_plain", boom)
+    ops = k3_case(64, 16, 16, cuda, batch=2)
+    before = cf.block_tail.launches
+    cf.block_tail(*ops)
+    assert cf.block_tail.launches == before + 1
 
 
 def test_k2_k3_count_launches_and_refuse_bad_operands(cuda):
@@ -189,7 +257,7 @@ def test_k2_k3_count_launches_and_refuse_bad_operands(cuda):
             memory_format=torch.channels_last), w)
     with pytest.raises(ValueError, match="Cout"):
         cf.conv3x3_fused(x, torch.randn((20, 64, 3, 3), device=cuda))
-    y3, res, a3, ad = k3_case(64, 16, cuda, batch=2)
+    y3, res, a3, ad = k3_case(64, 16, 16, cuda, batch=2)
     before = cf.block_tail.launches
     cf.block_tail(y3, res, a3, ad)
     assert cf.block_tail.launches == before + 1
@@ -198,6 +266,9 @@ def test_k2_k3_count_launches_and_refuse_bad_operands(cuda):
             memory_format=torch.channels_last),
             res[:, :, :15, :15].contiguous(
             memory_format=torch.channels_last), a3, ad)
+    with pytest.raises(ValueError, match="empty"):
+        cf.block_tail(y3[:0], res[:0], a3, ad)
+    assert cf.block_tail.launches == before + 1
 
 
 def test_wrapper_refuses_bad_operands(cuda):
