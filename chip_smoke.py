@@ -22,18 +22,27 @@ Phases; any failure raises and the script exits non-zero:
               barrier's share of a block's time, the grid barrier alone;
               then at the golden run's 1000 epochs: agreement, a
               bit-identical rerun, CUDA-event times of the kernel and the
-              plain version, and the bound.
+              plain version, and the bound.  K1's semantic pull against
+              the plain version and on rerun.  The seed-batched K1 (one
+              launch, the card's blocks in S groups) at S = 1, 2, 5, 10:
+              each seed against the plain version and bit-identical to a
+              single-seed launch on its group's G blocks, one group
+              stopping early, a bit-identical rerun, S = 2 also at 999
+              epochs; at S = 10 and 999 epochs its time beside 10
+              single-seed launches back to back, and the bound.
   4. agree    the port's 8-session engine on the card against the same
               engine on the CPU (plain twin) at a small size with the same
-              draws: equal epoch counts, accuracies within 0.5.
+              draws, for the subspace, semantic and mapping pulls: equal
+              epoch counts, accuracies within 0.5.
   5. main     the evaluation path: the golden subspace-reg + memory
-              evaluation (README quick start flags) through
+              evaluation (README quick start flags), then the semantic
+              subspace and the mapping configurations, through
               ``few_shot_finetune_incremental_test``:
               8 sessions, full-width resnet18, 84 px synthetic
               miniImageNet made from a seed, random weights from a seed.
               Every kernel launch counter is set to 0 just before and read
-              just after; K1 must have launched once per session, K2/K3
-              never.
+              just after each run; K1 must have launched once per session,
+              K2/K3 never.
   6. profile  the same run again under torch.profiler: device time of K1,
               of the convolutions and of the rest per 8-session run, and
               the busy share.
@@ -52,6 +61,15 @@ Phases; any failure raises and the script exits non-zero:
   10. cli     ``python -m subspace_reg_tpu_torch.train_supervised`` for one
               epoch (golden model/optimizer flags, 84 px, 64 classes x 100
               synthetic images) to a saved ``.pth``, read back.
+  11. multiseed  ``python -m subspace_reg_tpu_torch.run_seeds --vmap`` on
+              the golden flags for 5 seeds at full width (84 px, 560
+              synthetic images a class, a seeded ``.pth`` per seed) beside
+              one single-seed run, with the launch counters: K1 8 launches
+              of 5 seeds each; then 3 seeds at the small size through the
+              multi-seed engine against single-seed runs, all on the card:
+              equal epochs.
+
+Each phase's seconds are printed before the JSON lines.
 
 Phase 3 also holds K2 and K3 against their plain versions at every shape
 of the fused step (K2 within 1 bf16 ulp, K3 bit-identical) and at edge
@@ -180,6 +198,28 @@ def k1_case(kind: str, device, max_epochs: int = 100, seed: int = 0,
                      trace_rows=((max_epochs + 2 + 7) // 8) * 8,
                      use_adam=adam, bias_col=feat if bias else None)
     return ops, cfg
+
+
+def k1_seed_case(kind: str, device, n_seeds: int, max_epochs: int = 100,
+                 stable_target: int = 10, stop=None):
+    """S seeds of one geometry for the seed-batched K1: ``k1_case``'s
+    operands drawn from seeds 0..S-1, stacked on a leading seed axis.
+    ``stop`` = (seed, epochs) caps that seed's loop at ``epochs`` (its own
+    max-epoch scalar), so its group stops while the others run.  Returns
+    (stacked operands, the per-seed operands, the shared config)."""
+    from subspace_reg_tpu_torch.ops.finetune import SCALARS
+    per = []
+    for s in range(n_seeds):
+        ops, cfg = k1_case(kind, device, max_epochs=max_epochs, seed=s,
+                           stable_target=stable_target)
+        per.append(ops)
+    if stop is not None:
+        sc = per[stop[0]]["scalars"].clone()
+        sc[SCALARS.index("max_epochs")] = float(stop[1])
+        per[stop[0]]["scalars"] = sc
+    stacked = {k: None if t is None else torch.stack([p[k] for p in per])
+               for k, t in per[0].items()}
+    return stacked, per, cfg
 
 
 def k1_bound(ops, cfg, epochs_run: int):
@@ -550,6 +590,99 @@ def phase_kernels(dev):
         us_per_epoch_99=us_epoch, blocks=p, barrier_us=bar_us)}
 
 
+def _bit_identical(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_k1_semantic(dev):
+    """K1's semantic pull (the semantic and mapping attractors' target at
+    the current rows) at the last golden session's shapes: against the
+    plain version (99 epochs), and a bit-identical rerun."""
+    from subspace_reg_tpu_torch.ops import finetune as ft
+    ops, cfg = k1_case("semantic", dev)
+    out = ft.finetune_loop(**ops, cfg=cfg)
+    _, err = k1_agreement("semantic", ops, cfg, out)
+    same = _bit_identical(out, ft.finetune_loop(**ops, cfg=cfg))
+    print(f"[kernels] K1 semantic: rerun bit-identical {same}")
+    check(same, "K1 semantic: a rerun differs")
+    return err
+
+
+def phase_k1_seeds(dev):
+    """The seed-batched K1 (one launch, the card's blocks in S groups of
+    G): at S = 1, 2, 5, 10 and 99 epochs (seed 0 capped at 40 epochs,
+    so its group stops while the others run), each seed against the plain
+    version, bit-identical to a single-seed launch on G blocks, and a
+    bit-identical rerun; at S = 2 the same at 999 epochs; at S = 10 and
+    999 epochs the launch's time beside 10 single-seed launches on all
+    SMs back to back, and the bound.  Returns the K1 row's seed-batched
+    fields and the largest |dW| against the plain version."""
+    from subspace_reg_tpu_torch.ops import finetune as ft
+    p = ft.k1_blocks(dev)
+    worst = 0.0
+    for n_seeds, max_epochs in ((1, 100), (2, 100), (5, 100), (10, 100),
+                                (2, 1000)):
+        long = max_epochs == 1000
+        stacked, per, cfg = k1_seed_case(
+            "sgd", dev, n_seeds, max_epochs=max_epochs,
+            stable_target=10 ** 6,
+            stop=(0, 40) if n_seeds > 1 and not long else None)
+        g = p // n_seeds
+        out = ft._launch_seeds(stacked, cfg)
+        epochs = []
+        for s in range(n_seeds):
+            mine = tuple(t[s] for t in out)
+            ep, err = k1_agreement(f"S={n_seeds} seed {s}", per[s], cfg,
+                                   mine, acc_flips=10 if long else 0)
+            epochs.append(ep)
+            worst = max(worst, err)
+            alone = ft._launch(per[s], cfg, blocks=g)
+            check(_bit_identical(mine, alone),
+                  f"K1 S={n_seeds}: seed {s} differs from a single-seed "
+                  f"launch on {g} blocks")
+        same = _bit_identical(out, ft._launch_seeds(stacked, cfg))
+        check(same, f"K1 S={n_seeds}: a rerun differs")
+        if n_seeds > 1 and not long:
+            check(epochs == [40] + [max_epochs] * (n_seeds - 1),
+                  f"K1 S={n_seeds}: epochs {epochs}")
+        print(f"[kernels] K1 seed-batched S={n_seeds} (G={g} blocks a seed,"
+              f" {p - n_seeds * g} idle), {max_epochs - 1} epochs at most: "
+              f"epochs {epochs}; each seed bit-identical to a single-seed "
+              f"launch on {g} blocks; rerun bit-identical")
+    n_seeds = 10
+    stacked, per, cfg = k1_seed_case("sgd", dev, n_seeds, max_epochs=1000,
+                                     stable_target=10 ** 6)
+    ms = cuda_ms(lambda: ft._launch_seeds(stacked, cfg), 3)
+    seq_ms = cuda_ms(lambda: [ft._launch(o, cfg) for o in per], 2)
+    epochs = 999
+    bound = sum(k1_bound(o, cfg, epochs)[0] for o in per)
+    us_epoch = 1e3 * ms / epochs
+    print(f"[kernels] K1 seed-batched S={n_seeds}, {epochs} epochs: one "
+          f"launch {ms:.3f} ms ({us_epoch:.2f} us per epoch of all seeds, "
+          f"{us_epoch / n_seeds:.2f} us per seed-epoch); {n_seeds} "
+          f"single-seed launches on {p} blocks back to back {seq_ms:.3f} ms "
+          f"({1e3 * seq_ms / epochs / n_seeds:.2f} us per seed-epoch); "
+          f"bound {bound:.4f} ms; {100 * bound / ms:.2f}% of the bound; "
+          f"{seq_ms / ms:.2f}x faster than the sequential launches")
+    # where a block's time goes, from the kernel's own clocks
+    plan = ft._plan_for(cfg, *per[0]["w"].shape, p, n_seeds)
+    prof = torch.zeros((plan.grid, ft.K1_PROF_SLOTS), dtype=torch.int64,
+                       device=dev)
+    ft._launch_seeds(stacked, cfg, prof=prof)
+    torch.cuda.synchronize()
+    c = (prof.double() / (1e3 * epochs)).cpu().numpy()
+    parts = (("phase A", c[:, 0] + c[:, 4]), ("its product", c[:, 4]),
+             ("barrier 1", c[:, 1]),
+             ("phase B", c[:, 2] + c[:, 5] + c[:, 6] + c[:, 7]),
+             ("its G product", c[:, 6]), ("barrier 2", c[:, 3]))
+    print(f"[kernels] K1 seed-batched S={n_seeds}, us per epoch per block "
+          "(mean, max): " + "; ".join(f"{name} {v.mean():.2f} "
+                                      f"({v.max():.2f})" for name, v in parts))
+    return dict(seeds=n_seeds, seeds_ms=ms, seeds_sequential_ms=seq_ms,
+                seeds_bound_ms=bound, seeds_us_per_seed_epoch=us_epoch
+                / n_seeds, seeds_blocks_per_seed=p // n_seeds), worst
+
+
 def roofline_ms(flops: float, nbytes: float):
     """The larger of bf16 tensor-core operations at the dense peak and bytes
     at the HBM rate, in ms, and which of the two it is."""
@@ -744,12 +877,11 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def _run_engine(root, opt, backbone, head, device, draws=None,
-                verbose=True):
+def _engine_inputs(opt):
+    """The samplers and the base-test split of the synthetic sets (10
+    training and 2 validation images a base class)."""
     from subspace_reg_tpu_torch.data.episodes import EpisodeSampler
     from subspace_reg_tpu_torch.data.mini_imagenet import load_mini_imagenet
-    from subspace_reg_tpu_torch.engine.incremental import (
-        few_shot_finetune_incremental_test)
 
     def split(**kw):
         return load_mini_imagenet(opt, train_per_class=10, val_per_class=2,
@@ -757,59 +889,125 @@ def _run_engine(root, opt, backbone, head, device, draws=None,
     base_test = split(split="train", phase="test")
     base_train = split(split="train", phase="train")
     novel = split(split="val")
+    return dict(meta_sampler=EpisodeSampler(novel, opt, split="val",
+                                            disjoint_classes=True),
+                base_test_split=base_test,
+                base_support_sampler=EpisodeSampler(
+                    base_train, opt, split="train", phase="train"))
+
+
+def _run_engine(root, opt, backbone, head, device, draws=None,
+                verbose=True, meta=None):
+    from subspace_reg_tpu_torch.engine.incremental import (
+        few_shot_finetune_incremental_test)
     return few_shot_finetune_incremental_test(
-        backbone, head, {}, opt,
-        meta_sampler=EpisodeSampler(novel, opt, split="val",
-                                    disjoint_classes=True),
-        base_test_split=base_test,
-        base_support_sampler=EpisodeSampler(base_train, opt, split="train",
-                                            phase="train"),
+        backbone, head, meta or {}, opt, **_engine_inputs(opt),
         verbose=verbose, device=device, draws=draws)
 
 
-def _golden_opt(data_root, *extra):
+# the paper's pulls beside the golden subspace regularizer: the semantic
+# subspace regularizer (--label_pull with the override unset: attractors
+# from the word embeddings) and the linear label->image mapping (on the
+# 300-d GloVe slice)
+CONFIGS = ("subspace", "semantic", "mapping")
+
+
+def config_argv(config: str, data_root: str):
+    """The golden flags for ``config``, with the synthetic word embeds."""
+    argv = list(GOLDEN_ARGV)
+    i = argv.index("--attraction_override")
+    if config == "semantic":
+        del argv[i:i + 2]
+    elif config == "mapping":
+        argv[i + 1] = "mapping_linear_label2image"
+        argv.append("--glove")
+    return argv + ["--data_root", data_root, "--word_embed_path",
+                   f"{data_root}/word_embeds"]
+
+
+def config_meta(config: str, feat: int, seed: int = 4):
+    """A checkpoint's ``meta`` for ``config``: for the mapping, a seeded
+    LinearMap from the 300-d GloVe slice to ``feat`` features."""
+    if config != "mapping":
+        return {}
+    r = np.random.RandomState(seed)
+    return {"mapping_linear_label2image": {
+        "weight": (0.05 * r.randn(feat, 300)).astype(np.float32),
+        "bias": (0.01 * r.randn(feat)).astype(np.float32)}}
+
+
+def _golden_opt(data_root, *extra, config: str = "subspace"):
     from subspace_reg_tpu_torch.config import parse_option_eval
-    return parse_option_eval(GOLDEN_ARGV + ["--data_root", data_root,
-                                            *extra])
+    return parse_option_eval(config_argv(config, data_root) + list(extra))
 
 
-def phase_agree(tmp):
-    """Engine on the card vs the same engine on the CPU, small size."""
+SMALL_WIDTHS = (8, 16, 24, 80)
+SMALL_ARGS = ("--n_queries", "4", "--test_base_batch_size", "200",
+              "--max_novel_epochs", "30", "--min_novel_epochs", "5",
+              "--stable_epochs", "3", "--convergence_epsilon", "1e-2",
+              "--learning_rate", "0.01")
+
+
+def small_data(tmp):
+    """Synthetic miniImageNet at 16 px (100 classes x 20 images) and its
+    word embeds."""
     from subspace_reg_tpu_torch.data import synthetic
-    from subspace_reg_tpu_torch.engine.draws import TorchDraws
-    from subspace_reg_tpu_torch.models.head import init_head
-    from subspace_reg_tpu_torch.models.resnet import ResNetRFS
     root = f"{tmp}/small"
     synthetic.make_mini_imagenet(f"{root}/miniImageNet", n_classes=100,
                                  per_class=20, img_size=16, seed=0)
-    opt = _golden_opt(root, "--n_queries", "4", "--test_base_batch_size",
-                      "200", "--max_novel_epochs", "30",
-                      "--min_novel_epochs", "5", "--stable_epochs", "3",
-                      "--convergence_epsilon", "1e-2",
-                      "--learning_rate", "0.01", "--set_seed", "3")
-    torch.manual_seed(1)
+    synthetic.make_word_embeds(f"{root}/word_embeds")
+    return root
+
+
+def small_model(seed: int = 1):
+    """A narrow backbone (last stage 80 wide, above the 60 base classes)
+    and its head, drawn from ``seed``."""
+    from subspace_reg_tpu_torch.models.head import init_head
+    from subspace_reg_tpu_torch.models.resnet import ResNetRFS
+    torch.manual_seed(seed)
     backbone = ResNetRFS(n_blocks=(1, 1, 1, 1), drop_rate=0.0,
-                         no_dropblock=True, widths=(8, 16, 24, 80))
-    head = init_head(60, 80, with_bias=False, max_classes=100,
-                     generator=torch.Generator().manual_seed(2))
-    res = {dev: _run_engine(root, opt, backbone, head, dev,
-                            draws=TorchDraws(opt.set_seed, "cpu"),
-                            verbose=False)
-           for dev in ("cuda", "cpu")}
-    g, c = res["cuda"], res["cpu"]
-    print(f"[agree] epochs card {g.epochs_per_session} cpu "
-          f"{c.epochs_per_session}")
-    print(f"[agree] novel card {g.acc_novel_list} cpu {c.acc_novel_list}")
-    print(f"[agree] base card {g.acc_base_list} cpu {c.acc_base_list}")
-    check(g.epochs_per_session == c.epochs_per_session,
-          "engine epochs differ between card and CPU")
-    for name in ("acc_novel_list", "acc_base_list", "weighted_avg_l"):
-        a, b = np.asarray(getattr(g, name)), np.asarray(getattr(c, name))
-        check(np.all(np.abs(a - b) <= 0.5),
-              f"{name} differs between card and CPU: {a} vs {b}")
+                         no_dropblock=True, widths=SMALL_WIDTHS)
+    head = init_head(60, SMALL_WIDTHS[-1], with_bias=False, max_classes=100,
+                     generator=torch.Generator().manual_seed(seed + 1))
+    return backbone, head
+
+
+def phase_agree(tmp):
+    """Engine on the card vs the same engine on the CPU, small size, for
+    the subspace, semantic and mapping configurations: epochs exact,
+    accuracies within 0.5."""
+    from subspace_reg_tpu_torch.engine.draws import TorchDraws
+    root = small_data(tmp)
+    backbone, head = small_model()
+    for config in CONFIGS:
+        opt = _golden_opt(root, *SMALL_ARGS, "--set_seed", "3",
+                          config=config)
+        meta = config_meta(config, SMALL_WIDTHS[-1])
+        res = {dev: _run_engine(root, opt, backbone, head, dev,
+                                draws=TorchDraws(opt.set_seed, "cpu"),
+                                verbose=False, meta=meta)
+               for dev in ("cuda", "cpu")}
+        g, c = res["cuda"], res["cpu"]
+        print(f"[agree] {config}: epochs card {g.epochs_per_session} cpu "
+              f"{c.epochs_per_session}")
+        print(f"[agree] {config}: novel card {g.acc_novel_list} cpu "
+              f"{c.acc_novel_list}")
+        print(f"[agree] {config}: base card {g.acc_base_list} cpu "
+              f"{c.acc_base_list}")
+        check(g.epochs_per_session == c.epochs_per_session,
+              f"{config}: engine epochs differ between card and CPU")
+        for name in ("acc_novel_list", "acc_base_list", "weighted_avg_l"):
+            a, b = np.asarray(getattr(g, name)), np.asarray(getattr(c, name))
+            check(np.all(np.abs(a - b) <= 0.5),
+                  f"{config}: {name} differs between card and CPU: {a} vs "
+                  f"{b}")
+    return root
 
 
 def phase_main(tmp, counters):
+    """The evaluation path at full width for each configuration (subspace,
+    semantic, mapping), the launch counters set to 0 just before each run
+    and read just after: K1 once per session, K2/K3 never."""
     from subspace_reg_tpu_torch.data import synthetic
     from subspace_reg_tpu_torch.models.factory import create_model
     from subspace_reg_tpu_torch.models.head import init_head
@@ -817,6 +1015,7 @@ def phase_main(tmp, counters):
     t0 = time.time()
     synthetic.make_mini_imagenet(f"{root}/miniImageNet", n_classes=100,
                                  per_class=40, img_size=84, seed=0)
+    synthetic.make_word_embeds(f"{root}/word_embeds")
     opt = _golden_opt(root)
     torch.manual_seed(0)
     backbone = create_model(opt.model, opt, dataset=opt.dataset)
@@ -825,41 +1024,197 @@ def phase_main(tmp, counters):
                      generator=torch.Generator().manual_seed(1))
     print(f"[main] set-up (synthetic data, seeded weights) "
           f"{time.time() - t0:.1f} s")
-    tee = _Tee(sys.stdout)
-    old = sys.stdout
-    for c in counters:
-        c.launches = 0
-    sys.stdout = tee
+    out_launches = None
+    for config in CONFIGS:
+        opt = _golden_opt(root, config=config)
+        tee = _Tee(sys.stdout)
+        old = sys.stdout
+        for c in counters:
+            c.launches = 0
+        sys.stdout = tee
+        try:
+            t0 = time.time()
+            res = _run_engine(root, opt, backbone, head, "cuda",
+                              meta=config_meta(config, backbone.feature_dim))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            sys.stdout = old
+        launches = {c.__name__: c.launches for c in counters}
+        out = tee.buf.getvalue()
+        print(f"[main] {config}: 8-session run {wall:.2f} s; per-session "
+              f"seconds {[round(s, 4) for s in res.session_seconds]}; "
+              f"epochs {res.epochs_per_session}; launches {launches}")
+        check(launches["finetune_loop"] == N_SESSIONS,
+              f"{config}: K1 launched {launches['finetune_loop']} times, "
+              f"expected {N_SESSIONS}")
+        check(all(n == 0 for k, n in launches.items()
+                  if k != "finetune_loop"),
+              f"{config}: the evaluation path launched a pretraining "
+              f"kernel: {launches}")
+        check(len(res.acc_novel_list) == N_SESSIONS
+              and len(res.weighted_avg_l) == N_SESSIONS + 1, "trace length")
+        for name in ("acc_novel_list", "acc_base_list", "weighted_avg_l"):
+            check(np.all(np.isfinite(getattr(res, name))),
+                  f"{config}: {name} not finite")
+        check(all(1 <= e <= opt.max_novel_epochs
+                  for e in res.epochs_per_session),
+              f"{config}: epoch counts out of range")
+        for line in ("**** Iteration 8/8 ****", "Novel session accuracies: ",
+                     "Overall continual accuracies: ",
+                     "Novel only incremental: ", "Base only incremental: ",
+                     "Fine-tuning epochs:"):
+            check(out.count(line) >= 1,
+                  f"{config}: reference line {line!r} not printed")
+        check(out.count("Fine-tuning epochs:") == N_SESSIONS,
+              "one session block per session")
+        if config == "subspace":
+            out_launches = launches
+            run = (root, opt, backbone, head)
+    return out_launches, run
+
+
+MULTI_SEEDS = (1, 2, 3, 4, 5)
+
+
+def write_continual_mini(root: str, per_class: int = 560, img: int = 84,
+                         n_classes: int = 100, seed: int = 0) -> None:
+    """``all.pickle`` + ``class_labels.txt`` in the layout of
+    data/synthetic.py::make_mini_imagenet (class-coloured uint8 noise),
+    with the 560 images a class that the CLIs' 500/50 continual split
+    needs, made class by class to bound the host memory."""
+    import os
+    import pickle
+    os.makedirs(root, exist_ok=True)
+    r = np.random.RandomState(seed)
+    colors = r.randint(30, 226, size=(n_classes, 3))
+    imgs = np.empty((n_classes * per_class, img, img, 3), np.uint8)
+    for c in range(n_classes):
+        noise = r.randint(-25, 26, size=(per_class, img, img, 3),
+                          dtype=np.int16)
+        imgs[c * per_class:(c + 1) * per_class] = np.clip(colors[c] + noise,
+                                                          0, 255)
+    cats = {f"n{900000 + i:08d}": i for i in range(n_classes)}
+    with open(f"{root}/all.pickle", "wb") as f:
+        pickle.dump({"data": imgs, "labels": np.repeat(
+            np.arange(n_classes), per_class).tolist(),
+            "catname2label": cats}, f, protocol=4)
+    with open(f"{root}/class_labels.txt", "w") as f:
+        for cat, lbl in cats.items():
+            f.write(f"{cat} synthetic_{lbl}\n")
+
+
+def _quiet(fn):
+    """(fn(), wall seconds up to a synchronise, what it printed)."""
+    buf, old = io.StringIO(), sys.stdout
+    sys.stdout = buf
     try:
         t0 = time.time()
-        res = _run_engine(root, opt, backbone, head, "cuda")
+        out = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
         sys.stdout = old
-    launches = {c.__name__: c.launches for c in counters}
-    out = tee.buf.getvalue()
-    print(f"[main] 8-session run {wall:.2f} s; per-session seconds "
-          f"{[round(s, 4) for s in res.session_seconds]}; epochs "
-          f"{res.epochs_per_session}; K1 launches {launches}")
-    check(launches["finetune_loop"] == N_SESSIONS,
-          f"K1 launched {launches['finetune_loop']} times, expected "
-          f"{N_SESSIONS}")
-    check(all(n == 0 for k, n in launches.items() if k != "finetune_loop"),
-          f"the evaluation path launched a pretraining kernel: {launches}")
-    check(len(res.acc_novel_list) == N_SESSIONS
-          and len(res.weighted_avg_l) == N_SESSIONS + 1, "trace length")
-    for name in ("acc_novel_list", "acc_base_list", "weighted_avg_l"):
-        check(np.all(np.isfinite(getattr(res, name))), f"{name} not finite")
-    check(all(1 <= e <= opt.max_novel_epochs
-              for e in res.epochs_per_session), "epoch counts out of range")
-    for line in ("**** Iteration 8/8 ****", "Novel session accuracies: ",
-                 "Overall continual accuracies: ", "Novel only incremental: ",
-                 "Base only incremental: ", "Fine-tuning epochs:"):
-        check(out.count(line) >= 1, f"reference line {line!r} not printed")
-    check(out.count("Fine-tuning epochs:") == N_SESSIONS,
-          "one session block per session")
-    return launches, (root, opt, backbone, head)
+    return out, wall, buf.getvalue()
+
+
+def phase_multiseed(tmp, counters, small_root):
+    """The multi-seed evaluation: ``python -m
+    subspace_reg_tpu_torch.run_seeds --vmap`` on the golden subspace-reg +
+    memory flags for 5 seeds at full resnet18 width (84 px, each seed its
+    own seeded ``.pth``), beside one single-seed run in the same call; the
+    launch counters set to 0 just before each run and read just after (K1
+    8 launches of 5 seeds each; one launch a session).  Then at the small
+    size, 3 seeds through the multi-seed engine on the card against
+    single-seed runs on the card: epochs exact, accuracies within 0.5."""
+    import math as _math
+    import os
+    from subspace_reg_tpu_torch import run_seeds
+    from subspace_reg_tpu_torch.engine.multiseed import (
+        few_shot_finetune_multiseed)
+    from subspace_reg_tpu_torch.models.factory import create_model
+    from subspace_reg_tpu_torch.ops.finetune import finetune_loop
+    root = f"{tmp}/multi"
+    t0 = time.time()
+    write_continual_mini(f"{root}/miniImageNet")
+
+    class O:
+        no_dropblock = True
+    k = 1.0 / _math.sqrt(640)
+    for seed in MULTI_SEEDS:
+        torch.manual_seed(seed)
+        sd = create_model("resnet18", O()).state_dict()
+        sd["classifier.weight"] = torch.empty(60, 640).uniform_(-k, k)
+        os.makedirs(f"{root}/seed_{seed}")
+        torch.save({"model": sd, "training_classes": {
+            i: i for i in range(60)}}, f"{root}/seed_{seed}/resnet18_last.pth")
+    print(f"[multiseed] set-up (84 px synthetic set, 560 images a class; "
+          f"{len(MULTI_SEEDS)} seeded checkpoints) {time.time() - t0:.1f} s")
+    argv = list(GOLDEN_ARGV)
+    i = argv.index("--set_seed")
+    del argv[i:i + 2]
+    common = ["--device", "cuda", "--model_path_pattern",
+              f"{root}/seed_{{seed}}/resnet18_last.pth", "--",
+              *argv, "--data_root", root]
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        finetune_loop.seed_loops = 0
+        out, wall, log = _quiet(fn)
+        launches = {c.__name__: c.launches for c in counters}
+        launches["seed_loops"] = finetune_loop.seed_loops
+        return out, wall, launches
+
+    one, wall1, l1 = counted(lambda: run_seeds.main(["--seeds", "1",
+                                                     *common]))
+    many, wall, launches = counted(lambda: run_seeds.main(
+        ["--vmap", "--seeds", *map(str, MULTI_SEEDS), *common]))
+    n = len(MULTI_SEEDS)
+    print(f"[multiseed] single seed: {wall1:.2f} s, launches {l1}, epochs "
+          f"{one['epochs'][0]}")
+    print(f"[multiseed] run_seeds --vmap, {n} seeds: {wall:.2f} s, "
+          f"{wall / n:.2f} s per seed ({wall1 / (wall / n):.2f}x the "
+          f"single-seed run's rate); launches {launches}; novel "
+          f"{many['novel']}, base {many['base']}")
+    check(l1["finetune_loop"] == N_SESSIONS and l1["seed_loops"]
+          == N_SESSIONS, f"single seed: K1 launches {l1}")
+    check(launches["finetune_loop"] == N_SESSIONS
+          and launches["seed_loops"] == n * N_SESSIONS,
+          f"multi-seed: K1 launches {launches}, expected {N_SESSIONS} of "
+          f"{n} seeds")
+    check(launches["conv3x3_fused"] == launches["block_tail"] == 0,
+          "the multi-seed evaluation launched a pretraining kernel")
+    check(many["epochs"][0] == one["epochs"][0],
+          "seed 1's epochs differ between the multi- and single-seed runs")
+    check(all(np.isfinite(many[k]["mean"]) and np.isfinite(many[k]["ci95"])
+              for k in ("novel", "base")), "aggregates not finite")
+
+    seeds = (3, 4, 5)
+    opts = [_golden_opt(small_root, *SMALL_ARGS, "--set_seed", str(s))
+            for s in seeds]
+    models = [small_model(10 + i) for i in range(len(seeds))]
+    ins = [_engine_inputs(o) for o in opts]
+    ms = few_shot_finetune_multiseed(
+        [m[0] for m in models], [m[1] for m in models], [{}] * len(seeds),
+        opts, [x["meta_sampler"] for x in ins],
+        [x["base_test_split"] for x in ins],
+        [x["base_support_sampler"] for x in ins], device="cuda")
+    for s, opt, (bb, head), got in zip(seeds, opts, models, ms.per_seed):
+        want = _run_engine(small_root, opt, bb, head, "cuda", verbose=False)
+        print(f"[multiseed] small, seed {s}: epochs multi "
+              f"{got.epochs_per_session} single {want.epochs_per_session}")
+        check(got.epochs_per_session == want.epochs_per_session,
+              f"small seed {s}: multi-seed epochs differ from single-seed")
+        for name in ("acc_novel_list", "acc_base_list", "weighted_avg_l"):
+            a, b = np.asarray(getattr(got, name)), np.asarray(getattr(want,
+                                                                      name))
+            check(np.all(np.abs(a - b) <= 0.5),
+                  f"small seed {s}: {name} {a} vs {b}")
+    return dict(multiseed_seeds=n, multiseed_s=wall,
+                multiseed_s_per_seed=wall / n, single_seed_s=wall1,
+                multiseed_launches=launches["finetune_loop"],
+                multiseed_seed_loops=launches["seed_loops"])
 
 
 # kernel-name fragments of cuDNN's convolution kernels (implicit GEMM and
@@ -1219,6 +1574,23 @@ def ptxas_usage(log: str, entry: str):
     return usage
 
 
+PHASE_SECONDS = []
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept under ``name``."""
+    t0 = time.time()
+    out = fn(*args)
+    PHASE_SECONDS.append((name, time.time() - t0))
+    return out
+
+
+def print_times():
+    for name, sec in PHASE_SECONDS:
+        print(f"[time] phase {name}: {sec:.1f} s")
+    print(f"[time] phases total: {sum(s for _, s in PHASE_SECONDS):.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1245,7 +1617,7 @@ def main(argv=None) -> int:
 
     # phase 2: build
     from subspace_reg_tpu_torch.utils.cuda_build import build_all
-    for kname, info in build_all().items():
+    for kname, info in timed("2 build", build_all).items():
         print(f"[build] {kname}: {info['seconds']:.1f} s -> {info['path']}")
         print(info["ptxas"].strip())
         n_hgmma = sass_count(info["path"], "HGMMA")
@@ -1262,10 +1634,17 @@ def main(argv=None) -> int:
                 "K3's instances exceed 64 registers or spill")
 
     # phase 3: kernels against their plain versions
-    rows = phase_kernels(dev)
-    rows["conv3x3_fused"] = phase_k2()
-    rows["block_tail"] = phase_k3(dev)
+    rows = timed("3 kernels K1", phase_kernels, dev)
+    k1 = rows["finetune_loop"]
+    err = timed("3 kernels K1 semantic", phase_k1_semantic, dev)
+    seeds_row, seeds_err = timed("3 kernels K1 seed-batched",
+                                 phase_k1_seeds, dev)
+    k1.update(seeds_row)
+    k1["max_abs_err"] = max(k1["max_abs_err"], err, seeds_err)
+    rows["conv3x3_fused"] = timed("3 kernels K2", phase_k2)
+    rows["block_tail"] = timed("3 kernels K3", phase_k3, dev)
     if only_kernels:
+        print_times()
         print(smi)
         print(json.dumps({"kernels": list(rows.values())}))
         return 0
@@ -1276,23 +1655,28 @@ def main(argv=None) -> int:
     counters = [finetune_loop, conv3x3_fused, block_tail]
     with tempfile.TemporaryDirectory() as tmp:
         # phase 4: the engine agrees with its CPU run
-        phase_agree(tmp)
+        small_root = timed("4 agree", phase_agree, tmp)
         # phase 5: the evaluation path, with the launch counters
-        launches, run = phase_main(tmp, counters)
-        rows["finetune_loop"]["launches"] = launches["finetune_loop"]
+        launches, run = timed("5 main", phase_main, tmp, counters)
+        k1["launches"] = launches["finetune_loop"]
         # phase 6: where the evaluation path's device time goes
-        phase_profile(run)
+        timed("6 profile", phase_profile, run)
         # phase 7: the fused pretraining step agrees with the module step
-        phase_pretrain_agree(dev)
+        timed("7 pretrain-agree", phase_pretrain_agree, dev)
         # phase 8: the pretraining path, with the launch counters
-        launches, run, data = phase_pretrain_main(dev, counters)
+        launches, run, data = timed("8 pretrain", phase_pretrain_main, dev,
+                                    counters)
         for kname in ("conv3x3_fused", "block_tail"):
             rows[kname]["launches"] = launches[kname]
         # phase 9: where the fused step's device time goes
-        phase_pretrain_profile(run, data)
+        timed("9 pretrain-profile", phase_pretrain_profile, run, data)
         # phase 10: the pretraining CLI for one epoch
-        phase_pretrain_cli(tmp)
+        timed("10 cli", phase_pretrain_cli, tmp)
+        # phase 11: the multi-seed evaluation, with the launch counters
+        k1.update(timed("11 multiseed", phase_multiseed, tmp, counters,
+                        small_root))
 
+    print_times()
     print(smi)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

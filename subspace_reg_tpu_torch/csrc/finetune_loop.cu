@@ -70,6 +70,16 @@
 // cp.async.cg).  No float atomics: every sum runs in a fixed order, so a
 // rerun is bit-identical.  All math is FP32 on the CUDA cores (no tensor
 // cores, no TF32).
+//
+// The seed-batched launch (the JAX package vmaps the Pallas loop over
+// seeds, which gives its grid a leading seed axis) runs S independent
+// loops of one geometry in one cooperative grid of S groups of G blocks:
+// block b works for seed b / G as local block b % G, on that seed's slice
+// of every operand and scratch buffer, with its own slots and barrier
+// counter.  A seed that stops early lets its group exit; the others go on.
+// Per seed the launch is bit-identical to a single-seed launch on G blocks
+// (the slot reduction order depends only on G).  A single-seed launch is
+// the case S = 1.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -119,7 +129,7 @@ constexpr int F_ADAM = 64;
 enum {
   S_LR = 0, S_WD, S_MOMENTUM, S_LMBD_BASE, S_LMBD_NOVEL, S_GAMMA, S_EPS,
   S_TARGET, S_MIN_EPOCHS, S_MAX_EPOCHS, S_STABLE_TARGET, S_B1, S_B2,
-  S_EPS_ADAM, S_PREV_LOSS0, S_STABLE0, S_ACC1_0, S_ACC5_0
+  S_EPS_ADAM, S_PREV_LOSS0, S_STABLE0, S_ACC1_0, S_ACC5_0, S_COUNT
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -138,6 +148,9 @@ __host__ __device__ constexpr int smem_bytes(int d, int ldl, int rows) {
               + imax(rows * TC, NWARPS * TC * TJ));
 }
 
+// per-block clock slots of a profiled launch (Clock below)
+constexpr int PROF_SLOTS = 8;
+
 struct Args {
   const float* f_sup; const int* y_sup; const float* f_mem; const int* y_mem;
   const float* w_in; const float* mom_in; const float* nu_in;
@@ -149,7 +162,49 @@ struct Args {
   int c_pad, d, n_sup, mem_count, n_active, n_reserved, orig_base, n_ways,
       bias_col, flags, trace_rows, blocks, ldl, row_tiles, pull_chunks,
       class_tiles, col_tiles;
+  // the seed-batched launch: ``seeds`` loops, each on a group of ``blocks``
+  // blocks; every operand and scratch buffer holds the seeds back to back
+  // (f_sup/y_sup with ns_rows rows a seed, f_mem/y_mem with nm_rows)
+  int seeds, ns_rows, nm_rows;
 };
+
+template <class T>
+__device__ __forceinline__ T* shift(T* p, size_t n) {
+  return p ? p + n : p;
+}
+
+// Seed s's slice of every operand and scratch buffer, as a single-seed
+// launch on its group would see them: no seed reads another's data, slots
+// or barrier counter, so each seed's result is bit-identical to that of a
+// single-seed launch on ``blocks`` blocks.
+__device__ __forceinline__ Args seed_args(const Args& g, int s) {
+  Args a = g;
+  const size_t head = (size_t)g.c_pad * g.d;
+  const int rows = g.n_sup + ((g.flags & F_MEMORY) ? g.mem_count : 0);
+  a.f_sup = shift(g.f_sup, s * (size_t)g.ns_rows * g.d);
+  a.y_sup = shift(g.y_sup, s * (size_t)g.ns_rows);
+  a.f_mem = shift(g.f_mem, s * (size_t)g.nm_rows * g.d);
+  a.y_mem = shift(g.y_mem, s * (size_t)g.nm_rows);
+  a.w_in = shift(g.w_in, s * head);
+  a.mom_in = shift(g.mom_in, s * head);
+  a.nu_in = shift(g.nu_in, s * head);
+  a.w0 = shift(g.w0, s * head);
+  a.reserved = shift(g.reserved, s * head);
+  a.pull_op = shift(g.pull_op, s * (size_t)g.d * g.d);
+  a.pull_tgt = shift(g.pull_tgt, s * head);
+  a.scalars = shift(g.scalars, s * (size_t)S_COUNT);
+  a.w = shift(g.w, s * head);
+  a.mom = shift(g.mom, s * head);
+  a.nu = shift(g.nu, s * head);
+  a.stats = shift(g.stats, s * (size_t)8);
+  a.trace = shift(g.trace, s * (size_t)g.trace_rows * 3);
+  a.dlog = shift(g.dlog, s * (size_t)rows * g.ldl);
+  a.pullv = shift(g.pullv, s * (size_t)imax(g.n_ways, 1) * g.d);
+  a.slots = shift(g.slots, s * (size_t)g.blocks * NQ);
+  a.bar = shift(g.bar, (size_t)s);
+  a.prof = shift(g.prof, s * (size_t)g.blocks * PROF_SLOTS);
+  return a;
+}
 
 // loop state: every block holds the same copy (thread 0 writes it, the
 // block reads it after a barrier)
@@ -271,7 +326,6 @@ __device__ __forceinline__ void transpose_step(float* v, int lane) {
 // A's product (a logits tile's F*W^T, a pull chunk's staging and cur*M),
 // 5 phase B's slot reduction and loss, 6 phase B's G = dlog^T F with its
 // staging, 7 phase B's update epilogue and anchor sums.
-constexpr int PROF_SLOTS = 8;
 struct Clock {
   bool on;
   unsigned long long last, acc[PROF_SLOTS];
@@ -558,13 +612,17 @@ __device__ __forceinline__ void anchor_terms(const Ctx& x, int r, int col,
   }
 }
 
-__global__ void __launch_bounds__(NT, 1) finetune_loop_kernel(Args a) {
+// Block b of the grid runs seed b / blocks's loop as its local block
+// b % blocks, on that seed's slice of every pointer (seed_args).
+__global__ void __launch_bounds__(NT, 1) finetune_loop_kernel(Args g) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   __shared__ State st;
   __shared__ float red[NQ_A * NWARPS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int blk = blockIdx.x, P = a.blocks;
+  const int seed = blockIdx.x / g.blocks;
+  const Args a = seed_args(g, seed);
+  const int blk = blockIdx.x - seed * g.blocks, P = a.blocks;
   const int D = a.d, CP = a.c_pad;
   const float* sc = a.scalars;
   const bool memory_on = a.flags & F_MEMORY;
@@ -591,7 +649,8 @@ __global__ void __launch_bounds__(NT, 1) finetune_loop_kernel(Args a) {
   const float inv_cnt = 1.f / fmaxf((float)a.mem_count, 1.f);
   const int n_items = a.row_tiles + a.pull_chunks;
   const int n_tiles = a.class_tiles * a.col_tiles;
-  // a block with a single item (tile) keeps its constant operand resident
+  // a block with a single item (tile) of its seed's group keeps its constant
+  // operand resident (P is the group's size)
   const bool keep_a = blk < n_items && blk + P >= n_items;
   const bool keep_b = blk < n_tiles && blk + P >= n_tiles;
   float* my_slots = a.slots + blk;            // quantity q at q * P
@@ -871,30 +930,35 @@ extern "C" cudaError_t k1_finetune_loop(
     int c_pad, int d, int n_sup, int mem_count, int n_active,
     int n_reserved, int orig_base, int n_ways, int bias_col, int flags,
     int trace_rows, int blocks, int ldl, int row_tiles, int pull_chunks,
-    int class_tiles, int col_tiles, int smem, void* stream) {
+    int class_tiles, int col_tiles, int smem, int seeds, int ns_rows,
+    int nm_rows, void* stream) {
   // the plan must be the one this file's tiling gives (ops/finetune.py::
-  // k1_plan makes it from the same integers)
+  // k1_plan makes it from the same integers); ``blocks`` is one seed's
+  // group, the grid is seeds x blocks
   const int rows = n_sup + ((flags & F_MEMORY) ? mem_count : 0);
   const bool pull = (flags & F_PULL_SUB) && n_ways > 0;
   if (d % 4 || rows < 1 || c_pad < 1 || ldl < c_pad || ldl % TC
       || row_tiles != cdiv(rows, TR)
       || pull_chunks != (pull ? cdiv(d, PULL_COLS) : 0)
       || class_tiles != cdiv(c_pad, TC) || col_tiles != cdiv(d, TJ)
-      || smem != smem_bytes(d, ldl, rows) || blocks < 1)
+      || smem != smem_bytes(d, ldl, rows) || blocks < 1 || seeds < 1
+      || ns_rows < n_sup || nm_rows < ((flags & F_MEMORY) ? mem_count : 0))
     return cudaErrorInvalidValue;
   int limit = 0;
   cudaError_t err = max_blocks((const void*)finetune_loop_kernel, smem,
                                &limit);
   if (err != cudaSuccess) return err;
-  if (blocks > limit) return cudaErrorCooperativeLaunchTooLarge;
+  if ((long long)blocks * seeds > limit)
+    return cudaErrorCooperativeLaunchTooLarge;
   Args a{f_sup, y_sup, f_mem, y_mem, w_in, mom_in, nu_in, w0, reserved,
          pull_op, pull_tgt, scalars, w, mom, nu, stats, trace, dlog, pullv,
          slots, bar, prof, c_pad, d, n_sup, mem_count, n_active, n_reserved,
          orig_base, n_ways, bias_col, flags, trace_rows, blocks, ldl,
-         row_tiles, pull_chunks, class_tiles, col_tiles};
+         row_tiles, pull_chunks, class_tiles, col_tiles, seeds, ns_rows,
+         nm_rows};
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel((const void*)finetune_loop_kernel,
-                                    dim3(blocks), dim3(NT), params,
+                                    dim3(blocks * seeds), dim3(NT), params,
                                     (size_t)smem,
                                     static_cast<cudaStream_t>(stream));
   return err != cudaSuccess ? err : cudaGetLastError();

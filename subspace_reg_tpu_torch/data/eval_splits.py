@@ -22,7 +22,7 @@ def load_eval_splits(opt):
     if opt.dataset != "miniImageNet":
         raise NotImplementedError(
             f"{opt.dataset}: only miniImageNet is ported so far; the "
-            "tieredImageNet/CIFAR loaders are ROADMAP.md queue A item 2")
+            "tieredImageNet/CIFAR loaders are ROADMAP.md queue A item 5")
     # base test samples: base classes, unused-in-training samples
     # (reference eval_incremental.py:53-57)
     base_test = load_mini_imagenet(opt, split="train", phase="test")

@@ -2,10 +2,12 @@
 
 Generates a miniature ``all.pickle`` + ``class_labels.txt`` so the FSCIL
 pipeline runs end-to-end without the real miniImageNet dump, and the
-category-split pickles that non-continual pretraining reads.  Formats match
+category-split pickles that non-continual pretraining reads, and the
+word-embedding pickle the semantic attractors read.  Formats match
 dataset/mini_imagenet.py:52-65,127-136.  Byte-identical to the JAX
-package's ``data/synthetic.py::make_mini_imagenet`` and
-``make_mini_imagenet_category_split`` for the same arguments.
+package's ``data/synthetic.py::make_mini_imagenet``,
+``make_mini_imagenet_category_split`` and ``make_word_embeds`` for the same
+arguments.
 """
 
 from __future__ import annotations
@@ -74,3 +76,19 @@ def make_mini_imagenet_category_split(root: str, per_class: int = 20,
     with open(os.path.join(root, "class_labels.txt"), "w") as f:
         for i in range(total):
             f.write(f"n{900000 + i:08d} synthetic_{i}\n")
+
+
+def make_word_embeds(path: str, dataset: str = "miniImageNet",
+                     dim: int = 500, n_classes: int = 100,
+                     seed: int = 1) -> str:
+    """Word-embedding pickle: {word: np.ndarray(dim)} covering the synthetic
+    vocabulary ('synthetic', '<i>')."""
+    os.makedirs(path, exist_ok=True)
+    r = np.random.RandomState(seed)
+    words = {"synthetic": r.randn(dim)}
+    for i in range(n_classes):
+        words[str(i)] = r.randn(dim)
+    out = os.path.join(path, f"{dataset}_dim{dim}.pickle")
+    with open(out, "wb") as f:
+        pickle.dump(words, f)
+    return out

@@ -17,12 +17,17 @@ reproduced, so it matches the JAX draws in distribution only
 (docs/PARITY.md:70-77).  A test can pass any object with the same four
 methods, e.g. one that returns the numbers ``jax.random`` draws on the same
 keys, and then holds the two engines to exact epoch counts (or, for
-pretraining, to the same augmented batch).
+pretraining, to the same augmented batch).  ``dropout`` may return a
+``torch.Generator`` or a callable ``(shape, device) -> uniforms``
+(models/layers.py::uniform).
+
+Each seed has its own provider: the multi-seed engine takes one per seed
+(``per_seed``), as the JAX engine derives every key from that seed.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -109,3 +114,15 @@ class TorchDraws:
         """The generator of pretraining step ``step``'s dropout and
         DropBlock."""
         return self._gen(pretrain_dropout_seed(self.set_seed, step))
+
+
+def per_seed(seeds: Sequence[int], device, draws=None) -> List:
+    """One draw provider per seed: ``draws`` when given (one per seed),
+    else a ``TorchDraws`` for each."""
+    if draws is None:
+        return [TorchDraws(seed, device) for seed in seeds]
+    draws = list(draws)
+    if len(draws) != len(seeds):
+        raise ValueError(f"{len(draws)} draw providers for {len(seeds)} "
+                         "seeds")
+    return draws

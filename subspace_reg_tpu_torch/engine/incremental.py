@@ -22,9 +22,14 @@ The host loop keeps the reference's global ``np.random`` stream contract
 the stream).  The engine's other random numbers come from a draw provider
 (engine/draws.py).
 
+The pull is the subspace projection (``distance2subspace``) or the
+semantic / mapping attractors, which the host computes per session in
+float64 (models/lang_puller.py) and K1 takes as a target.  The multi-seed
+engine (engine/multiseed.py) drives one ``SeedRun`` per seed around one
+seed-batched K1 launch per session.
+
 Not ported yet (ROADMAP.md queue A): per-epoch tracked / vis mode,
-``freeze_backbone_at != 1``, prediction dumps, the semantic and mapping
-attractors, multi-seed.
+``freeze_backbone_at != 1``, prediction dumps.
 """
 
 from __future__ import annotations
@@ -192,12 +197,42 @@ class SessionInputs:
     base_x: torch.Tensor
     base_y: torch.Tensor
     generator: Optional[torch.Generator]
+    # the semantic / mapping attractors of the session's novel rows
+    # (n_ways, feat); None unless the semantic pull is on
+    sem_pullers: Optional[torch.Tensor] = None
+
+
+@dataclass
+class Prepared:
+    """A session up to K1: the head after epoch 1's step with its
+    optimizer state, epoch 1's loss, accuracies and stable count, and the
+    eval-mode feature caches."""
+    params: Dict[str, torch.Tensor]
+    mom: Dict[str, torch.Tensor]
+    nu: Optional[Dict[str, torch.Tensor]]
+    l1: torch.Tensor
+    a1: torch.Tensor
+    a5: torch.Tensor
+    stable: torch.Tensor
+    f_sup: torch.Tensor
+    f_mem: torch.Tensor
+    f_query: torch.Tensor
+    f_base: torch.Tensor
+
+
+def semantic_pull(opt) -> bool:
+    """Whether the pull targets the semantic / mapping attractors rather
+    than the subspace projection (language_eval.py:216-228)."""
+    return (_label_pull(opt) is not None
+            and opt.attraction_override != "distance2subspace")
 
 
 class SessionProgram:
     """The JAX package's ``session_fn`` (incremental.py:1071-1197) on the
-    default path.  Mutates ``backbone``'s BN running statistics and block
-    counters, as the reference does."""
+    default path, in three steps around K1: ``prepare`` (epoch 1 and the
+    feature caches), ``loop_operands`` (K1's operands) and ``complete``
+    (the evaluation).  Mutates ``backbone``'s BN running statistics and
+    block counters, as the reference does."""
 
     def __init__(self, backbone, opt, geo: SessionGeometry, with_bias: bool):
         self.backbone = backbone
@@ -209,6 +244,7 @@ class SessionProgram:
         self.lmbd_base = opt.lmbd_reg_transform_w
         self.lmbd_novel = opt.lmbd_reg_novel
         self.label_pull = _label_pull(opt)
+        self.semantic = semantic_pull(opt)
         self.stable_mode = opt.target_train_loss == 0
 
     # -- epoch 1 -----------------------------------------------------------
@@ -250,8 +286,12 @@ class SessionProgram:
                 s.n_reserved)
         if self.label_pull is not None:
             cur = params["w"][s.n_active - geo.n_ways:s.n_active]
-            # recomputed from the current weights (language_eval.py:281-283)
-            target = lp.projected_weight(s.w0[:geo.orig_base], cur)
+            if self.semantic:
+                target = s.sem_pullers
+            else:
+                # recomputed from the current weights
+                # (language_eval.py:281-283)
+                target = lp.projected_weight(s.w0[:geo.orig_base], cur)
             loss = loss + lp.pull_loss(self.label_pull, target, cur)
         acc1, acc5 = losses.accuracy_topk(logits, s.support_y)
         return loss, acc1.detach(), acc5.detach()
@@ -271,14 +311,28 @@ class SessionProgram:
             params, dict(zip(names, grads)))
         return new, mom, nu, loss.detach(), a1, a5
 
+    def prepare(self, s: SessionInputs) -> Prepared:
+        """Epoch 1 (train-mode forwards, one step) and the eval-mode
+        feature caches, constant for epochs 2..N."""
+        f_sup_tr, f_mem_tr = self.epoch1_forwards(s)
+        params, mom, nu, l1, a1, a5 = self.epoch1_step(s, f_sup_tr, f_mem_tr)
+        one = torch.ones((), device=l1.device)
+        stable, _ = stop_update(self.opt, l1, 15.0 * one, 0.0 * one, one)
+        return Prepared(
+            params=params, mom=mom, nu=nu, l1=l1, a1=a1, a5=a5,
+            stable=stable, f_sup=self.features(s.support_x),
+            f_mem=(self.features(s.memory_x) if self.memory_on
+                   else f_mem_tr),
+            f_query=self.features(s.query_x),
+            f_base=self.features(s.base_x))
+
     # -- epochs 2..N -------------------------------------------------------
-    def fine_tune(self, s: SessionInputs, params, mom, nu, l1, a1, a5,
-                  stable, f_sup, f_mem):
-        """Pack the operands of K1 (incremental.py:161-279) and run it.
-        Bias heads use the [W | b] layout: the bias is one more feature
-        column and the features gain a matching ones column."""
+    def loop_operands(self, s: SessionInputs, p: Prepared):
+        """K1's operands and configuration (incremental.py:161-279).  Bias
+        heads use the [W | b] layout: the bias is one more feature column
+        and the features gain a matching ones column."""
         geo, opt = self.geo, self.opt
-        dev = f_sup.device
+        dev = p.f_sup.device
         feat = geo.feat_dim
         cp = geo.max_classes
         d = feat + (1 if self.with_bias else 0)
@@ -293,7 +347,7 @@ class SessionProgram:
                 return f.contiguous()
             return torch.cat([f, torch.ones((f.shape[0], 1), device=dev)], 1)
 
-        w0 = reserved = pull_op = None
+        w0 = reserved = pull_op = pull_tgt = None
         if self.lmbd_base is not None:
             w0 = wb({"w": s.w0, "b": s.b0})
         if self.lmbd_novel is not None:
@@ -301,7 +355,14 @@ class SessionProgram:
             reserved[geo.orig_base:geo.orig_base + geo.max_novel,
                      :feat] = s.reserved
         pull_mode = "none"
-        if self.label_pull is not None:
+        if self.label_pull is not None and self.semantic:
+            # the targets sit at the current novel rows
+            # (incremental.py:236-242)
+            pull_mode = "semantic"
+            pull_tgt = torch.zeros((cp, d), device=dev)
+            pull_tgt[s.n_active - geo.n_ways:s.n_active, :feat] = \
+                s.sem_pullers
+        elif self.label_pull is not None:
             pull_mode = "subspace"
             q, _ = torch.linalg.qr(s.w0[:geo.orig_base].T)   # (feat, base)
             pull_op = torch.zeros((d, d), device=dev)
@@ -317,8 +378,8 @@ class SessionProgram:
             min_epochs=opt.min_novel_epochs,
             max_epochs=opt.max_novel_epochs,
             stable_target=opt.stable_epochs, adam_b1=hp.b1, adam_b2=hp.b2,
-            adam_eps=hp.eps, prev_loss0=l1, stable0=stable, acc1_0=a1,
-            acc5_0=a5)
+            adam_eps=hp.eps, prev_loss0=p.l1, stable0=p.stable, acc1_0=p.a1,
+            acc5_0=p.a5)
         cfg = LoopConfig(
             n_sup=geo.n_support, mem_count=s.memory_count,
             n_active=s.n_active, n_reserved=s.n_reserved,
@@ -328,16 +389,16 @@ class SessionProgram:
             use_regnovel=self.lmbd_novel is not None, pull_mode=pull_mode,
             stable_mode=self.stable_mode, trace_rows=_trace_rows(opt),
             use_adam=hp.adam, bias_col=feat if self.with_bias else None)
-        w_out, stats, trace = finetune_loop(
-            feats_aug(f_sup), s.support_y.to(torch.int32).contiguous(),
-            feats_aug(f_mem), s.memory_y.to(torch.int32).contiguous(),
-            wb(params), wb(mom), wb(nu) if nu is not None else None,
-            w0, reserved, pull_op, None, scalars, cfg)
-        new = {"w": w_out[:, :feat]}
-        if self.with_bias:
-            new["b"] = w_out[:, feat]
-        trace[1] = torch.stack([l1, a1, a5])
-        return new, stats, trace
+        ops = dict(
+            f_sup=feats_aug(p.f_sup),
+            y_sup=s.support_y.to(torch.int32).contiguous(),
+            f_mem=feats_aug(p.f_mem),
+            y_mem=s.memory_y.to(torch.int32).contiguous(),
+            w=wb(p.params), mom=wb(p.mom),
+            nu=wb(p.nu) if p.nu is not None else None, w0=w0,
+            reserved=reserved, pull_op=pull_op, pull_tgt=pull_tgt,
+            scalars=scalars)
+        return ops, cfg
 
     # -- evaluation --------------------------------------------------------
     @torch.no_grad()
@@ -357,25 +418,25 @@ class SessionProgram:
         base_acc, _ = losses.accuracy_topk(logits_b, base_y)
         return chunk_accs, base_acc
 
-    def __call__(self, s: SessionInputs):
-        f_sup_tr, f_mem_tr = self.epoch1_forwards(s)
-        params, mom, nu, l1, a1, a5 = self.epoch1_step(s, f_sup_tr, f_mem_tr)
-        one = torch.ones((), device=l1.device)
-        stable, _ = stop_update(self.opt, l1, 15.0 * one, 0.0 * one, one)
-
-        # eval-mode features, constant for epochs 2..N
-        f_sup = self.features(s.support_x)
-        f_mem = self.features(s.memory_x) if self.memory_on else f_mem_tr
-        f_query = self.features(s.query_x)
-        f_base = self.features(s.base_x)
-
-        params, stats, trace = self.fine_tune(s, params, mom, nu, l1, a1, a5,
-                                              stable, f_sup, f_mem)
-        chunk_accs, base_acc = self.evaluate(params, f_query, s.query_y,
-                                             f_base, s.base_y, s.n_active)
+    def complete(self, s: SessionInputs, p: Prepared, loop_out):
+        """The head after K1's ``loop_out`` (w, stats, trace) and the
+        session's metrics."""
+        w_out, stats, trace = loop_out
+        feat = self.geo.feat_dim
+        params = {"w": w_out[:, :feat]}
+        if self.with_bias:
+            params["b"] = w_out[:, feat]
+        trace[1] = torch.stack([p.l1, p.a1, p.a5])
+        chunk_accs, base_acc = self.evaluate(params, p.f_query, s.query_y,
+                                             p.f_base, s.base_y, s.n_active)
         metrics = {"chunk_accs": chunk_accs, "base_acc": base_acc,
                    "epochs": stats[1], "epoch_trace": trace}
         return params, metrics
+
+    def __call__(self, s: SessionInputs):
+        p = self.prepare(s)
+        ops, cfg = self.loop_operands(s, p)
+        return self.complete(s, p, finetune_loop(**ops, cfg=cfg))
 
 
 @torch.no_grad()
@@ -445,13 +506,298 @@ def _refuse_unported(opt, with_bias: bool):
                  "save_preds_0"):
         if getattr(opt, flag, False):
             unported.append(f"--{flag}")
-    if (_label_pull(opt) is not None
-            and opt.attraction_override != "distance2subspace"):
-        unported.append("the semantic/mapping attractors")
     if unported:
         raise NotImplementedError(
             ", ".join(unported) + ": not ported yet (ROADMAP.md queue A); "
             "the JAX package's eval_incremental.py serves them")
+
+
+class SeedRun:
+    """One seed's host side of the multi-session protocol
+    (language_eval.py:71-454): its episode sampler and ``np.random``
+    stream, the base batch and exemplars, the growing head, the reserved
+    rows, the replay memory, the query collection, the attractors and the
+    printed trace.  ``begin(idx)`` composes session ``idx``'s inputs,
+    ``finish`` takes the session program's head and metrics.  The
+    single-seed engine drives one; the multi-seed engine drives one per
+    seed around one seed-batched K1 launch per session.  ``backbone`` and
+    ``head0`` are copied, never mutated."""
+
+    def __init__(self, backbone, head0: head_lib.Head, meta, opt,
+                 meta_sampler: EpisodeSampler, base_test_split,
+                 base_support_sampler: Optional[EpisodeSampler],
+                 base_split_for_vocab, dev: torch.device, draws, prt):
+        self.opt, self.meta, self.dev, self.prt = opt, meta, dev, prt
+        self.meta_sampler = meta_sampler
+        self.base_test_split = base_test_split
+        self.base_split_for_vocab = base_split_for_vocab
+        self.with_bias = head0.bias is not None
+        np.random.seed(opt.set_seed)
+        self.draws = (draws if draws is not None
+                      else TorchDraws(opt.set_seed, dev))
+        self.train_spec, test_spec = transforms_test_options[opt.transform]
+        img_size = base_test_split.imgs.shape[1]
+        base_eval_n = opt.test_base_batch_size // 2
+        geo = build_geometry(opt, n_base=int(head0.n_active),
+                             img_size=img_size, base_eval_n=base_eval_n,
+                             feat_dim=int(head0.in_dim),
+                             has_base_support=base_support_sampler
+                             is not None)
+        self.geo = geo
+        self.program = SessionProgram(copy.deepcopy(backbone).to(dev), opt,
+                                      geo, self.with_bias)
+
+        # fixed base evaluation batch: the first test_base_batch_size//2
+        # samples of the base-test split (eval_incremental.py:53-57)
+        min_lbl = min(base_test_split.labels)
+        self.base_x = _nchw(aug_ops.normalize_batch(
+            self._upload(base_test_split.imgs[:base_eval_n]), test_spec))
+        self.base_y = self._upload(np.asarray(
+            [l - min_lbl for l in base_test_split.labels[:base_eval_n]],
+            np.int64))
+        self.test_spec = test_spec
+
+        # fixed base-class exemplars kept in every session's support
+        # (language_eval.py:112-117)
+        self.base_sup_x = self.base_sup_y = None
+        if base_support_sampler is not None:
+            ep = base_support_sampler.get(0)
+            self.base_sup_x = _nchw(aug_ops.augment_batch(
+                self._upload(ep.support_x), self.train_spec,
+                self.draws.base_augment(len(ep.support_x),
+                                        self.train_spec).to(dev)))
+            self.base_sup_y = ep.support_y.astype(np.int64)
+
+        head_w = head0.weight.to(dev, torch.float32)
+        if head_w.shape[0] != geo.max_classes:
+            raise ValueError(f"head must be padded to {geo.max_classes} "
+                             f"rows, got {head_w.shape[0]}")
+        self.head_w = head_w
+        self.head_b = (head0.bias.to(dev, torch.float32) if self.with_bias
+                       else None)
+        self.n_active = int(head0.n_active)
+        self.w0, self.b0 = self.head_w, self.head_b
+        self.reserved = torch.zeros((geo.max_novel, geo.feat_dim),
+                                    device=dev)
+        self.n_reserved = 0
+        self.memory_x = torch.zeros((geo.max_memory, 3, img_size, img_size),
+                                    device=dev)
+        self.memory_y = torch.zeros((geo.max_memory,), dtype=torch.int64,
+                                    device=dev)
+        self.memory_count = 0
+        self.query_x = torch.zeros((geo.max_queries, 3, img_size, img_size),
+                                   device=dev)
+        self.query_y = torch.zeros((geo.max_queries,), dtype=torch.int64,
+                                   device=dev)
+        # the novel split's images live on the device once; episodes are
+        # row gathers
+        self.novel_imgs = self._upload(meta_sampler.base.imgs)
+        self.lang_state = None
+
+        self.acc_novel, self.acc_base = _Meter(), _Meter()
+        self.weighted_avg_l: List[float] = []
+        self.acc_novel_list: List[float] = []
+        self.acc_base_list: List[float] = []
+        self.traces: List[List[float]] = []
+        self.epochs_l: List[int] = []
+        self.secs: List[float] = []
+        self.vocab_base = self.vocab_novel = None
+        # this seed's np.random stream, which the episodes and the replay
+        # index draws continue
+        self.stream = np.random.get_state()
+        # initial base accuracy (language_eval.py:128-129)
+        self.weighted_avg_l.append(float(eval_base(
+            self.program.backbone, self.head_w, self.head_b, self.n_active,
+            self.base_x, self.base_y)))
+
+    def _upload(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+
+    def begin(self, idx: int) -> SessionInputs:
+        """Session ``idx``'s inputs: the episode and, right after it on
+        this seed's ``np.random`` stream, the replay-memory index draw;
+        vocabularies, reserved rows, augmentation, the grown query
+        collection, head growth and the attractors."""
+        geo, opt, dev = self.geo, self.opt, self.dev
+        np.random.set_state(self.stream)
+        ep = self.meta_sampler.get(idx)
+        self.mem_inds = None
+        if opt.memory_replay:
+            if (geo.n_ways, geo.n_shots, geo.n_aug) != (5, 5, 5):
+                raise ValueError(
+                    "memory_replay requires the 5-way/5-shot/5-aug support "
+                    "layout: the reference's replay index math is hardcoded "
+                    "to it (eval/language_eval.py:354-358); got "
+                    f"{geo.n_ways}-way/{geo.n_shots}-shot/{geo.n_aug}-aug")
+            # language_eval.py:352-359
+            inds = np.random.choice(opt.n_shots, opt.memory_replay)
+            margin = 5 * np.arange(5)
+            offset = np.arange(0, 125, 25)
+            inds = np.tile(margin + inds, (5, 1)) + (np.tile(offset, (5, 1))).T
+            self.mem_inds = inds.flatten()
+        self.stream = np.random.get_state()
+
+        # vocab bookkeeping (language_eval.py:155-167)
+        prev_vocab_base, prev_vocab_novel = self.vocab_base, self.vocab_novel
+        vb, _, vocab_novel, orig2id = get_vocabs(
+            self.base_split_for_vocab or self.base_test_split,
+            self.meta_sampler.base, ep.query_y)
+        self.vocab_base = (vb if idx == 0
+                           else prev_vocab_base + prev_vocab_novel)
+        self.vocab_novel = vocab_novel
+
+        # reserve the previous session's novel rows
+        # (language_eval.py:169-186)
+        if idx >= 1:
+            lo = geo.orig_base + geo.n_ways * (idx - 1)
+            self.reserved[geo.n_ways * (idx - 1):geo.n_ways * idx] = \
+                self.head_w[lo:lo + geo.n_ways]
+            self.n_reserved = geo.n_ways * idx
+
+        self.novel_labels = np.sort(np.unique(ep.query_y))
+        for k in list(orig2id.keys()):
+            orig2id[k] = orig2id[k] + idx * opt.n_ways
+        query_ys_id = np.asarray([orig2id[int(y)] for y in ep.query_y],
+                                 np.int64)
+        support_ys_id = np.asarray([orig2id[int(y)] for y in ep.support_y],
+                                   np.int64)
+
+        # episode realization + augmentation on the device
+        if ep.support_idx is not None:
+            sup_u8 = self.novel_imgs[self._upload(
+                ep.support_idx.astype(np.int64))]
+            qry_u8 = self.novel_imgs[self._upload(
+                ep.query_idx.astype(np.int64))]
+        else:
+            sup_u8, qry_u8 = self._upload(ep.support_x), self._upload(
+                ep.query_x)
+        support_x = _nchw(aug_ops.augment_batch(
+            sup_u8, self.train_spec,
+            self.draws.support_augment(idx, sup_u8.shape[0],
+                                       self.train_spec).to(dev)))
+        # grow the query collection (language_eval.py:198-204)
+        nq = geo.n_query_per_session
+        self.query_x[idx * nq:(idx + 1) * nq] = _nchw(
+            aug_ops.normalize_batch(qry_u8, self.test_spec))
+        self.query_y[idx * nq:(idx + 1) * nq] = self._upload(query_ys_id)
+
+        if self.base_sup_x is not None:
+            support_x = torch.cat([support_x, self.base_sup_x], 0)
+            support_ys_id = np.concatenate([support_ys_id, self.base_sup_y])
+        self.support_x, self.support_ys_id = support_x, support_ys_id
+
+        # classifier growth (language_eval.py:214): a fresh init block,
+        # rolled so that its row j lands at n_active + j
+        new_w, new_b = self.draws.head_growth(idx, geo.max_classes,
+                                              geo.feat_dim, self.with_bias)
+        grown = head_lib.augment(
+            head_lib.Head(weight=self.head_w, bias=self.head_b,
+                          n_active=self.n_active),
+            new_w.to(dev), None if new_b is None else new_b.to(dev),
+            len(self.novel_labels))
+        self.head_w, self.head_b = grown.weight, grown.bias
+        self.n_active = grown.n_active
+
+        return SessionInputs(
+            head_w=self.head_w, head_b=self.head_b, n_active=self.n_active,
+            w0=self.w0, b0=self.b0, reserved=self.reserved,
+            n_reserved=self.n_reserved, support_x=support_x,
+            support_y=self._upload(support_ys_id), memory_x=self.memory_x,
+            memory_y=self.memory_y, memory_count=self.memory_count,
+            query_x=self.query_x[:(idx + 1) * nq],
+            query_y=self.query_y[:(idx + 1) * nq], base_x=self.base_x,
+            base_y=self.base_y, generator=self.draws.dropout(idx),
+            sem_pullers=self._attractors(idx, vocab_novel))
+
+    def _attractors(self, idx: int, vocab_novel) -> Optional[torch.Tensor]:
+        """The semantic / mapping attractors (language_eval.py:216-228),
+        computed in float64 on the host and rounded once.  The embeddings
+        are read only when the semantic pull uses them (the reference
+        reads them for the subspace pull too, and overrides them)."""
+        opt = self.opt
+        if not semantic_pull(opt):
+            return None
+        if idx == 0:
+            self.lang_state = lp.create_lang_puller(opt, self.vocab_base,
+                                                    vocab_novel)
+        else:
+            self.lang_state = lp.update_novel_embeds(self.lang_state, opt,
+                                                     vocab_novel)
+        if opt.attraction_override == "mapping_linear_label2image":
+            m = self.meta["mapping_linear_label2image"]
+            self.lang_state = lp.with_mapping(self.lang_state, m["weight"],
+                                              m["bias"])
+        sem = lp.pullers_host_f64(
+            self.lang_state, self.w0[:self.geo.orig_base].cpu().numpy())
+        return self._upload(sem)
+
+    def finish(self, idx: int, params, metrics, seconds: float) -> None:
+        """Take the session's head, update the replay memory
+        (language_eval.py:352-359) and record and print the session's
+        metrics (language_eval.py:370-404)."""
+        geo, opt, prt = self.geo, self.opt, self.prt
+        self.head_w = params["w"]
+        if self.with_bias:
+            self.head_b = params["b"]
+        if self.mem_inds is not None:
+            inds = self.mem_inds
+            n_new = len(inds)
+            lo = self.memory_count
+            self.memory_x[lo:lo + n_new] = self.support_x[self._upload(inds)]
+            self.memory_y[lo:lo + n_new] = self._upload(
+                self.support_ys_id[inds])
+            self.memory_count += n_new
+
+        host = {k: v.cpu().numpy() for k, v in metrics.items()}
+        self.secs.append(seconds)
+        prt(f"\n**** Iteration {idx + 1}/{geo.max_sessions} ****\n")
+        epochs_run = int(host["epochs"])
+        if getattr(opt, "verbose", False):
+            tr = host["epoch_trace"]
+            for e in range(10, epochs_run + 1, 10):
+                _print_epoch_line(prt, e, tr[e, 0], tr[e, 1], tr[e, 2])
+        # the reference reports the mean of per-session accs ROUNDED to two
+        # decimals (language_eval.py:370-374)
+        session_trace = [round(float(a), 2) for a in host["chunk_accs"]]
+        prt("Novel session accuracies: ", session_trace)
+        test_acc = float(np.array(session_trace).mean())
+        acc_base_ = float(host["base_acc"])
+        self.acc_base.update(acc_base_)
+        self.acc_novel.update(test_acc)
+        # reference: 60 for mini, 200 for tiered (language_eval.py:383)
+        w1 = 200 if opt.dataset == "tieredImageNet" else 60
+        w2 = len(self.vocab_base) + len(self.vocab_novel) - 60
+        weighted_avg = (w1 * acc_base_ + w2 * test_acc) / (w1 + w2)
+        self.weighted_avg_l.append(round(weighted_avg, 2))
+        self.acc_novel_list.append(round(test_acc, 2))
+        self.acc_base_list.append(round(acc_base_, 2))
+        self.traces.append(session_trace)
+        self.epochs_l.append(epochs_run)
+        acc_base, acc_novel = self.acc_base, self.acc_novel
+        prt(f"***Running weighted avg: {weighted_avg}")
+        prt(f"{'Classes:':25} {self.novel_labels}\n"
+            f"{'Labels:':25} {self.vocab_novel}\n"
+            f"{'Fine-tuning epochs:':25} {epochs_run}\n"
+            f"{'Novel acc:':25} {test_acc:.4f}\n"
+            f"{'Base acc:':25} {acc_base_:.4f}\n"
+            f"{'Average:':25} {(test_acc + acc_base_) / 2:.4f}\n"
+            f"{'Runnning Base Avg:':25} {acc_base.avg:.4f}\n"
+            f"{'Running Novel Avg:':25} {acc_novel.avg:.4f}\n"
+            f"{'Running Average:':25} "
+            f"{(acc_base.avg + acc_novel.avg) / 2:.4f}\n",
+            flush=True)
+
+    def result(self) -> IncrementalResult:
+        self.prt("Overall continual accuracies: ", self.weighted_avg_l)
+        self.prt("Novel only incremental: ", self.acc_novel_list)
+        self.prt("Base only incremental: ", self.acc_base_list)
+        return IncrementalResult(
+            acc_novel_avg=self.acc_novel.avg, acc_base_avg=self.acc_base.avg,
+            weighted_avg_l=self.weighted_avg_l,
+            acc_novel_list=self.acc_novel_list,
+            acc_base_list=self.acc_base_list,
+            novel_session_traces=self.traces,
+            epochs_per_session=self.epochs_l, session_seconds=self.secs)
 
 
 def few_shot_finetune_incremental_test(
@@ -465,209 +811,13 @@ def few_shot_finetune_incremental_test(
     ``draws`` defaults to ``TorchDraws(opt.set_seed, device)``."""
     dev = resolve_device(device)
     prt = print if verbose else (lambda *a, **k: None)
-    with_bias = head0.bias is not None
-    _refuse_unported(opt, with_bias)
-    np.random.seed(opt.set_seed)
-    draws = draws if draws is not None else TorchDraws(opt.set_seed, dev)
-
-    train_spec, test_spec = transforms_test_options[opt.transform]
-    img_size = base_test_split.imgs.shape[1]
-    base_eval_n = opt.test_base_batch_size // 2
-    geo = build_geometry(opt, n_base=int(head0.n_active), img_size=img_size,
-                         base_eval_n=base_eval_n, feat_dim=int(head0.in_dim),
-                         has_base_support=base_support_sampler is not None)
-    backbone = copy.deepcopy(backbone).to(dev)
-    program = SessionProgram(backbone, opt, geo, with_bias)
-
-    def upload(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    # fixed base evaluation batch: the first test_base_batch_size//2
-    # samples of the base-test split (eval_incremental.py:53-57)
-    min_lbl = min(base_test_split.labels)
-    base_x = _nchw(aug_ops.normalize_batch(
-        upload(base_test_split.imgs[:base_eval_n]), test_spec))
-    base_y = upload(np.asarray(
-        [l - min_lbl for l in base_test_split.labels[:base_eval_n]],
-        np.int64))
-
-    # fixed base-class exemplars kept in every session's support
-    # (language_eval.py:112-117)
-    base_sup_x = base_sup_y = None
-    if base_support_sampler is not None:
-        ep = base_support_sampler.get(0)
-        base_sup_x = _nchw(aug_ops.augment_batch(
-            upload(ep.support_x), train_spec,
-            draws.base_augment(len(ep.support_x), train_spec).to(dev)))
-        base_sup_y = ep.support_y.astype(np.int64)
-
-    head_w = head0.weight.to(dev, torch.float32)
-    if head_w.shape[0] != geo.max_classes:
-        raise ValueError(f"head must be padded to {geo.max_classes} rows, "
-                         f"got {head_w.shape[0]}")
-    head_b = head0.bias.to(dev, torch.float32) if with_bias else None
-    n_active = int(head0.n_active)
-    w0, b0 = head_w, head_b
-    reserved = torch.zeros((geo.max_novel, geo.feat_dim), device=dev)
-    n_reserved = 0
-    memory_x = torch.zeros((geo.max_memory, 3, img_size, img_size),
-                           device=dev)
-    memory_y = torch.zeros((geo.max_memory,), dtype=torch.int64, device=dev)
-    memory_count = 0
-    nq = geo.n_query_per_session
-    query_x = torch.zeros((geo.max_queries, 3, img_size, img_size),
-                          device=dev)
-    query_y = torch.zeros((geo.max_queries,), dtype=torch.int64, device=dev)
-    # the novel split's images live on the device once; episodes are row
-    # gathers
-    novel_imgs = upload(meta_sampler.base.imgs)
-
-    acc_novel, acc_base = _Meter(), _Meter()
-    weighted_avg_l: List[float] = []
-    acc_novel_list: List[float] = []
-    acc_base_list: List[float] = []
-    traces: List[List[float]] = []
-    epochs_l: List[int] = []
-    secs: List[float] = []
-
-    # initial base accuracy (language_eval.py:128-129)
-    weighted_avg_l.append(float(eval_base(backbone, head_w, head_b, n_active,
-                                          base_x, base_y)))
-
-    iter_num = geo.max_sessions
-    vocab_base = vocab_novel = None
-    for idx in range(iter_num):
+    _refuse_unported(opt, head0.bias is not None)
+    run = SeedRun(backbone, head0, meta, opt, meta_sampler, base_test_split,
+                  base_support_sampler, base_split_for_vocab, dev, draws,
+                  prt)
+    for idx in range(run.geo.max_sessions):
         t0 = time.time()
-        ep = meta_sampler.get(idx)
-
-        # vocab bookkeeping (language_eval.py:155-167)
-        if idx > 0:
-            prev_vocab_base, prev_vocab_novel = vocab_base, vocab_novel
-        vb, _, vocab_novel, orig2id = get_vocabs(
-            base_split_for_vocab or base_test_split, meta_sampler.base,
-            ep.query_y)
-        vocab_base = vb if idx == 0 else prev_vocab_base + prev_vocab_novel
-
-        # reserve the previous session's novel rows (language_eval.py:169-186)
-        if idx >= 1:
-            lo = geo.orig_base + geo.n_ways * (idx - 1)
-            reserved[geo.n_ways * (idx - 1):geo.n_ways * idx] = \
-                head_w[lo:lo + geo.n_ways]
-            n_reserved = geo.n_ways * idx
-
-        novel_labels = np.sort(np.unique(ep.query_y))
-        for k in list(orig2id.keys()):
-            orig2id[k] = orig2id[k] + idx * opt.n_ways
-        query_ys_id = np.asarray([orig2id[int(y)] for y in ep.query_y],
-                                 np.int64)
-        support_ys_id = np.asarray([orig2id[int(y)] for y in ep.support_y],
-                                   np.int64)
-
-        # episode realization + augmentation on the device
-        if ep.support_idx is not None:
-            sup_u8 = novel_imgs[upload(ep.support_idx.astype(np.int64))]
-            qry_u8 = novel_imgs[upload(ep.query_idx.astype(np.int64))]
-        else:
-            sup_u8, qry_u8 = upload(ep.support_x), upload(ep.query_x)
-        support_x = _nchw(aug_ops.augment_batch(
-            sup_u8, train_spec,
-            draws.support_augment(idx, sup_u8.shape[0],
-                                  train_spec).to(dev)))
-        # grow the query collection (language_eval.py:198-204)
-        query_x[idx * nq:(idx + 1) * nq] = _nchw(
-            aug_ops.normalize_batch(qry_u8, test_spec))
-        query_y[idx * nq:(idx + 1) * nq] = upload(query_ys_id)
-
-        if base_sup_x is not None:
-            support_x = torch.cat([support_x, base_sup_x], 0)
-            support_ys_id = np.concatenate([support_ys_id, base_sup_y])
-
-        # classifier growth (language_eval.py:214): a fresh init block,
-        # rolled so that its row j lands at n_active + j
-        new_w, new_b = draws.head_growth(idx, geo.max_classes, geo.feat_dim,
-                                         with_bias)
-        grown = head_lib.augment(
-            head_lib.Head(weight=head_w, bias=head_b, n_active=n_active),
-            new_w.to(dev), None if new_b is None else new_b.to(dev),
-            len(novel_labels))
-        head_w, head_b, n_active = grown.weight, grown.bias, grown.n_active
-
-        params, metrics = program(SessionInputs(
-            head_w=head_w, head_b=head_b, n_active=n_active, w0=w0, b0=b0,
-            reserved=reserved, n_reserved=n_reserved, support_x=support_x,
-            support_y=upload(support_ys_id), memory_x=memory_x,
-            memory_y=memory_y, memory_count=memory_count,
-            query_x=query_x[:(idx + 1) * nq],
-            query_y=query_y[:(idx + 1) * nq], base_x=base_x, base_y=base_y,
-            generator=draws.dropout(idx)))
-        head_w = params["w"]
-        if with_bias:
-            head_b = params["b"]
-
-        # replay-memory update (language_eval.py:352-359)
-        if opt.memory_replay and (geo.n_ways, geo.n_shots,
-                                  geo.n_aug) != (5, 5, 5):
-            raise ValueError(
-                "memory_replay requires the 5-way/5-shot/5-aug support "
-                "layout: the reference's replay index math is hardcoded to "
-                "it (eval/language_eval.py:354-358); got "
-                f"{geo.n_ways}-way/{geo.n_shots}-shot/{geo.n_aug}-aug")
-        if opt.memory_replay:
-            inds = np.random.choice(opt.n_shots, opt.memory_replay)
-            margin = 5 * np.arange(5)
-            offset = np.arange(0, 125, 25)
-            inds = np.tile(margin + inds, (5, 1)) + (np.tile(offset, (5, 1))).T
-            inds = inds.flatten()
-            n_new = len(inds)
-            memory_x[memory_count:memory_count + n_new] = \
-                support_x[upload(inds)]
-            memory_y[memory_count:memory_count + n_new] = \
-                upload(support_ys_id[inds])
-            memory_count += n_new
-
-        # ---- per-session metrics (language_eval.py:370-404) ----
-        host = {k: v.cpu().numpy() for k, v in metrics.items()}
-        secs.append(time.time() - t0)
-        prt(f"\n**** Iteration {idx + 1}/{iter_num} ****\n")
-        epochs_run = int(host["epochs"])
-        if getattr(opt, "verbose", False):
-            tr = host["epoch_trace"]
-            for e in range(10, epochs_run + 1, 10):
-                _print_epoch_line(prt, e, tr[e, 0], tr[e, 1], tr[e, 2])
-        # the reference reports the mean of per-session accs ROUNDED to two
-        # decimals (language_eval.py:370-374)
-        session_trace = [round(float(a), 2) for a in host["chunk_accs"]]
-        prt("Novel session accuracies: ", session_trace)
-        test_acc = float(np.array(session_trace).mean())
-        acc_base_ = float(host["base_acc"])
-        acc_base.update(acc_base_)
-        acc_novel.update(test_acc)
-        # reference: 60 for mini, 200 for tiered (language_eval.py:383)
-        w1 = 200 if opt.dataset == "tieredImageNet" else 60
-        w2 = len(vocab_base) + len(vocab_novel) - 60
-        weighted_avg = (w1 * acc_base_ + w2 * test_acc) / (w1 + w2)
-        weighted_avg_l.append(round(weighted_avg, 2))
-        acc_novel_list.append(round(test_acc, 2))
-        acc_base_list.append(round(acc_base_, 2))
-        traces.append(session_trace)
-        epochs_l.append(epochs_run)
-        prt(f"***Running weighted avg: {weighted_avg}")
-        prt(f"{'Classes:':25} {novel_labels}\n"
-            f"{'Labels:':25} {vocab_novel}\n"
-            f"{'Fine-tuning epochs:':25} {epochs_run}\n"
-            f"{'Novel acc:':25} {test_acc:.4f}\n"
-            f"{'Base acc:':25} {acc_base_:.4f}\n"
-            f"{'Average:':25} {(test_acc + acc_base_) / 2:.4f}\n"
-            f"{'Runnning Base Avg:':25} {acc_base.avg:.4f}\n"
-            f"{'Running Novel Avg:':25} {acc_novel.avg:.4f}\n"
-            f"{'Running Average:':25} {(acc_base.avg + acc_novel.avg) / 2:.4f}\n",
-            flush=True)
-
-    prt("Overall continual accuracies: ", weighted_avg_l)
-    prt("Novel only incremental: ", acc_novel_list)
-    prt("Base only incremental: ", acc_base_list)
-    return IncrementalResult(
-        acc_novel_avg=acc_novel.avg, acc_base_avg=acc_base.avg,
-        weighted_avg_l=weighted_avg_l, acc_novel_list=acc_novel_list,
-        acc_base_list=acc_base_list, novel_session_traces=traces,
-        epochs_per_session=epochs_l, session_seconds=secs)
+        s = run.begin(idx)
+        params, metrics = run.program(s)
+        run.finish(idx, params, metrics, time.time() - t0)
+    return run.result()

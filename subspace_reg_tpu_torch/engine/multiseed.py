@@ -1,0 +1,138 @@
+"""Multi-seed FSCIL evaluation: S seeds through one engine call, with one
+seed-batched K1 launch per session.  Counterpart of the JAX package's
+``engine/multiseed.py::few_shot_finetune_multiseed``, which replaces the
+reference's Slurm seed arrays (scripts/continual/slurm_*.sh:8,19-27: 10
+single-GPU jobs) by a vmap over seeds.
+
+Each seed keeps its own backbone, head, sampler, ``np.random`` stream,
+replay memory, query collection and attractors (engine/incremental.py::
+SeedRun, the single-seed engine's host side).  Each session then does, in
+order:
+
+  a. per seed, in turn: the episode and its replay-index draw, head growth,
+     the epoch-1 train-mode forwards, the first step and the eval-mode
+     feature caches on that seed's backbone;
+  b. ONE seed-batched K1 launch for all S seeds (ops/finetune.py::
+     finetune_loop_seeds: the card's blocks split into S groups);
+  c. per seed: evaluation and the replay-memory update.
+
+Every seed's numbers equal a single-seed run's: step (a) and (c) are the
+single-seed engine's own code, and per seed the batched K1 launch is
+bit-identical to a single-seed launch on the same group of blocks.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.finetune import finetune_loop_seeds
+from ..utils.device import resolve_device
+from .draws import per_seed
+from .incremental import IncrementalResult, SeedRun, _refuse_unported
+
+# fields of the eval config that may differ between the seeds of one run
+SEED_FIELDS = ("set_seed", "model_path")
+
+
+@dataclass
+class MultiSeedResult:
+    per_seed: List[IncrementalResult]
+    seeds: List[int]
+
+    @property
+    def novel_mean(self) -> float:
+        return float(np.mean([r.acc_novel_avg for r in self.per_seed]))
+
+    @property
+    def base_mean(self) -> float:
+        return float(np.mean([r.acc_base_avg for r in self.per_seed]))
+
+
+def _refuse(opts, heads, shard_over_devices: bool) -> None:
+    if shard_over_devices:
+        raise NotImplementedError(
+            "shard_over_devices: the port runs its seeds on one card")
+    opt0 = opts[0]
+    if opt0.dataset != "miniImageNet":
+        raise NotImplementedError(
+            f"{opt0.dataset}: the multi-seed engine serves miniImageNet; "
+            "the tieredImageNet/CIFAR weighting is ROADMAP.md queue A item "
+            "5")
+    names = [k for k in dir(opt0) if not k.startswith("_")
+             and k not in SEED_FIELDS and not callable(getattr(opt0, k))]
+    for opt in opts[1:]:
+        diff = [k for k in names
+                if getattr(opt, k, None) != getattr(opt0, k)]
+        if diff:
+            raise ValueError("the seeds' options differ beyond set_seed: "
+                             f"{diff}")
+    with_bias = heads[0].bias is not None
+    if any((h.bias is not None) != with_bias
+           or h.n_active != heads[0].n_active
+           or tuple(h.weight.shape) != tuple(heads[0].weight.shape)
+           for h in heads):
+        raise ValueError("the seeds' heads differ in geometry")
+    _refuse_unported(opt0, with_bias)
+
+
+def few_shot_finetune_multiseed(
+        per_seed_backbones: Sequence[torch.nn.Module], per_seed_heads,
+        per_seed_meta: Sequence[dict], opts: Sequence,
+        per_seed_samplers: Sequence, per_seed_base_test,
+        per_seed_base_support: Optional[Sequence] = None,
+        verbose: bool = False, shard_over_devices: bool = False,
+        device="cuda", draws: Optional[Sequence] = None) -> MultiSeedResult:
+    """Run the multi-session protocol for S seeds at once on ``device``.
+
+    ``opts`` differ only in ``set_seed`` (and the checkpoint path); every
+    list argument has length S.  ``draws``: one draw provider per seed
+    (default ``TorchDraws`` of each seed).  The backbones and heads are
+    copied, never mutated."""
+    n = len(opts)
+    _refuse(opts, per_seed_heads, shard_over_devices)
+    dev = resolve_device(device)
+    prt = print if verbose else (lambda *a, **k: None)
+    quiet = lambda *a, **k: None    # noqa: E731 (the seeds print nothing)
+    providers = per_seed([o.set_seed for o in opts], dev, draws)
+    supports = per_seed_base_support or [None] * n
+    runs = [SeedRun(per_seed_backbones[i], per_seed_heads[i],
+                    per_seed_meta[i], opts[i], per_seed_samplers[i],
+                    per_seed_base_test[i], supports[i], None, dev,
+                    providers[i], quiet)
+            for i in range(n)]
+    if any(r.geo != runs[0].geo for r in runs):
+        raise ValueError("the seeds' session geometries differ")
+
+    for idx in range(runs[0].geo.max_sessions):
+        t0 = time.time()
+        inputs, prepared = [], []
+        for run in runs:
+            s = run.begin(idx)
+            inputs.append(s)
+            prepared.append(run.program.prepare(s))
+        loops = [run.program.loop_operands(s, p)
+                 for run, s, p in zip(runs, inputs, prepared)]
+        cfg = loops[0][1]
+        if any(c != cfg for _, c in loops):
+            raise ValueError("the seeds' K1 configurations differ")
+        stacked = {k: None if t is None else torch.stack([o[k]
+                                                          for o, _ in loops])
+                   for k, t in loops[0][0].items()}
+        w, stats, trace = finetune_loop_seeds(**stacked, cfg=cfg)
+        done = [run.program.complete(s, p, (w[i], stats[i], trace[i]))
+                for i, (run, s, p) in enumerate(zip(runs, inputs,
+                                                    prepared))]
+        dt = time.time() - t0
+        for run, (params, metrics) in zip(runs, done):
+            run.finish(idx, params, metrics, dt / n)
+        prt(f"session {idx}: novel {[r.acc_novel_list[-1] for r in runs]} "
+            f"base {[r.acc_base_list[-1] for r in runs]} epochs "
+            f"{[r.epochs_l[-1] for r in runs]} [{dt:.2f}s]", flush=True)
+
+    return MultiSeedResult(per_seed=[run.result() for run in runs],
+                           seeds=[o.set_seed for o in opts])

@@ -29,7 +29,10 @@ from .models.factory import create_model
 from .weights import load_checkpoint
 
 
-def main(argv=None):
+def main(argv=None, draws=None):
+    """Parse ``argv`` and run the evaluation.  ``draws`` (a draw provider,
+    engine/draws.py) is handed to the engine; it is a keyword for tests,
+    not a command-line flag."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
     known, rest = pre.parse_known_args(argv)
@@ -71,7 +74,7 @@ def main(argv=None):
     result = few_shot_finetune_incremental_test(
         backbone, head, meta, opt, meta_sampler=meta_sampler,
         base_test_split=base_test, base_support_sampler=base_support_sampler,
-        device=known.device)
+        device=known.device, draws=draws)
     val_time = time.time() - start
 
     print("val_acc_novel: {:.4f}, std: {:.4f}, time: {:.1f}".format(

@@ -117,24 +117,31 @@ def apply_dropblock(x: torch.Tensor, seeds: torch.Tensor,
     return block_mask * x * (block_mask.numel() / block_mask.sum())
 
 
+def uniform(shape, generator, device) -> torch.Tensor:
+    """f32 uniforms in [0, 1) from ``generator``: a ``torch.Generator`` (or
+    None), or a callable ``(shape, device) -> tensor`` that a draw provider
+    hands in to inject given numbers (engine/draws.py)."""
+    if callable(generator):
+        return generator(tuple(shape), device)
+    return torch.rand(shape, generator=generator, device=device,
+                      dtype=torch.float32)
+
+
 def dropblock(x: torch.Tensor, gamma: torch.Tensor, block_size: int,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator) -> torch.Tensor:
     """The seeds and the mask are f32 whatever x's dtype, so a bf16 input
     comes out f32, as in the JAX package."""
     b, c, h, w = x.shape
     bs = block_size
-    u = torch.rand((b, c, h - bs + 1, w - bs + 1), generator=generator,
-                   device=x.device, dtype=torch.float32)
+    u = uniform((b, c, h - bs + 1, w - bs + 1), generator, x.device)
     return apply_dropblock(x, (u < gamma).to(torch.float32), bs)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """flax ``nn.Dropout`` semantics: keep with prob 1-rate, scale kept
     values by 1/(1-rate); a bf16 input divides by bf16(1-rate)."""
     keep_prob = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=torch.float32)
+    u = uniform(x.shape, generator, x.device)
     scale = (keep_prob if x.dtype == torch.float32
              else torch.tensor(keep_prob, dtype=x.dtype, device=x.device))
     return torch.where(u < keep_prob, x / scale, torch.zeros_like(x))

@@ -29,6 +29,13 @@ Operands (no TPU padding: any row counts >= the valid counts):
 Outputs: w (Cp, D); stats (8,) = loss, epoch, stable, acc1, acc5 of the last
 epoch run; trace (trace_rows, 3) whose row e holds epoch e's pre-update
 (loss, acc1, acc5) for e >= 2 (epoch 1 runs in the engine).
+
+``finetune_loop_seeds`` runs S loops of one geometry (the multi-seed
+engine's seeds; the JAX package vmaps the Pallas loop over them) with every
+operand and output on a leading seed axis: on the card one launch whose
+blocks split into S groups (``k1_plan(..., seeds=S)``), each seed's result
+bit-identical to a single-seed launch on its group's blocks; on the CPU
+``finetune_loop_plain`` per seed.
 """
 
 from __future__ import annotations
@@ -279,14 +286,18 @@ def k1_smem_bytes(d_pad: int, ldl: int, rows: int) -> int:
 
 @dataclass(frozen=True)
 class K1Plan:
-    """One K1 launch: ``blocks`` persistent blocks, each epoch in two
-    phases.  Phase A deals its items round-robin (item i to block i %
-    blocks): ``row_tiles`` logits tiles of K1_TR rows, then
+    """One K1 launch: ``seeds`` independent loops, each run by a group of
+    ``blocks`` persistent blocks (block b of the grid works for seed b //
+    blocks as its local block b % blocks), each epoch in two phases.
+    Phase A deals a seed's items round-robin over its group (item i to
+    local block i % blocks): ``row_tiles`` logits tiles of K1_TR rows, then
     ``pull_chunks`` chunks of K1_PULL_COLS pull columns.  Phase B deals
     its ``class_tiles`` x ``col_tiles`` update tiles the same way (tile u =
     class tile u // col_tiles, column tile u % col_tiles); an update tile
-    also sums the anchor terms of its elements."""
-    blocks: int
+    also sums the anchor terms of its elements.  ``idle`` blocks of the
+    card's grid are left out of the launch when the seeds do not divide
+    it."""
+    blocks: int         # G: blocks per seed
     rows: int           # support rows then valid replay rows
     n_active: int
     c_pad: int
@@ -296,8 +307,10 @@ class K1Plan:
     pull_chunks: int
     class_tiles: int
     col_tiles: int
-    slots: int          # floats of the partial-sum scratch
+    slots: int          # floats of one seed's partial-sum scratch
     smem: int           # dynamic shared memory per block, bytes
+    seeds: int = 1      # S
+    idle: int = 0
 
     @property
     def items(self) -> int:
@@ -307,46 +320,65 @@ class K1Plan:
     def tiles(self) -> int:
         return self.class_tiles * self.col_tiles
 
+    @property
+    def grid(self) -> int:
+        return self.seeds * self.blocks
+
 
 def k1_plan(rows: int, n_active: int, c_pad: int, d: int, n_ways: int,
-            blocks: int) -> K1Plan:
+            blocks: int, seeds: int = 1) -> K1Plan:
     """The launch plan for ``rows`` support + valid replay rows, ``n_active``
     of ``c_pad`` classes, ``d`` features and the subspace pull over
-    ``n_ways`` rows (0: no subspace pull) on ``blocks`` blocks."""
+    ``n_ways`` rows (0: no subspace pull): ``blocks`` blocks split into
+    ``seeds`` groups of ``blocks // seeds``, the rest idle."""
     if blocks < 1 or rows < 1 or not 0 < n_active <= c_pad:
         raise ValueError(f"k1_plan: no plan for {rows} rows, {n_active} of "
                          f"{c_pad} classes on {blocks} blocks")
+    if not 1 <= seeds <= blocks:
+        raise ValueError(f"k1_plan: {seeds} seeds do not fit {blocks} "
+                         "blocks (one block per seed at least)")
+    group = blocks // seeds
     d_pad = _cdiv(d, 4) * 4
     ldl = _cdiv(c_pad, K1_TC) * K1_TC
     smem = k1_smem_bytes(d_pad, ldl, rows)
     if smem > K1_SMEM_MAX:
         raise ValueError(f"finetune_loop: {rows} rows of {d} features do "
                          "not fit K1's shared memory")
-    return K1Plan(blocks=blocks, rows=rows, n_active=n_active, c_pad=c_pad,
+    return K1Plan(blocks=group, rows=rows, n_active=n_active, c_pad=c_pad,
                   d_pad=d_pad, ldl=ldl, row_tiles=_cdiv(rows, K1_TR),
                   pull_chunks=_cdiv(d_pad, K1_PULL_COLS) if n_ways else 0,
                   class_tiles=_cdiv(c_pad, K1_TC),
-                  col_tiles=_cdiv(d_pad, K1_TJ), slots=blocks * K1_NQ,
-                  smem=smem)
+                  col_tiles=_cdiv(d_pad, K1_TJ), slots=group * K1_NQ,
+                  smem=smem, seeds=seeds, idle=blocks - seeds * group)
 
 
 def k1_work(plan: K1Plan, block: int) -> Dict[str, list]:
-    """What block ``block`` owns in each epoch, as the kernel walks it:
-    ``logits`` row ranges and ``pull`` column ranges (phase A), ``update``
-    tiles (class lo, hi, column lo, hi, and whether the tile runs the
-    product G = dlog^T F) (phase B), and its ``slots`` (the floats it
-    writes: quantity q at q * blocks + block).  Ranges are clipped to the
-    valid rows, the padded feature width and the head."""
-    out = {"logits": [], "pull": [], "update": [],
-           "slots": [q * plan.blocks + block for q in range(K1_NQ)]}
-    for i in range(block, plan.items, plan.blocks):
+    """What grid block ``block`` owns in each epoch, as the kernel walks
+    it: its ``seed``, ``logits`` row ranges and ``pull`` column ranges
+    (phase A), ``update`` tiles (class lo, hi, column lo, hi, and whether
+    the tile runs the product G = dlog^T F) (phase B), all in its seed's
+    operands; its ``slots`` (the floats it writes in the launch's slot
+    scratch: its seed's quantity q at seed * slots + q * blocks + local
+    block), the barrier counter ``bar`` it counts on, and ``resident``:
+    whether it keeps its phase-A and its phase-B constant operand in
+    shared memory (it owns one item, one tile, within its group).  Ranges
+    are clipped to the valid rows, the padded feature width and the
+    head."""
+    seed, local = divmod(block, plan.blocks)
+    out = {"seed": seed, "bar": seed, "logits": [], "pull": [],
+           "update": [],
+           "slots": [seed * plan.slots + q * plan.blocks + local
+                     for q in range(K1_NQ)],
+           "resident": (local < plan.items <= local + plan.blocks,
+                        local < plan.tiles <= local + plan.blocks)}
+    for i in range(local, plan.items, plan.blocks):
         if i < plan.row_tiles:
             lo = i * K1_TR
             out["logits"].append((lo, min(plan.rows, lo + K1_TR)))
         else:
             lo = (i - plan.row_tiles) * K1_PULL_COLS
             out["pull"].append((lo, min(plan.d_pad, lo + K1_PULL_COLS)))
-    for u in range(block, plan.tiles, plan.blocks):
+    for u in range(local, plan.tiles, plan.blocks):
         c0 = (u // plan.col_tiles) * K1_TC
         j0 = (u % plan.col_tiles) * K1_TJ
         out["update"].append((c0, min(plan.c_pad, c0 + K1_TC), j0,
@@ -359,7 +391,7 @@ def k1_work(plan: K1Plan, block: int) -> Dict[str, list]:
 # the kernel
 # --------------------------------------------------------------------------
 _PTR_ARGS = 22
-_INT_ARGS = 18
+_INT_ARGS = 21
 _OPERANDS = ("f_sup", "y_sup", "f_mem", "y_mem", "w", "mom", "nu", "w0",
              "reserved", "pull_op", "pull_tgt", "scalars")
 
@@ -433,20 +465,22 @@ def _validate(ops: Dict[str, Optional[torch.Tensor]], cfg: LoopConfig):
         raise ValueError("finetune_loop: trace_rows must be >= 2")
 
 
-def _plan_for(cfg: LoopConfig, c_pad: int, d: int, blocks: int) -> K1Plan:
+def _plan_for(cfg: LoopConfig, c_pad: int, d: int, blocks: int,
+              seeds: int = 1) -> K1Plan:
     rows = cfg.n_sup + (cfg.mem_count if cfg.memory_on else 0)
     return k1_plan(rows, cfg.n_active, c_pad, d,
-                   cfg.n_ways if cfg.pull_mode == "subspace" else 0, blocks)
+                   cfg.n_ways if cfg.pull_mode == "subspace" else 0, blocks,
+                   seeds)
 
 
 def kernel_operands(ops: Dict[str, Optional[torch.Tensor]],
                     d_pad: int) -> Dict[str, Optional[torch.Tensor]]:
     """The operands as the kernel reads them: each feature-wide tensor
-    widened with zero columns to ``d_pad`` (``pull_op`` along both axes),
-    every tensor starting on a 16-byte boundary.  Zero columns of F, W,
-    mom, nu, W0, reserved, M and the target stay zero and add nothing to
+    widened with zero columns to ``d_pad`` (``pull_op`` along its last two
+    axes), every tensor starting on a 16-byte boundary.  Zero columns of F,
+    W, mom, nu, W0, reserved, M and the target stay zero and add nothing to
     any sum, so the loop over the widened operands is the loop over the
-    given ones."""
+    given ones.  Leading (seed) axes pass through."""
     out = {}
     for name, t in ops.items():
         if t is not None and name not in ("y_sup", "y_mem", "scalars"):
@@ -462,24 +496,25 @@ def kernel_operands(ops: Dict[str, Optional[torch.Tensor]],
 
 def k1_scratch(plan: K1Plan, cfg: LoopConfig,
                device) -> Dict[str, Optional[torch.Tensor]]:
-    """Every buffer a launch writes (the kernel allocates nothing): the
-    outputs w, stats and trace, the optimizer state mom (and nu for Adam),
-    dlog (rows x ldl), the pull's V (n_ways x d_pad), the partial-sum
-    slots and the grid barrier's counter, zeroed."""
-    f32 = torch.float32
-    head = (plan.c_pad, plan.d_pad)
+    """Every buffer a launch writes (the kernel allocates nothing), one per
+    seed along a leading axis: the outputs w, stats and trace, the
+    optimizer state mom (and nu for Adam), dlog (rows x ldl), the pull's V
+    (n_ways x d_pad), the partial-sum slots and the grid barrier's
+    counter, zeroed.  No seed's group reads another's."""
+    f32, s = torch.float32, plan.seeds
+    head = (s, plan.c_pad, plan.d_pad)
     return dict(
         w=torch.empty(head, dtype=f32, device=device),
         mom=torch.empty(head, dtype=f32, device=device),
         nu=torch.empty(head, dtype=f32, device=device) if cfg.use_adam
         else None,
-        stats=torch.zeros(8, dtype=f32, device=device),
-        trace=torch.empty((cfg.trace_rows, 3), dtype=f32, device=device),
-        dlog=torch.empty((plan.rows, plan.ldl), dtype=f32, device=device),
-        pullv=torch.empty((max(cfg.n_ways, 1), plan.d_pad), dtype=f32,
+        stats=torch.zeros((s, 8), dtype=f32, device=device),
+        trace=torch.empty((s, cfg.trace_rows, 3), dtype=f32, device=device),
+        dlog=torch.empty((s, plan.rows, plan.ldl), dtype=f32, device=device),
+        pullv=torch.empty((s, max(cfg.n_ways, 1), plan.d_pad), dtype=f32,
                           device=device),
-        slots=torch.empty(plan.slots, dtype=f32, device=device),
-        bar=torch.zeros(1, dtype=torch.int32, device=device))
+        slots=torch.empty(s * plan.slots, dtype=f32, device=device),
+        bar=torch.zeros(s, dtype=torch.int32, device=device))
 
 
 # per-block clocks of a profiled launch (csrc/finetune_loop.cu::Clock):
@@ -489,21 +524,24 @@ def k1_scratch(plan: K1Plan, cfg: LoopConfig,
 K1_PROF_SLOTS = 8
 
 
-def _launch(ops, cfg: LoopConfig, blocks: Optional[int] = None,
-            prof: Optional[torch.Tensor] = None):
-    """Launch the kernel on ``blocks`` blocks (default: one per SM); a grid
-    the card cannot hold resident at once is refused and raises.  With
-    ``prof`` ((blocks, K1_PROF_SLOTS) int64), each block adds the
-    nanoseconds of each part of its epochs (``K1_PROF_SLOTS``)."""
+def _launch_seeds(ops, cfg: LoopConfig, blocks: Optional[int] = None,
+                  prof: Optional[torch.Tensor] = None):
+    """Launch the kernel for the S seeds of ``ops`` (each operand with a
+    leading seed axis) on ``blocks`` blocks (default: one per SM), split
+    into S groups; a grid the card cannot hold resident at once is refused
+    and raises.  With ``prof`` ((S * group, K1_PROF_SLOTS) int64), each
+    block adds the nanoseconds of each part of its epochs
+    (``K1_PROF_SLOTS``).  Returns w (S, Cp, D), stats (S, 8) and trace
+    (S, trace_rows, 3)."""
     w = ops["w"]
-    cp, d = w.shape
+    n_seeds, cp, d = w.shape
     dev = w.device
-    plan = _plan_for(cfg, cp, d, k1_blocks(dev) if blocks is None else blocks)
+    plan = _plan_for(cfg, cp, d, k1_blocks(dev) if blocks is None else blocks,
+                     n_seeds)
     kops = kernel_operands(ops, plan.d_pad)
     out = k1_scratch(plan, cfg, dev)
     if prof is not None:
-        _check("prof", prof, (plan.blocks, K1_PROF_SLOTS), torch.int64,
-               dev)
+        _check("prof", prof, (plan.grid, K1_PROF_SLOTS), torch.int64, dev)
     err = _kernel_fn()(
         *(_ptr(kops[name]) for name in _OPERANDS),
         *(_ptr(out[name]) for name in ("w", "mom", "nu", "stats", "trace",
@@ -513,13 +551,26 @@ def _launch(ops, cfg: LoopConfig, blocks: Optional[int] = None,
         cfg.n_reserved, cfg.orig_base, cfg.n_ways,
         -1 if cfg.bias_col is None else cfg.bias_col, cfg.flags,
         cfg.trace_rows, plan.blocks, plan.ldl, plan.row_tiles,
-        plan.pull_chunks, plan.class_tiles, plan.col_tiles, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
+        plan.pull_chunks, plan.class_tiles, plan.col_tiles, plan.smem,
+        plan.seeds, ops["f_sup"].shape[1], ops["f_mem"].shape[1],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"finetune_loop kernel launch on {plan.blocks} "
-                           f"blocks failed: cudaError {err}")
+        raise RuntimeError(f"finetune_loop kernel launch on {plan.grid} "
+                           f"blocks ({plan.seeds} seeds) failed: cudaError "
+                           f"{err}")
     finetune_loop.launches += 1
-    w_out = out["w"] if plan.d_pad == d else out["w"][:, :d].contiguous()
+    finetune_loop.seed_loops += n_seeds
+    w_out = out["w"] if plan.d_pad == d else out["w"][..., :d].contiguous()
     return w_out, out["stats"], out["trace"]
+
+
+def _launch(ops, cfg: LoopConfig, blocks: Optional[int] = None,
+            prof: Optional[torch.Tensor] = None):
+    """One seed's loop on ``blocks`` blocks (default: one per SM): the
+    seed-batched launch at S = 1."""
+    one = {k: None if t is None else t.unsqueeze(0) for k, t in ops.items()}
+    w, stats, trace = _launch_seeds(one, cfg, blocks, prof)
+    return w[0], stats[0], trace[0]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -541,4 +592,55 @@ def finetune_loop(f_sup, y_sup, f_mem, y_mem, w, mom, nu, w0, reserved,
     return _launch(ops, cfg)
 
 
+# launches of the kernel, and the seeds' loops they ran (a seed-batched
+# launch counts one launch of S loops)
 finetune_loop.launches = 0
+finetune_loop.seed_loops = 0
+
+
+def finetune_loop_seeds_plain(f_sup, y_sup, f_mem, y_mem, w, mom, nu, w0,
+                              reserved, pull_op, pull_tgt, scalars,
+                              cfg: LoopConfig):
+    """The seed-batched loop in plain torch: ``finetune_loop_plain`` per
+    seed, stacked."""
+    ops = dict(f_sup=f_sup, y_sup=y_sup, f_mem=f_mem, y_mem=y_mem, w=w,
+               mom=mom, nu=nu, w0=w0, reserved=reserved, pull_op=pull_op,
+               pull_tgt=pull_tgt, scalars=scalars)
+    outs = [finetune_loop_plain(**_seed(ops, s), cfg=cfg)
+            for s in range(w.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _seed(ops, s: int):
+    return {k: None if t is None else t[s] for k, t in ops.items()}
+
+
+def finetune_loop_seeds(f_sup, y_sup, f_mem, y_mem, w, mom, nu, w0,
+                        reserved, pull_op, pull_tgt, scalars,
+                        cfg: LoopConfig):
+    """S independent loops of one geometry (``cfg``) in one call: every
+    operand of ``finetune_loop`` with a leading seed axis S, ``scalars``
+    (S, N_SCALARS).  One seed-batched kernel launch for CUDA tensors (the
+    card's blocks split into S groups), the plain loops for CPU tensors.
+    Returns w (S, Cp, D), stats (S, 8) and trace (S, trace_rows, 3); each
+    seed's slice is what ``finetune_loop`` returns for that seed."""
+    ops = dict(f_sup=f_sup, y_sup=y_sup, f_mem=f_mem, y_mem=y_mem, w=w,
+               mom=mom, nu=nu, w0=w0, reserved=reserved, pull_op=pull_op,
+               pull_tgt=pull_tgt, scalars=scalars)
+    if w.dim() != 3:
+        raise ValueError("finetune_loop_seeds: w must be (S, Cp, D)")
+    for name, t in ops.items():
+        if t is not None and t.shape[0] != w.shape[0]:
+            raise ValueError(f"finetune_loop_seeds: {name} holds "
+                             f"{t.shape[0]} seeds, w {w.shape[0]}")
+    for s in range(w.shape[0]):
+        _validate(_seed(ops, s), cfg)
+    for name, t in ops.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"finetune_loop_seeds: {name} must be "
+                             "contiguous")
+    if w.device.type == "cpu":
+        return finetune_loop_seeds_plain(**ops, cfg=cfg)
+    if w.device.type != "cuda":
+        raise ValueError(f"finetune_loop: unsupported device {w.device}")
+    return _launch_seeds(ops, cfg)

@@ -38,9 +38,13 @@ from .utils.device import resolve_device
 from .utils.logging import AverageMeter, MetricWriter
 from .weights import save_checkpoint
 
-# the JAX CLI stages a dataset up to this size on the device and streams
-# larger ones from the host (PrefetchLoader), which is not ported
-DEVICE_DATA_MAX_BYTES = 2 * 1024 ** 3
+
+def device_data_max_bytes() -> int:
+    """The largest training split staged on the device, from the
+    ``DEVICE_DATA_MAX_BYTES`` environment variable (default 2 GiB), as the
+    JAX CLI reads it (train_supervised.py:269-270).  A larger split needs
+    the host-streamed loader (PrefetchLoader), which is not ported."""
+    return int(os.environ.get("DEVICE_DATA_MAX_BYTES", 2 * 1024 ** 3))
 
 
 def _refuse_unported(opt) -> None:
@@ -125,7 +129,7 @@ def main(argv=None):
     rng_np = np.random.RandomState(opt.set_seed)
 
     # the dataset on the device: each step sends only its index vector
-    if train_split.imgs.nbytes > DEVICE_DATA_MAX_BYTES:
+    if train_split.imgs.nbytes > device_data_max_bytes():
         raise NotImplementedError(
             f"a {train_split.imgs.nbytes / 1e9:.1f} GB training split needs "
             "the host-streamed loader, which is not ported yet")

@@ -15,7 +15,9 @@ saves.
 
 Reading and writing the JAX package's own ``.ckpt`` format (flax msgpack,
 utils/checkpoint.py:73-132) is still to be ported (ROADMAP.md queue A
-item 1).
+item 4).  A ``.pth`` may carry the label->image LinearMap of the mapping
+attractor (``mapping_linear_label2image``), which ``load_checkpoint`` puts
+in ``meta``.
 """
 
 from __future__ import annotations
@@ -116,6 +118,12 @@ def load_checkpoint(path: str, max_classes: Optional[int] = None):
         "epoch": ckpt.get("epoch"),
         "has_bias": "classifier.bias" in sd,
     }
+    if "mapping_linear_label2image" in ckpt:
+        # the learned label->image LinearMap of the mapping attractor
+        msd = ckpt["mapping_linear_label2image"]
+        meta["mapping_linear_label2image"] = {
+            k: np.array(msd[f"map.{k}"].detach().cpu().numpy())
+            for k in ("weight", "bias")}
     return backbone, head, meta
 
 

@@ -48,6 +48,18 @@ from subspace_reg_tpu_torch.weights import from_jax_variables
 WIDTHS = (8, 16, 24, 80)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one CPU thread for this module: the tier-1 lane runs six
+    test processes at once, and their default thread pools (one thread per
+    core each) oversubscribe the host by far more than these small
+    operands gain from threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class Opt:
     model = "resnet12"
     dataset = "miniImageNet"
@@ -83,15 +95,77 @@ class Opt:
     no_dropblock = True
     use_episodes = False
     verbose = False
+    word_embed_size = 500
+    use_synonyms = False
+    glove = False
+    use_descriptions = False
+    temperature = 1.0
+
+
+_KEY_FNS = {}
+
+
+def dropout_keys(jbb, img_size, key):
+    """The keys that a train-mode forward of the JAX backbone ``jbb`` hands
+    ``jax.random.bernoulli`` from the root ``key`` (dropout and DropBlock),
+    in the order of its layers: a forward at ``img_size`` px records them
+    (they depend on the module tree, not on the weights or the input).
+    The recording forward is traced once per backbone and compiled."""
+    entry = _KEY_FNS.get(id(jbb))
+    if entry is None:
+        x = jnp.zeros((1, img_size, img_size, 3))
+        variables = jbb.init(jax.random.PRNGKey(0), x, train=False)
+
+        def keys_of(variables, root):
+            seen = []
+            orig = jax.random.bernoulli
+
+            def record(rng, p=0.5, shape=None, **kw):
+                seen.append(rng)
+                return orig(rng, p, shape, **kw)
+
+            jax.random.bernoulli = record
+            try:
+                jbb.apply(variables, x, train=True,
+                          mutable=["batch_stats", "counters"],
+                          rngs={"dropout": root})
+            finally:
+                jax.random.bernoulli = orig
+            return seen
+
+        entry = _KEY_FNS[id(jbb)] = (jbb, variables, jax.jit(keys_of))
+    _, variables, keys_of = entry
+    return list(keys_of(variables, key))
+
+
+class JaxDropout:
+    """Uniforms for the port's dropout and DropBlock
+    (models/layers.py::uniform) that reproduce the JAX engine's masks: the
+    n-th call gets the uniforms of the n-th recorded key, the support
+    forward's keys then the memory forward's (incremental.py:882-890).
+    ``jax.random.bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``
+    in f32, and the port compares the same uniforms with its own p."""
+
+    def __init__(self, keys):
+        self.keys = list(keys)
+
+    def __call__(self, shape, device):
+        b, c, h, w = shape
+        u = np.asarray(jax.random.uniform(self.keys.pop(0), (b, h, w, c),
+                                          jnp.float32))
+        return torch.from_numpy(np.ascontiguousarray(
+            u.transpose(0, 3, 1, 2))).to(device)
 
 
 class JaxDraws:
     """The port's draw provider returning the JAX engine's own draws:
     the same ``jax.random`` calls on the same keys as
-    ops/augment.py::augment_batch and models/head.py::augment."""
+    ops/augment.py::augment_batch and models/head.py::augment.  With the
+    JAX backbone ``jbb`` (and its input size), also its dropout masks."""
 
-    def __init__(self, set_seed):
+    def __init__(self, set_seed, jbb=None, img_size=None):
         self.set_seed = set_seed
+        self.jbb, self.img_size = jbb, img_size
 
     @staticmethod
     def _augment(seed, n, spec):
@@ -121,7 +195,12 @@ class JaxDraws:
                 None if b is None else torch.from_numpy(np.array(b)))
 
     def dropout(self, idx):
-        return None                 # drop_rate = 0 on both sides
+        if self.jbb is None:
+            return None             # drop_rate = 0 on both sides
+        k_sup, k_mem = jax.random.split(
+            jax.random.PRNGKey(self.set_seed * 31 + idx))
+        return JaxDropout(dropout_keys(self.jbb, self.img_size, k_sup)
+                          + dropout_keys(self.jbb, self.img_size, k_mem))
 
 
 @pytest.fixture(scope="module")
@@ -129,6 +208,7 @@ def env(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("mini_torch"))
     synthetic.make_mini_imagenet(root, n_classes=100, per_class=20,
                                  img_size=16, seed=0)
+    synthetic.make_word_embeds(os.path.join(root, "word_embeds"))
     jbb = JaxResNet(n_blocks=(1, 1, 1, 1), drop_rate=0.0, no_dropblock=True,
                     avg_pool=True, widths=WIDTHS)
     variables = dict(jbb.init(jax.random.PRNGKey(1),
@@ -153,6 +233,7 @@ def env(tmp_path_factory):
 def _opt(root, **over):
     opt = Opt()
     opt.data_root = root
+    opt.word_embed_path = os.path.join(root, "word_embeds")
     for k, v in over.items():
         setattr(opt, k, v)
     return opt
@@ -167,10 +248,10 @@ def _splits(load, opt):
     return base_test, base_train, novel
 
 
-def _run_jax(env, opt, bias=False):
+def _run_jax(env, opt, bias=False, meta=None):
     base_test, base_train, novel = _splits(jax_load, opt)
     return jax_engine(
-        env["jbb"], env["variables"], env["heads"][bias][0], {}, opt,
+        env["jbb"], env["variables"], env["heads"][bias][0], meta or {}, opt,
         meta_sampler=JaxSampler(novel, opt, split="val",
                                 disjoint_classes=True),
         base_test_split=base_test,
@@ -179,10 +260,10 @@ def _run_jax(env, opt, bias=False):
         verbose=False, pallas_mode="off")
 
 
-def _run_torch(env, opt, device="cpu", bias=False, **kw):
+def _run_torch(env, opt, device="cpu", bias=False, meta=None, **kw):
     base_test, base_train, novel = _splits(load_mini_imagenet, opt)
     return few_shot_finetune_incremental_test(
-        env["tbb"], env["heads"][bias][1], {}, opt,
+        env["tbb"], env["heads"][bias][1], meta or {}, opt,
         meta_sampler=EpisodeSampler(novel, opt, split="val",
                                     disjoint_classes=True),
         base_test_split=base_test,
@@ -193,6 +274,20 @@ def _run_torch(env, opt, device="cpu", bias=False, **kw):
 
 SUBSPACE = dict(label_pull=1.0, attraction_override="distance2subspace")
 FINETUNE = dict(label_pull=None, attraction_override=None)
+# the semantic subspace regularizer: --label_pull with the override unset
+# pulls to softmax(E_novel E_base^T / T) W_base of the word embeddings
+SEMANTIC = dict(label_pull=1.0, attraction_override=None)
+# the linear label->image mapping on the 300-d GloVe slice
+MAPPING = dict(label_pull=1.0,
+               attraction_override="mapping_linear_label2image", glove=True)
+
+
+def linear_map(out_dim, in_dim=300, seed=4):
+    """A seeded LinearMap as a checkpoint's ``meta`` carries it."""
+    r = np.random.RandomState(seed)
+    return {"mapping_linear_label2image": {
+        "weight": (0.05 * r.randn(out_dim, in_dim)).astype(np.float32),
+        "bias": (0.01 * r.randn(out_dim)).astype(np.float32)}}
 
 
 @pytest.mark.parametrize("over,bias", [
@@ -202,11 +297,16 @@ FINETUNE = dict(label_pull=None, attraction_override=None)
     # a bias head: [W | b] layout in K1, squared bias anchor; the JAX
     # engine refuses the novel anchor with a bias (reference crash)
     (dict(SUBSPACE, lmbd_reg_novel=None), True),
+    (SEMANTIC, False),
+    (MAPPING, False),
 ], ids=["subspace_reg_memory", "finetune_memory", "adam_finetune_memory",
-        "bias_head_subspace_reg_memory"])
+        "bias_head_subspace_reg_memory", "semantic_subspace_reg_memory",
+        "mapping_memory"])
 def test_eight_session_trace_matches_jax(env, over, bias):
-    ref = _run_jax(env, _opt(env["root"], **over), bias=bias)
-    got = _run_torch(env, _opt(env["root"], **over), bias=bias,
+    meta = (linear_map(WIDTHS[-1]) if over.get("attraction_override")
+            == "mapping_linear_label2image" else None)
+    ref = _run_jax(env, _opt(env["root"], **over), bias=bias, meta=meta)
+    got = _run_torch(env, _opt(env["root"], **over), bias=bias, meta=meta,
                      verbose=False)
     assert got.epochs_per_session == ref.epochs_per_session
     assert len(got.acc_novel_list) == 8
@@ -235,7 +335,7 @@ def test_reference_print_lines(env, capsys):
 
 def test_unported_options_are_refused(env):
     for over in (dict(freeze_backbone_at=3), dict(track_weights=True),
-                 dict(label_pull=0.2, attraction_override=None)):
+                 dict(save_preds_0=True)):
         with pytest.raises(NotImplementedError):
             _run_torch(env, _opt(env["root"], **over), verbose=False)
 

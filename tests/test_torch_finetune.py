@@ -18,6 +18,7 @@ from subspace_reg_tpu.ops.pallas.finetune import (finetune_loop_pallas,
                                                   label_tile)
 from subspace_reg_tpu.ops.pallas.finetune import pack_scalars as jax_scalars
 from subspace_reg_tpu_torch.ops.finetune import (LoopConfig, finetune_loop,
+                                                 finetune_loop_seeds,
                                                  pack_scalars)
 
 C_PAD, D = 32, 128
@@ -181,3 +182,60 @@ def test_stable_stop_matches_pallas(eps, lr):
     arrays, hp, cfg = _case(2, memory_on=True, pull_mode="subspace")
     hp.update(eps=eps, lr=lr)
     assert 2 < _compare(arrays, hp, cfg) < hp["max_epochs"]
+
+
+def _seed_batch(pull_mode, lrs=(0.01, 0.03, 0.002)):
+    """Three seeds of one geometry: operands from different streams, and
+    per-seed scalars (the learning rate moves each seed's stop epoch)."""
+    seeds = []
+    for i, lr in enumerate(lrs):
+        arrays, hp, cfg = _case(20 + i, memory_on=True, pull_mode=pull_mode)
+        hp.update(lr=lr, eps=0.1)
+        seeds.append((arrays, hp))
+    stacked = {k: torch.from_numpy(np.stack([a[k] for a, _ in seeds]))
+               for k in seeds[0][0]}
+    scalars = torch.stack([pack_scalars("cpu", **hp, adam_b1=0.9,
+                                        adam_b2=0.999, adam_eps=1e-8)
+                           for _, hp in seeds])
+    return seeds, stacked, scalars, cfg
+
+
+@pytest.mark.parametrize("pull_mode", ["subspace", "semantic"])
+def test_seed_batched_twin_equals_per_seed_loops(pull_mode):
+    """``finetune_loop_seeds`` on CPU tensors: each seed's slice is what
+    ``finetune_loop`` gives for that seed alone, bit for bit; and the
+    first seed equals the Pallas kernel in interpret mode."""
+    seeds, stacked, scalars, cfg = _seed_batch(pull_mode)
+    w, stats, trace = finetune_loop_seeds(**stacked, scalars=scalars,
+                                          cfg=cfg)
+    assert w.shape == (3, C_PAD, D) and stats.shape == (3, 8)
+    assert trace.shape == (3, TRACE_ROWS, 3)
+    epochs = []
+    for i, (arrays, hp) in enumerate(seeds):
+        t = {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
+        one = finetune_loop(**t, scalars=scalars[i], cfg=cfg)
+        for got, want in zip((w[i], stats[i], trace[i]), one):
+            assert torch.equal(got, want)
+        epochs.append(int(stats[i, 1]))
+    assert len(set(epochs)) > 1           # the seeds stop at other epochs
+    w_j, st_j, tr_j = _run_jax(seeds[0][0], seeds[0][1], cfg)
+    assert int(st_j[1]) == epochs[0]
+    np.testing.assert_allclose(w[0].numpy(), w_j, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(stats[0, 0].item(), st_j[0], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_seed_batched_entry_validates_operands():
+    _, stacked, scalars, cfg = _seed_batch("subspace")
+    with pytest.raises(ValueError, match="seeds"):
+        finetune_loop_seeds(**dict(stacked, mom=stacked["mom"][:2]),
+                            scalars=scalars, cfg=cfg)
+    with pytest.raises(ValueError, match="pull_op"):
+        finetune_loop_seeds(**dict(stacked, pull_op=None), scalars=scalars,
+                            cfg=cfg)
+    with pytest.raises(ValueError, match=r"\(S, Cp, D\)"):
+        finetune_loop_seeds(**dict(stacked, w=stacked["w"][0]),
+                            scalars=scalars, cfg=cfg)
+    before = finetune_loop.launches
+    finetune_loop_seeds(**stacked, scalars=scalars, cfg=cfg)
+    assert finetune_loop.launches == before     # the twin is not a launch

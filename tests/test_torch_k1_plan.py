@@ -18,15 +18,17 @@ N_SUP, C_PAD, ORIG_BASE, N_WAYS = 185, 100, 60, 5
 BLOCKS = (1, 2, 7, 66, 132)
 
 
-def _covered(plan, memory_on=True):
-    """How often each logits row, pull column and update element is
-    owned, over all blocks; and the slots written."""
+def _covered(plan, seed=0):
+    """How often each logits row, pull column and update element of seed
+    ``seed`` is owned, over the blocks of its group; and the slots
+    written."""
     rows = np.zeros(plan.rows, np.int64)
     cols = np.zeros(plan.d_pad, np.int64)
     upd = np.zeros((plan.c_pad, plan.d_pad), np.int64)
     slots = []
-    for b in range(plan.blocks):
+    for b in range(seed * plan.blocks, (seed + 1) * plan.blocks):
         work = ft.k1_work(plan, b)
+        assert work["seed"] == work["bar"] == seed
         for lo, hi in work["logits"]:
             assert 0 <= lo < hi <= plan.rows and hi - lo <= ft.K1_TR
             rows[lo:hi] += 1
@@ -60,8 +62,8 @@ def _check_plan(plan, d, pull=True):
                         stable_mode=False, trace_rows=8)
     scratch = ft.k1_scratch(plan, cfg, "cpu")
     assert scratch["slots"].numel() == plan.slots
-    assert tuple(scratch["dlog"].shape) == (plan.rows, plan.ldl)
-    assert tuple(scratch["w"].shape) == (plan.c_pad, plan.d_pad)
+    assert tuple(scratch["dlog"].shape) == (1, plan.rows, plan.ldl)
+    assert tuple(scratch["w"].shape) == (1, plan.c_pad, plan.d_pad)
     assert scratch["bar"].dtype == torch.int32 and int(scratch["bar"]) == 0
     assert plan.smem == ft.k1_smem_bytes(plan.d_pad, plan.ldl, plan.rows)
     assert plan.smem <= ft.K1_SMEM_MAX
@@ -137,3 +139,59 @@ def test_kernel_operands_widen_with_zero_columns():
     # already 4-wide and aligned: passed through as they are
     same = ft.kernel_operands({"w": ops["w"][:, :640].contiguous()}, 640)
     assert same["w"].shape == (12, 640)
+
+
+@pytest.mark.parametrize("blocks", [132, 7])
+@pytest.mark.parametrize("seeds", [1, 2, 5, 10])
+def test_k1_plan_splits_the_grid_into_seed_groups(seeds, blocks):
+    """The seed-batched launch: P blocks in S groups of G = P // S, the
+    rest idle.  Within each group every logits row, pull column and update
+    element of that seed is owned once; the slots and barrier counters of
+    the seeds are disjoint and together exactly the scratch; a block keeps
+    an operand resident exactly where it owns one item (tile) of its
+    group, a decision taken on G.  More seeds than blocks are refused."""
+    args = (N_SUP + 175, 100, C_PAD, 640, N_WAYS, blocks)
+    if seeds > blocks:
+        with pytest.raises(ValueError, match="seeds"):
+            ft.k1_plan(*args, seeds=seeds)
+        return
+    plan = ft.k1_plan(*args, seeds=seeds)
+    g = blocks // seeds
+    assert (plan.seeds, plan.blocks, plan.grid) == (seeds, g, seeds * g)
+    assert plan.idle == blocks - seeds * g and plan.slots == g * ft.K1_NQ
+    slots = []
+    for seed in range(seeds):
+        rows, cols, upd, own = _covered(plan, seed)
+        assert np.all(rows == 1) and np.all(cols == 1) and np.all(upd == 1)
+        assert sorted(own) == list(range(seed * plan.slots,
+                                         (seed + 1) * plan.slots))
+        slots += own
+    assert sorted(slots) == list(range(seeds * plan.slots))
+    bars = [ft.k1_work(plan, b)["bar"] for b in range(plan.grid)]
+    assert sorted(set(bars)) == list(range(seeds))
+    for b in range(plan.grid):
+        work = ft.k1_work(plan, b)
+        items = len(work["logits"]) + len(work["pull"])
+        assert work["resident"] == (items == 1, len(work["update"]) == 1)
+    cfg = ft.LoopConfig(n_sup=N_SUP, mem_count=175, n_active=100,
+                        n_reserved=35, orig_base=ORIG_BASE, n_ways=N_WAYS,
+                        memory_on=True, use_regbase=True, use_regnovel=True,
+                        pull_mode="subspace", stable_mode=True, trace_rows=8)
+    scratch = ft.k1_scratch(plan, cfg, "cpu")
+    assert scratch["slots"].numel() == seeds * plan.slots
+    assert tuple(scratch["bar"].shape) == (seeds,)
+    for name in ("w", "mom", "stats", "trace", "dlog", "pullv"):
+        assert scratch[name].shape[0] == seeds
+
+
+def test_k1_plan_at_ten_seeds_on_the_card():
+    """S = 10 on an H100's 132 SMs: groups of 13, two blocks idle; no
+    block of a group owns a single phase-A item (125 items on 13 blocks),
+    so none keeps its F rows or M columns resident."""
+    plan = ft.k1_plan(N_SUP + 175, 100, C_PAD, 640, N_WAYS, 132, seeds=10)
+    assert (plan.blocks, plan.idle) == (13, 2)
+    assert not any(ft.k1_work(plan, b)["resident"][0]
+                   for b in range(plan.grid))
+    single = ft.k1_plan(N_SUP + 175, 100, C_PAD, 640, N_WAYS, 132)
+    assert all(ft.k1_work(single, b)["resident"][0]
+               for b in range(single.items))

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain torch versions on the card: K1 at
 the evaluation path's shapes (chip_smoke.py's ``k1_case``) in every
 configuration the engine uses, at each golden session's shapes, and on
-grids of 1, 3, 17 blocks and one block per SM; K2 and K3 at the fused
+grids of 1, 3, 17 blocks and one block per SM, and seed-batched over S
+seeds (each seed bit-identical to a single-seed launch on its group's
+blocks); K2 and K3 at the fused
 pretraining step's shapes (``k2_case``, ``k3_case``) and at edge shapes
 (``K2_EDGE_SHAPES``, ``K3_EDGE_SHAPES``; K3 also at each vector width its
 pointers' alignment forces).  Marked
@@ -20,8 +22,9 @@ import pytest
 import torch
 
 from chip_smoke import (K2_EDGE_SHAPES, K2_SHAPES, K3_EDGE_SHAPES,
-                        K3_SHAPES, bf16_ulp_diff, k1_case, k2_agreement,
-                        k2_case, k2_term_scale, k3_agreement, k3_case)
+                        K3_SHAPES, bf16_ulp_diff, k1_case, k1_seed_case,
+                        k2_agreement, k2_case, k2_term_scale, k3_agreement,
+                        k3_case)
 from subspace_reg_tpu_torch.ops import conv_fused as cf
 from subspace_reg_tpu_torch.ops import finetune as ft
 from subspace_reg_tpu_torch.utils.device import resolve_device
@@ -277,3 +280,67 @@ def test_wrapper_refuses_bad_operands(cuda):
         ft.finetune_loop(**dict(ops, f_sup=ops["f_sup"].double()), cfg=cfg)
     with pytest.raises(ValueError, match="w0"):
         ft.finetune_loop(**dict(ops, w0=ops["w0"].cpu()), cfg=cfg)
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("n_seeds", [2, 5, 10])
+def test_k1_seed_batched_matches_single_launches_and_twin(cuda, n_seeds):
+    """One launch of S seeds (blocks in S groups of G = P // S): each seed
+    bit-identical to a single-seed launch on G blocks and equal to the
+    plain version; seed 0 capped at 12 epochs, so its group stops while
+    the others run on."""
+    stacked, per, cfg = k1_seed_case("sgd", cuda, n_seeds, max_epochs=30,
+                                     stable_target=10 ** 6, stop=(0, 12))
+    g = ft.k1_blocks(cuda) // n_seeds
+    before = (ft.finetune_loop.launches, ft.finetune_loop.seed_loops)
+    out = ft.finetune_loop_seeds(**stacked, cfg=cfg)
+    assert (ft.finetune_loop.launches, ft.finetune_loop.seed_loops) == (
+        before[0] + 1, before[1] + n_seeds)
+    for s in range(n_seeds):
+        mine = tuple(t[s] for t in out)
+        assert _same(mine, ft._launch(per[s], cfg, blocks=g))
+        _assert_matches_twin(per[s], cfg, mine)
+        assert int(mine[1][1]) == (12 if s == 0 else 30)
+
+
+@pytest.mark.parametrize("kind", ["semantic", "bias", "adam"])
+def test_k1_seed_batched_configurations(cuda, kind):
+    stacked, per, cfg = k1_seed_case(kind, cuda, 3, max_epochs=25)
+    out = ft.finetune_loop_seeds(**stacked, cfg=cfg)
+    for s in range(3):
+        _assert_matches_twin(per[s], cfg, tuple(t[s] for t in out))
+    assert _same(out, ft.finetune_loop_seeds(**stacked, cfg=cfg))
+
+
+def test_k1_more_seeds_than_blocks_is_refused(cuda):
+    stacked, _, cfg = k1_seed_case("sgd", cuda, 4, max_epochs=5)
+    before = ft.finetune_loop.launches
+    with pytest.raises(ValueError, match="seeds"):
+        ft._launch_seeds(stacked, cfg, blocks=3)
+    assert ft.finetune_loop.launches == before
+
+
+def test_k1_no_fallback_when_the_library_fails_to_load(cuda, monkeypatch):
+    """A kernel library that does not load raises; neither entry runs the
+    plain version on CUDA tensors instead."""
+    from subspace_reg_tpu_torch.utils import cuda_build
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    def broken(name):
+        raise OSError(f"cannot load {name}")
+
+    monkeypatch.setattr(ft, "finetune_loop_plain", boom)
+    monkeypatch.setattr(ft, "finetune_loop_seeds_plain", boom)
+    monkeypatch.setattr(cuda_build, "load", broken)
+    stacked, per, cfg = k1_seed_case("sgd", cuda, 2, max_epochs=5)
+    before = ft.finetune_loop.launches
+    with pytest.raises(OSError, match="finetune_loop"):
+        ft.finetune_loop_seeds(**stacked, cfg=cfg)
+    with pytest.raises(OSError, match="finetune_loop"):
+        ft.finetune_loop(**per[0], cfg=cfg)
+    assert ft.finetune_loop.launches == before

@@ -76,3 +76,25 @@ def test_cuda_request_without_card_raises(root, monkeypatch):
     argv[argv.index("cpu")] = "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         train_supervised.main(argv)
+
+
+@pytest.mark.parametrize("limit,want", [(None, 2 * 1024 ** 3),
+                                         ("123456", 123456)])
+def test_device_data_limit_follows_the_environment(monkeypatch, limit, want):
+    """``DEVICE_DATA_MAX_BYTES`` sets the largest split staged on the
+    device, with the JAX CLI's default and parsing
+    (train_supervised.py:269-270)."""
+    if limit is None:
+        monkeypatch.delenv("DEVICE_DATA_MAX_BYTES", raising=False)
+    else:
+        monkeypatch.setenv("DEVICE_DATA_MAX_BYTES", limit)
+    assert train_supervised.device_data_max_bytes() == want
+
+
+def test_split_above_the_device_data_limit_is_refused(root, monkeypatch):
+    """Below the split's size the CLI does not stage it (the default
+    stages it: ``test_one_epoch_prints_saves_and_logs``); the host-streamed
+    loader it would need is not ported."""
+    monkeypatch.setenv("DEVICE_DATA_MAX_BYTES", "1")
+    with pytest.raises(NotImplementedError, match="host-streamed"):
+        train_supervised.main(_argv(root))
