@@ -1,13 +1,14 @@
-"""Synthetic miniImageNet in the reference's on-disk format.
+"""Synthetic datasets in the reference's on-disk formats.
 
-Generates a miniature ``all.pickle`` + ``class_labels.txt`` so the FSCIL
-pipeline runs end-to-end without the real miniImageNet dump, and the
-category-split pickles that non-continual pretraining reads, and the
-word-embedding pickle the semantic attractors read.  Formats match
-dataset/mini_imagenet.py:52-65,127-136.  Byte-identical to the JAX
-package's ``data/synthetic.py::make_mini_imagenet``,
-``make_mini_imagenet_category_split`` and ``make_word_embeds`` for the same
-arguments.
+Miniature miniImageNet (``all.pickle`` + ``class_labels.txt``, and the
+category-split pickles that non-continual pretraining reads), CIFAR-FS /
+FC100 (per-partition pickles and an ``all.pickle``), tieredImageNet (npz
+archives and label pickles), and the word- and description-embedding
+pickles the semantic attractors read, so every pipeline runs end to end
+without the real dumps.  Formats match dataset/mini_imagenet.py:52-65,
+127-136, dataset/cifar.py:52-66 and dataset/tiered_imagenet.py:42-56.
+Each generator writes the bytes of its namesake in the JAX package's
+``data/synthetic.py`` for the same arguments.
 """
 
 from __future__ import annotations
@@ -76,6 +77,89 @@ def make_mini_imagenet_category_split(root: str, per_class: int = 20,
     with open(os.path.join(root, "class_labels.txt"), "w") as f:
         for i in range(total):
             f.write(f"n{900000 + i:08d} synthetic_{i}\n")
+
+
+def make_cifar(root: str, n_classes: int = 100, per_class: int = 20,
+               seed: int = 0, partitions=("train", "val", "test"),
+               sparse_labels: bool = False) -> None:
+    """Per-partition pickles + an all.pickle for the continual protocol
+    (schemas of dataset/cifar.py:52-66), 32 px."""
+    os.makedirs(root, exist_ok=True)
+    r = np.random.RandomState(seed)
+    base_colors = r.randint(30, 226, size=(n_classes, 3))
+
+    def blob(classes, per, sparse=False):
+        labels = np.repeat(classes, per)
+        if sparse:
+            labels = labels * 3 + 1   # sparse labels needing remap
+        n = len(labels)
+        imgs = (base_colors[np.repeat(classes, per)][:, None, None, :]
+                + r.randint(-25, 26, size=(n, 32, 32, 3)))
+        return (np.clip(imgs, 0, 255).astype(np.uint8), labels.tolist())
+
+    per_part = max(n_classes // len(partitions), 1)
+    for i, part in enumerate(partitions):
+        classes = np.arange(i * per_part, min((i + 1) * per_part, n_classes))
+        imgs, labels = blob(classes, per_class, sparse=sparse_labels)
+        with open(os.path.join(root, f"{part}.pickle"), "wb") as f:
+            pickle.dump({"data": imgs, "labels": labels}, f)
+
+    # all.pickle (continual protocol) always carries dense 0..n-1 labels
+    imgs, labels = blob(np.arange(n_classes), per_class)
+    cat2label = {f"cifar{i:03d}": i for i in range(n_classes)}
+    with open(os.path.join(root, "all.pickle"), "wb") as f:
+        pickle.dump({"data": imgs, "labels": labels,
+                     "catname2label": cat2label}, f)
+
+
+def make_tiered(root: str, n_classes: int = 20, per_class: int = 12,
+                img_size: int = 16, seed: int = 0,
+                with_train_b: bool = True) -> None:
+    """npz image archives + label pickles (schemas of
+    dataset/tiered_imagenet.py:42-56): ``n_classes`` train_a classes in
+    three phases, and ``n_classes // 2`` classes each in ``train_b``,
+    ``val`` and ``test``.  A class's phases share its colour; the
+    partitions, class-disjoint in the real set, get rows of their own."""
+    os.makedirs(root, exist_ok=True)
+    r = np.random.RandomState(seed)
+    palette = r.randint(30, 226, size=(n_classes * 3, 3))
+
+    def write(prefix, classes, palette_off=0):
+        labels = np.repeat(classes, per_class)
+        base = palette[np.asarray(classes) + palette_off]
+        imgs = (base[np.repeat(np.arange(len(classes)), per_class)]
+                [:, None, None, :]
+                + r.randint(-25, 26,
+                            size=(len(labels), img_size, img_size, 3)))
+        np.savez(os.path.join(root, f"{prefix}_images.npz"),
+                 images=np.clip(imgs, 0, 255).astype(np.uint8))
+        with open(os.path.join(root, f"{prefix}_labels.pkl"), "wb") as f:
+            pickle.dump({"label_specific": labels % len(classes)}, f)
+
+    for phase in ("train", "val", "test"):
+        write(f"train_a_train_a_phase_{phase}", np.arange(n_classes))
+    half = n_classes // 2
+    if with_train_b:
+        write("train_b", np.arange(half), palette_off=n_classes)
+    write("val", np.arange(half), palette_off=n_classes + half)
+    write("test", np.arange(half), palette_off=n_classes + 2 * half)
+
+
+def make_description_embeds(path: str, dataset: str = "miniImageNet",
+                            model: str = "bert-base-cased", layer: int = 6,
+                            prefix: bool = True, dim: int = 768,
+                            n_classes: int = 100, seed: int = 2) -> str:
+    """Description-embed pickle in the reference asset schema:
+    {full class name: np.ndarray(dim)} under the util.py:95-99 filename;
+    class names follow class_labels.txt ('synthetic <i>')."""
+    os.makedirs(path, exist_ok=True)
+    r = np.random.RandomState(seed)
+    d = {f"synthetic {i}": r.randn(dim) for i in range(n_classes)}
+    out = os.path.join(
+        path, f"{dataset}_{model}_layer{layer}_prefix_{prefix}.pickle")
+    with open(out, "wb") as f:
+        pickle.dump(d, f)
+    return out
 
 
 def make_word_embeds(path: str, dataset: str = "miniImageNet",

@@ -58,11 +58,6 @@ def _refuse(opts, heads, shard_over_devices: bool) -> None:
         raise NotImplementedError(
             "shard_over_devices: the port runs its seeds on one card")
     opt0 = opts[0]
-    if opt0.dataset != "miniImageNet":
-        raise NotImplementedError(
-            f"{opt0.dataset}: the multi-seed engine serves miniImageNet; "
-            "the tieredImageNet/CIFAR weighting is ROADMAP.md queue A item "
-            "5")
     names = [k for k in dir(opt0) if not k.startswith("_")
              and k not in SEED_FIELDS and not callable(getattr(opt0, k))]
     for opt in opts[1:]:

@@ -16,7 +16,13 @@ Where JAX and PyTorch differ in form:
 * the JAX ``tx`` (an optax chain with the schedule inside) becomes the
   state's optimizer (``init_pretrain_state``) plus ``schedule`` here;
 * the per-step random draws come from a draw provider (engine/draws.py)
-  keyed by the step, as the JAX step folds the step into its key.
+  keyed by the step, as the JAX step folds the step into its key, so
+  restoring the step restores them.
+
+``checkpoint_parts`` and ``restore_pretrain_state`` carry the state through
+the JAX package's ``.ckpt`` (utils/checkpoint.py) with its optimizer
+state and step in ``extra``, as JAX ``train_supervised.py:112-136,325-355``
+saves and resumes it.
 
 Distillation (``teacher``, the NCE/CRD steps) and the device mesh are not
 ported yet and raise (ROADMAP.md queue A).
@@ -32,11 +38,13 @@ import torch
 
 from ..data.transforms import AugmentSpec
 from ..models.fused_forward import can_fuse, fused_forward
-from ..models.head import torch_linear_init
+from ..models.head import Head, torch_linear_init
 from ..models.resnet import ResNetRFS
 from ..ops import augment as aug_ops
 from ..ops import losses
 from ..utils.optim import Schedule, set_lr
+from ..weights import (from_jax_variables, optimizer_from_jax,
+                       optimizer_to_jax, to_jax_variables)
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -65,6 +73,48 @@ def init_pretrain_state(backbone: ResNetRFS, n_cls: int,
         head["b"] = torch.nn.Parameter(b.to(device))
     optimizer = tx(list(backbone.parameters()) + list(head.values()))
     return PretrainState(backbone=backbone, head=head, optimizer=optimizer)
+
+
+def checkpoint_parts(state: PretrainState):
+    """(variables, head, extra) of ``state`` for ``utils.checkpoint.
+    save_checkpoint``: the JAX-form backbone tree, the head with every row
+    active, and ``{"opt_state", "step"}`` in the JAX state's form."""
+    w = state.head["w"].detach()
+    b = state.head.get("b")
+    head = Head(weight=w, bias=None if b is None else b.detach(),
+                n_active=w.shape[0])
+    extra = {"opt_state": optimizer_to_jax(state.optimizer, state.backbone,
+                                           state.head, state.step),
+             "step": np.asarray(state.step, np.int32)}
+    return to_jax_variables(state.backbone.state_dict()), head, extra
+
+
+def restore_pretrain_state(state: PretrainState, variables, head: Head,
+                           meta) -> int:
+    """Resume ``state`` in place from a loaded ``.ckpt`` (``utils.
+    checkpoint.load_checkpoint``: numpy leaves) as JAX
+    ``train_supervised.py:112-136`` does: parameters, BN statistics,
+    counters (kept when the checkpoint has none), the head's first
+    ``n_cls`` rows, and the optimizer state and step from
+    ``meta["extra"]`` when present.  Returns the epoch to start at,
+    ``meta["epoch"] + 1``."""
+    sd = dict(state.backbone.state_dict())
+    sd.update(from_jax_variables(variables))
+    state.backbone.load_state_dict(sd)
+    with torch.no_grad():
+        for k, t in (("w", head.weight), ("b", head.bias)):
+            if k in state.head:
+                p = state.head[k]
+                p.copy_(torch.from_numpy(np.array(t[:p.shape[0]])))
+    extra = meta.get("extra")
+    if extra is not None:
+        count = optimizer_from_jax(state.optimizer, state.backbone,
+                                   state.head, extra["opt_state"])
+        state.step = int(np.asarray(extra["step"]))
+        if count != state.step:
+            raise ValueError(f"the optimizer state counts {count} steps, "
+                             f"the checkpoint {state.step}")
+    return int(meta.get("epoch", 0)) + 1
 
 
 def _logits(state: PretrainState, feats: torch.Tensor,

@@ -12,6 +12,10 @@ repo's ``eval_incremental.py`` (reference eval_incremental.py:24-140), plus
       --label_pull 1.0 --lmbd_reg_novel 0.1 --set_seed 1 \
       --attraction_override distance2subspace \
       --n_base_support_samples 1 --memory_replay 1
+
+``--model_path`` is a reference ``.pth`` or a ``.ckpt`` of either
+package's pretraining CLI; ``--dataset`` is miniImageNet, tieredImageNet,
+CIFAR-FS or FC100 (continual).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from .data.episodes import EpisodeSampler
 from .data.eval_splits import load_eval_splits
 from .engine.incremental import few_shot_finetune_incremental_test, session_count
 from .models.factory import create_model
-from .weights import load_checkpoint
+from .utils.checkpoint import load_any
 
 
 def main(argv=None, draws=None):
@@ -58,8 +62,8 @@ def main(argv=None, draws=None):
                                   disjoint_classes=True)
 
     max_classes = n_cls + session_count(opt) * opt.n_ways
-    state, head, meta = load_checkpoint(opt.model_path,
-                                        max_classes=max_classes)
+    # a reference .pth or a JAX-package .ckpt (eval_incremental.py:65)
+    state, head, meta = load_any(opt.model_path, max_classes=max_classes)
     # linear bias inferred from the checkpoint (eval_incremental.py:99-105)
     if opt.classifier != "linear":
         raise ValueError("--classifier linear is the only head the "

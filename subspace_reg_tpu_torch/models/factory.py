@@ -9,19 +9,23 @@ from __future__ import annotations
 
 from .resnet import ResNetRFS, model_dict
 
+# DropBlock's block size per dataset (reference models/util.py:16-18,27):
+# 5 on the 84 px datasets, 2 on CIFAR's 32 px images
+DROPBLOCK_SIZE = {"miniImageNet": 5, "tieredImageNet": 5, "CIFAR-FS": 2,
+                  "FC100": 2}
+
 
 def create_model(name: str, opt, dataset: str = "miniImageNet",
                  dtype=None) -> ResNetRFS:
-    """avg_pool=True, drop_rate=0.1, dropblock_size=5 for the 84 px
-    datasets (reference models/util.py:16-18).  ``dtype=torch.bfloat16``
-    is the pretraining compute path."""
-    if dataset not in ("miniImageNet", "tieredImageNet"):
-        raise NotImplementedError(
-            f"dataset {dataset}: only the 84px datasets are ported")
+    """avg_pool=True, drop_rate=0.1 and the dataset's DropBlock size.
+    ``dtype=torch.bfloat16`` is the pretraining compute path."""
+    if dataset not in DROPBLOCK_SIZE:
+        raise NotImplementedError(f"dataset not supported: {dataset}")
     if name not in model_dict:
         raise NotImplementedError(
             "model {} not supported in dataset {}".format(name, dataset))
-    return model_dict[name](avg_pool=True, drop_rate=0.1, dropblock_size=5,
+    return model_dict[name](avg_pool=True, drop_rate=0.1,
+                            dropblock_size=DROPBLOCK_SIZE[dataset],
                             no_dropblock=bool(getattr(opt, "no_dropblock",
                                                       False)),
                             dtype=dtype)

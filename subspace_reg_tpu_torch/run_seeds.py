@@ -42,7 +42,7 @@ def _run_vmapped(args, rest: List[str], seeds: List[int], draws=None):
     from .engine.incremental import session_count
     from .engine.multiseed import few_shot_finetune_multiseed
     from .models.factory import create_model
-    from .weights import load_checkpoint
+    from .utils.checkpoint import load_any
 
     opts, backbones, heads, metas = [], [], [], []
     samplers, base_tests, base_supports = [], [], []
@@ -54,8 +54,7 @@ def _run_vmapped(args, rest: List[str], seeds: List[int], draws=None):
         # seeds that share a checkpoint read it once
         key = (opt.model_path, max_classes)
         if key not in loaded:
-            loaded[key] = load_checkpoint(opt.model_path,
-                                          max_classes=max_classes)
+            loaded[key] = load_any(opt.model_path, max_classes=max_classes)
         state, head, meta = loaded[key]
         if opt.classifier != "linear":
             raise ValueError("--classifier linear is the only head the "

@@ -7,14 +7,18 @@ plus ``--device`` (default ``cuda``; ``cpu`` runs the plain versions):
       --model resnet18 --save_freq 100 --continual --no_dropblock \
       --no_linear_bias --set_seed 1
 
-miniImageNet, continual or not.  The dataset lives on the device and each
-step gathers its batch there (the device-data path).  The step is the
-module path in bf16, as the JAX CLI builds it; the fused stages 1-2 (K2/K3)
-are reached through ``engine.pretrain.make_train_step(fused=True)``.
-Checkpoints are reference ``.pth`` files (``<model>_last.pth``,
-``ckpt_epoch_<e>.pth``), which the port's and the JAX package's loaders
-read.  Not ported yet, and refused: ``--reload_path``, distillation, other
-datasets, the mesh and the host-streamed loader (ROADMAP.md queue A).
+miniImageNet (continual or not), tieredImageNet (``train_a``, with
+``train_b`` pooled under ``--augment_pretrain_wtrainb``) and CIFAR-FS /
+FC100 (continual, or the per-partition pickles).  The dataset lives on the
+device and each step gathers its batch there (the device-data path).  The
+step is the module path in bf16, as the JAX CLI builds it; the fused stages
+1-2 (K2/K3) are reached through ``engine.pretrain.make_train_step(fused=
+True)``.  Checkpoints are the JAX package's ``.ckpt`` (``<model>_last.ckpt``,
+``ckpt_epoch_<e>.ckpt``) with the optimizer state and step, which the JAX
+CLI's ``--reload_path`` and loaders read; ``--reload_path`` resumes from
+either package's ``.ckpt`` and reproduces the uninterrupted run.  Not
+ported yet, and refused: distillation, the mesh and the host-streamed
+loader (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -28,15 +32,17 @@ import numpy as np
 import torch
 
 from .config import parse_option_supervised
+from .data.cifar import load_cifar, load_cifar_continual
 from .data.mini_imagenet import load_mini_imagenet
+from .data.tiered_imagenet import load_tiered_imagenet
 from .data.transforms import transforms_options
 from .engine import pretrain as pt
 from .engine.draws import TorchDraws
 from .models.factory import create_model
 from .utils import optim as optim_lib
+from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.device import resolve_device
 from .utils.logging import AverageMeter, MetricWriter
-from .weights import save_checkpoint
 
 
 def device_data_max_bytes() -> int:
@@ -47,12 +53,29 @@ def device_data_max_bytes() -> int:
     return int(os.environ.get("DEVICE_DATA_MAX_BYTES", 2 * 1024 ** 3))
 
 
+def load_splits(opt):
+    """(train split, validation split, n_cls) per dataset, as the JAX CLI
+    loads them (train_supervised.py:46-70)."""
+    if opt.dataset == "miniImageNet":
+        train = load_mini_imagenet(opt, split="train", phase="train")
+        val = load_mini_imagenet(opt, split="train", phase="val")
+        return train, val, 80 if opt.use_trainval else (
+            60 if opt.continual else 64)
+    if opt.dataset == "tieredImageNet":
+        train = load_tiered_imagenet(opt, partition="train", phase="train")
+        val = load_tiered_imagenet(opt, partition="train", phase="val")
+        return train, val, 448 if opt.use_trainval else 351
+    if opt.dataset in ("CIFAR-FS", "FC100"):
+        if opt.continual:
+            return (load_cifar_continual(opt, split="train", phase="train"),
+                    load_cifar_continual(opt, split="train", phase="val"),
+                    60)
+        train = load_cifar(opt, partition="train")
+        return train, load_cifar(opt, partition="val"), max(train.labels) + 1
+    raise NotImplementedError(opt.dataset)
+
+
 def _refuse_unported(opt) -> None:
-    if opt.dataset != "miniImageNet":
-        raise NotImplementedError(
-            f"dataset {opt.dataset}: only miniImageNet pretraining is ported")
-    if opt.reload_path:
-        raise NotImplementedError("--reload_path (resume) is not ported yet")
     if opt.distill != "none":
         raise NotImplementedError(f"--distill {opt.distill} is not ported "
                                   "yet")
@@ -70,9 +93,7 @@ def main(argv=None):
     np.random.seed(opt.set_seed)
 
     # ---- data -----------------------------------------------------------
-    train_split = load_mini_imagenet(opt, split="train", phase="train")
-    val_split = load_mini_imagenet(opt, split="train", phase="val")
-    n_cls = 80 if opt.use_trainval else (60 if opt.continual else 64)
+    train_split, val_split, n_cls = load_splits(opt)
     train_spec, test_spec = transforms_options[opt.transform]
     train_labels = np.asarray(train_split.labels, np.int64)
     val_labels = np.asarray(val_split.labels, np.int64)
@@ -121,12 +142,27 @@ def main(argv=None):
         backbone, sched, train_spec, with_bias=opt.linear_bias,
         draws=TorchDraws(opt.set_seed, device), label_pull=opt.label_pull,
         pull_embeds=pull_embeds)
-    eval_step = pt.make_eval_step(backbone, test_spec,
-                                  with_bias=opt.linear_bias,
-                                  faithful_nbt=opt.faithful_nbt)
+    # resume (JAX train_supervised.py:112-136): parameters, BN statistics,
+    # counters, the optimizer state and the step, whose per-step draws
+    # follow from it
+    start_epoch = 1
+    if opt.reload_path:
+        start_epoch = pt.restore_pretrain_state(
+            state, *load_checkpoint(opt.reload_path))
+        print(f"==> resumed from {opt.reload_path} at epoch {start_epoch}")
+    eval_step = pt.make_eval_step(
+        backbone, test_spec, with_bias=opt.linear_bias,
+        truncate_classes=(200 if (opt.dataset == "tieredImageNet"
+                                  and opt.augment_pretrain_wtrainb)
+                          else None),
+        faithful_nbt=opt.faithful_nbt)
 
     logger = MetricWriter(opt.tb_folder)
     rng_np = np.random.RandomState(opt.set_seed)
+    # the skipped epochs' shuffles, so a resumed run draws the batches of
+    # the uninterrupted one (JAX train_supervised.py:258-262)
+    for _ in range(start_epoch - 1):
+        rng_np.permutation(n_train)
 
     # the dataset on the device: each step sends only its index vector
     if train_split.imgs.nbytes > device_data_max_bytes():
@@ -146,15 +182,16 @@ def main(argv=None):
         if opt.continual:
             meta = dict(training_classes=train_split.basec_map,
                         label2human=train_split.label2human)
-        name = (f"{opt.model}_last.pth" if final
-                else f"ckpt_epoch_{epoch}.pth")
-        save_checkpoint(os.path.join(opt.save_folder, name), backbone,
-                        state.head["w"], state.head.get("b"), epoch=epoch,
-                        **meta)
+        meta["epoch"] = epoch
+        name = (f"{opt.model}_last.ckpt" if final
+                else f"ckpt_epoch_{epoch}.ckpt")
+        variables, head, extra = pt.checkpoint_parts(state)
+        save_checkpoint(os.path.join(opt.save_folder, name), variables,
+                        head, meta, extra=extra)
         print("==> Saved", name)
 
     # ---- training loop (train_supervised.py:156-202) --------------------
-    for epoch in range(1, opt.epochs + 1):
+    for epoch in range(start_epoch, opt.epochs + 1):
         if not opt.eval_only:
             print("==> training...")
             t0 = time.time()

@@ -3,26 +3,26 @@
 ``from_jax_variables`` is the inverse of the JAX package's
 ``utils/torch_import.py::import_backbone`` (:41-99): it maps a JAX variables
 tree, as numpy arrays, onto a torch state dict with the reference's key
-names, so one backbone can be held in both packages.  ``load_checkpoint``
-reads a reference ``.pth`` (``{"model": state_dict, "training_classes":
-..., "label2human": ...}``, train_supervised.py:180-202), whose state dict
-loads through ``load_state_dict`` unchanged.
+names, so one backbone can be held in both packages; ``to_jax_variables``
+maps it back.  ``optimizer_to_jax`` / ``optimizer_from_jax`` carry the
+pretraining optimizer's state between ``torch.optim`` and the state-dict
+form of the JAX package's optax chains (utils/optim.py:21-43).
 
-``save_checkpoint`` writes that same ``.pth`` layout from a trained
-backbone and head, so the port's ``load_checkpoint`` and the JAX package's
-``utils/torch_import.py::import_checkpoint`` both read what pretraining
-saves.
+``load_checkpoint`` reads a reference ``.pth`` (``{"model": state_dict,
+"training_classes": ..., "label2human": ...}``, train_supervised.py:
+180-202), whose state dict loads through ``load_state_dict`` unchanged, or
+the JAX package's ``.ckpt`` (utils/checkpoint.py).  A ``.pth`` may carry
+the label->image LinearMap of the mapping attractor
+(``mapping_linear_label2image``), which ``load_pth`` puts in ``meta``.
 
-Reading and writing the JAX package's own ``.ckpt`` format (flax msgpack,
-utils/checkpoint.py:73-132) is still to be ported (ROADMAP.md queue A
-item 4).  A ``.pth`` may carry the label->image LinearMap of the mapping
-attractor (``mapping_linear_label2image``), which ``load_checkpoint`` puts
-in ``meta``.
+``save_checkpoint`` writes the reference ``.pth`` layout from a trained
+backbone and head, so the port's and the JAX package's ``.pth`` loaders
+both read it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,10 +33,13 @@ _CONV_KEYS = {"conv1", "conv2", "conv3"}
 _BN_KEYS = {"bn1", "bn2", "bn3"}
 
 
-def _bn(prefix: str, params: Mapping, stats: Mapping) -> Dict[str, np.ndarray]:
-    return {prefix + "weight": params["scale"], prefix + "bias": params["bias"],
-            prefix + "running_mean": stats["mean"],
-            prefix + "running_var": stats["var"]}
+def _bn(prefix: str, params: Mapping,
+        stats: Optional[Mapping]) -> Dict[str, np.ndarray]:
+    out = {prefix + "weight": params["scale"], prefix + "bias": params["bias"]}
+    if stats is not None:
+        out.update({prefix + "running_mean": stats["mean"],
+                    prefix + "running_var": stats["var"]})
+    return out
 
 
 def from_jax_variables(variables: Mapping[str, Any],
@@ -46,9 +49,10 @@ def from_jax_variables(variables: Mapping[str, Any],
     ``running_*``, ``ds_conv/ds_bn`` -> ``downsample.{0,1}``, ``se.fc1/fc2``
     -> ``se.fc.{0,2}``, the block counter -> ``num_batches_tracked``.  With
     a ``head`` (weight, bias, n_active), its active rows become
-    ``classifier.*``."""
+    ``classifier.*``.  Without ``batch_stats`` (a tree of per-parameter
+    optimizer state) only the parameters are mapped."""
     params = variables["params"]
-    stats = variables.get("batch_stats", {})
+    stats = variables.get("batch_stats")
     counters = variables.get("counters", {})
     sd: Dict[str, np.ndarray] = {}
     for blk, mods in params.items():
@@ -58,13 +62,14 @@ def from_jax_variables(variables: Mapping[str, Any],
                 sd[prefix + mod + ".weight"] = np.transpose(
                     np.asarray(p["kernel"]), (3, 2, 0, 1))
             elif mod in _BN_KEYS:
-                sd.update(_bn(prefix + mod + ".", p, stats[blk][mod]))
+                sd.update(_bn(prefix + mod + ".", p,
+                              None if stats is None else stats[blk][mod]))
             elif mod == "ds_conv":
                 sd[prefix + "downsample.0.weight"] = np.transpose(
                     np.asarray(p["kernel"]), (3, 2, 0, 1))
             elif mod == "ds_bn":
                 sd.update(_bn(prefix + "downsample.1.", p,
-                              stats[blk]["ds_bn"]))
+                              None if stats is None else stats[blk]["ds_bn"]))
             elif mod == "se":
                 for fc, idx in (("fc1", 0), ("fc2", 2)):
                     sd[f"{prefix}se.fc.{idx}.weight"] = np.asarray(
@@ -89,11 +94,14 @@ def from_jax_variables(variables: Mapping[str, Any],
 
 
 def load_checkpoint(path: str, max_classes: Optional[int] = None):
+    """A reference ``.pth`` or a JAX ``.ckpt`` -> (backbone state dict,
+    Head padded to ``max_classes`` rows, meta)."""
+    from .utils.checkpoint import load_any
+    return load_any(path, max_classes=max_classes)
+
+
+def load_pth(path: str, max_classes: Optional[int] = None):
     """Reference ``.pth`` -> (backbone state dict, padded Head, meta)."""
-    if not path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: only reference .pth checkpoints load in the port; the "
-            "JAX .ckpt reader is a ROADMAP.md queue A item")
     # the reference format pickles its argparse namespace beside the
     # weights, so it needs the full unpickler
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
@@ -147,3 +155,165 @@ def save_checkpoint(path: str, backbone: torch.nn.Module,
     if label2human is not None:
         ckpt["label2human"] = label2human
     torch.save(ckpt, path)
+
+
+def _jax_place(key: str) -> Optional[Tuple[str, List[str], Any]]:
+    """Where a backbone state-dict entry lives in the JAX variables tree:
+    (collection, path, transform), or None for what JAX does not keep
+    (a BatchNorm's own ``num_batches_tracked``)."""
+    parts = key.split(".")
+    blk, rest = f"{parts[0]}_{parts[1]}", parts[2:]
+    oihw = lambda a: np.transpose(a, (2, 3, 1, 0))     # noqa: E731
+    same = lambda a: a                                  # noqa: E731
+    if rest == ["num_batches_tracked"]:
+        return ("counters", [blk, "num_batches_tracked"],
+                lambda a: np.asarray(a, np.int32).reshape(()))
+    if rest[0] in _CONV_KEYS:
+        return "params", [blk, rest[0], "kernel"], oihw
+    if rest[:2] == ["downsample", "0"]:
+        return "params", [blk, "ds_conv", "kernel"], oihw
+    if rest[0] == "se":
+        fc = {"0": "fc1", "2": "fc2"}[rest[2]]
+        if rest[3] == "weight":
+            return "params", [blk, "se", fc, "kernel"], np.transpose
+        return "params", [blk, "se", fc, "bias"], same
+    if rest[0] in _BN_KEYS or rest[:2] == ["downsample", "1"]:
+        mod = rest[0] if rest[0] in _BN_KEYS else "ds_bn"
+        leaf = rest[-1]
+        if leaf == "num_batches_tracked":
+            return None
+        coll, name = {"weight": ("params", "scale"),
+                      "bias": ("params", "bias"),
+                      "running_mean": ("batch_stats", "mean"),
+                      "running_var": ("batch_stats", "var")}[leaf]
+        return coll, [blk, mod, name], same
+    raise KeyError(f"unknown backbone entry {key}")
+
+
+def to_jax_variables(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Backbone state dict -> JAX ``{"params", "batch_stats", "counters"}``
+    tree of numpy arrays, the inverse of ``from_jax_variables``: OIHW ->
+    HWIO, ``weight/bias/running_*`` -> ``scale/bias/mean/var``,
+    ``downsample.{0,1}`` -> ``ds_conv/ds_bn``, ``se.fc.{0,2}`` ->
+    ``se.fc1/fc2``, the block counter -> ``counters`` (int32, as JAX keeps
+    it).  Parameters in f32."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}, "counters": {}}
+    for key, v in state_dict.items():
+        place = _jax_place(key)
+        if place is None:
+            continue
+        coll, path, fn = place
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+        if coll != "counters":
+            a = a.astype(np.float32)
+        node = out[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.array(fn(a), order="C")
+    return out
+
+
+def _chain(optimizer: torch.optim.Optimizer) -> List[str]:
+    """The parts of the JAX optax chain the optimizer corresponds to
+    (utils/optim.py:21-43), in order: ``decay`` (add_decayed_weights)
+    when there is weight decay, ``adam`` (scale_by_adam) or ``trace``
+    (momentum) when there is momentum, then ``count`` (the learning-rate
+    schedule's step count, as the JAX CLI schedules every step)."""
+    g = optimizer.param_groups[0]
+    parts = ["decay"] if g.get("weight_decay") else []
+    if isinstance(optimizer, torch.optim.Adam):
+        parts.append("adam")
+    elif g.get("momentum"):
+        parts.append("trace")
+    return parts + ["count"]
+
+
+def _param_tree(backbone: torch.nn.Module, head: Mapping[str, torch.Tensor],
+                value) -> Dict[str, Any]:
+    """``{"backbone": JAX params tree, "head": {"w"[, "b"]}}`` of
+    ``value(parameter)`` for each parameter (the JAX pretraining state's
+    ``params`` layout)."""
+    bb = {n: value(p) for n, p in backbone.named_parameters()}
+    return {"backbone": to_jax_variables(bb)["params"],
+            "head": {k: np.asarray(value(p), np.float32)
+                     for k, p in head.items()}}
+
+
+def optimizer_to_jax(optimizer: torch.optim.Optimizer,
+                     backbone: torch.nn.Module,
+                     head: Mapping[str, torch.Tensor],
+                     step: int) -> Dict[str, Any]:
+    """``torch.optim.SGD``/``Adam`` state -> the optax chain's state dict
+    (``flax.serialization.to_state_dict`` form): ``{"0": ..., "1": ...}``
+    with ``{}`` for the decay, ``{"trace": params}`` for momentum,
+    ``{"count", "mu", "nu"}`` for Adam and ``{"count"}`` for the
+    schedule; a parameter without state yet (no step taken) gives zeros."""
+    def slot(name):
+        def value(p):
+            t = optimizer.state.get(p, {}).get(name)
+            if t is None:
+                return np.zeros(tuple(p.shape), np.float32)
+            return t.detach().float().cpu().numpy()
+        return value
+
+    count = np.asarray(step, np.int32)
+    out: Dict[str, Any] = {}
+    for i, part in enumerate(_chain(optimizer)):
+        if part == "decay":
+            out[str(i)] = {}
+        elif part == "trace":
+            out[str(i)] = {"trace": _param_tree(backbone, head,
+                                                slot("momentum_buffer"))}
+        elif part == "adam":
+            out[str(i)] = {"count": count,
+                           "mu": _param_tree(backbone, head, slot("exp_avg")),
+                           "nu": _param_tree(backbone, head,
+                                             slot("exp_avg_sq"))}
+        else:
+            out[str(i)] = {"count": count}
+    return out
+
+
+def _named_state(backbone: torch.nn.Module, head: Mapping[str, torch.Tensor],
+                 tree: Mapping[str, Any]):
+    """(parameter, numpy value) pairs of a ``{"backbone", "head"}`` tree."""
+    sd = from_jax_variables({"params": tree["backbone"]})
+    named = dict(backbone.named_parameters())
+    missing = set(named) - set(sd)
+    if missing:
+        raise KeyError(f"optimizer state lacks {sorted(missing)[:3]}")
+    pairs = [(named[n], sd[n]) for n in named]
+    pairs += [(p, torch.from_numpy(np.array(tree["head"][k], np.float32)))
+              for k, p in head.items()]
+    return pairs
+
+
+def optimizer_from_jax(optimizer: torch.optim.Optimizer,
+                       backbone: torch.nn.Module,
+                       head: Mapping[str, torch.Tensor],
+                       tree: Mapping[str, Any]) -> int:
+    """The inverse of ``optimizer_to_jax``: sets each parameter's
+    ``momentum_buffer`` (SGD) or ``exp_avg``/``exp_avg_sq``/``step``
+    (Adam) from the optax chain's state dict; returns the step count."""
+    parts = _chain(optimizer)
+    if sorted(tree) != [str(i) for i in range(len(parts))]:
+        raise ValueError(f"an optimizer state of parts {sorted(tree)} does "
+                         f"not fit this optimizer's chain {parts}")
+    count = 0
+    for i, part in enumerate(parts):
+        sub = tree[str(i)]
+        if part == "trace":
+            for p, v in _named_state(backbone, head, sub["trace"]):
+                optimizer.state[p]["momentum_buffer"] = v.to(p.device)
+        elif part == "adam":
+            n = float(np.asarray(sub["count"]))
+            for (p, m), (_, v) in zip(
+                    _named_state(backbone, head, sub["mu"]),
+                    _named_state(backbone, head, sub["nu"])):
+                optimizer.state[p].update(
+                    step=torch.tensor(n, dtype=torch.float32),
+                    exp_avg=m.to(p.device), exp_avg_sq=v.to(p.device))
+        elif part == "count":
+            count = int(np.asarray(sub["count"]))
+    return count

@@ -1,6 +1,7 @@
 """The port stands alone: every module of subspace_reg_tpu_torch, and
-chip_smoke.py, imports with JAX, flax, optax and the JAX package blocked,
-and no source of the port names the JAX package in an import."""
+chip_smoke.py, imports with JAX, flax, optax, msgpack (the card's machine
+has none of them) and the JAX package blocked, and no source of the port
+names one of them in an import."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import subspace_reg_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(subspace_reg_tpu_torch.__file__)
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "subspace_reg_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "subspace_reg_tpu")
 
 
 def _modules():

@@ -195,3 +195,54 @@ def test_k1_plan_at_ten_seeds_on_the_card():
     single = ft.k1_plan(N_SUP + 175, 100, C_PAD, 640, N_WAYS, 132)
     assert all(ft.k1_work(single, b)["resident"][0]
                for b in range(single.items))
+
+
+# tieredImageNet's golden geometry: 351 base classes + 8 sessions of 5, one
+# exemplar per base class beside the 125 novel support rows, 200 replay rows
+T_BASE, T_SUP = 351, 125 + 351
+T_PAD = T_BASE + 8 * N_WAYS
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 132])
+@pytest.mark.parametrize("d", [640, 641])
+@pytest.mark.parametrize("session", [1, 4, 8])
+def test_k1_plan_partitions_each_tiered_session(session, d, blocks):
+    """tieredImageNet, session s: 351 + 5s of 391 classes, 476 support
+    rows and 25(s-1) valid replay rows; every row, pull column and update
+    element owned once within the card's shared memory."""
+    n_active, mem_count = T_BASE + 5 * session, 25 * (session - 1)
+    plan = ft.k1_plan(T_SUP + mem_count, n_active, T_PAD, d, N_WAYS, blocks)
+    assert plan.ldl == 400 and plan.class_tiles == 20
+    _check_plan(plan, d)
+
+
+def test_k1_plan_at_the_last_tiered_session_on_the_card():
+    """The last tiered session on 132 SMs: 651 rows in 82 logits tiles
+    plus 80 pull chunks, so 30 blocks own two phase-A items and keep no
+    operand resident; 20 x 20 = 400 update tiles, 3 or 4 a block; 180 KB
+    of shared memory a block, within the 227 KB limit."""
+    plan = ft.k1_plan(T_SUP + 175, T_PAD, T_PAD, 640, N_WAYS, 132)
+    assert (plan.rows, plan.row_tiles, plan.pull_chunks) == (651, 82, 80)
+    assert plan.tiles == 400 and plan.smem == 184560 < ft.K1_SMEM_MAX
+    work = [ft.k1_work(plan, b) for b in range(132)]
+    assert sum(len(w["logits"]) + len(w["pull"]) == 2 for w in work) == 30
+    assert {len(w["update"]) for w in work} == {3, 4}
+    assert not any(w["resident"][1] for w in work)
+
+
+@pytest.mark.parametrize("seeds", [2, 10])
+def test_k1_plan_seed_groups_at_the_tiered_shapes(seeds):
+    """The seed-batched launch at tiered's last session: at S = 10 each
+    seed's 13 blocks own ~12 phase-A items and ~31 update tiles an epoch;
+    each seed's rows, columns and update elements owned once."""
+    plan = ft.k1_plan(T_SUP + 175, T_PAD, T_PAD, 640, N_WAYS, 132,
+                      seeds=seeds)
+    assert plan.blocks == 132 // seeds
+    for seed in range(seeds):
+        rows, cols, upd, own = _covered(plan, seed)
+        assert np.all(rows == 1) and np.all(cols == 1) and np.all(upd == 1)
+        assert sorted(own) == list(range(seed * plan.slots,
+                                         (seed + 1) * plan.slots))
+    if seeds == 10:
+        counts = [len(ft.k1_work(plan, b)["update"]) for b in range(13)]
+        assert (min(counts), max(counts)) == (30, 31)

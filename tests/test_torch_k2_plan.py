@@ -12,6 +12,8 @@ import torch
 from subspace_reg_tpu_torch.ops import conv_fused as cf
 
 STEP_SHAPES = ((3, 64, 84), (64, 64, 84), (64, 160, 42), (160, 160, 42))
+# resnet12 on CIFAR's 32 px images: stage 1 at 32 px, stage 2 at 16 px
+CIFAR_SHAPES = ((3, 64, 32), (64, 64, 32), (64, 160, 16), (160, 160, 16))
 
 
 def _byte_offset(tap, n, k, cin_pad, n_pad):
@@ -112,6 +114,21 @@ def test_k2_plan_at_the_fused_step_shapes():
         assert plan.resident == (cout == 64)
     assert plans[(64, 64, 84)].tiles == 38      # 84 x 86 flat / 192
     assert plans[(160, 160, 42)].tiles == 15    # 42 x 44 flat / 128
+
+
+@pytest.mark.parametrize("shape", CIFAR_SHAPES,
+                         ids=lambda s: "{}to{}_{}px".format(*s))
+def test_k2_plan_at_the_cifar_step_shapes(shape):
+    """CIFAR's fused step (batch 64): every output pixel written once; the
+    3-channel image at 32 px keeps one halo buffer (its rows are not
+    16-byte multiples), and a 32-pixel-wide image fits every warpgroup."""
+    cin, cout, hw = shape
+    plan = cf.k2_plan(64, hw, hw, cin, cout)
+    assert plan.nc == (3 if cout == 64 else 2)
+    assert plan.nbuf == (1 if cin == 3 else 2)
+    assert plan.wp == hw + 2 and plan.grid == 132
+    assert plan.tiles == -(-(hw * (hw + 2)) // plan.m_tile)
+    assert np.all(_covered(plan, 64, hw, hw) == 1)
 
 
 def test_k2_plan_refuses_what_does_not_fit():

@@ -15,6 +15,8 @@ from subspace_reg_tpu_torch.ops import conv_fused as cf
 
 # (B, H, W, C): the fused step's two tails, then the card's edge shapes
 STEP_SHAPES = ((64, 84, 84, 64), (64, 42, 42, 160))
+# the two tails of resnet12's fused step on CIFAR's 32 px images
+CIFAR_SHAPES = ((64, 32, 32, 64), (64, 16, 16, 160))
 EDGE_SHAPES = ((1, 2, 2, 3), (3, 6, 10, 3), (3, 6, 10, 6), (3, 14, 14, 6),
                (1, 6, 10, 20), (3, 2, 2, 24), (1, 84, 84, 64),
                (3, 14, 14, 160), (2, 4, 6, 640), (1, 2, 4, 2049))
@@ -79,7 +81,7 @@ def _check_covers(plan, b, h, w, c):
     assert 1 <= plan.grid <= 132 * cf.K3_MIN_BLOCKS
 
 
-@pytest.mark.parametrize("shape", STEP_SHAPES + EDGE_SHAPES,
+@pytest.mark.parametrize("shape", STEP_SHAPES + CIFAR_SHAPES + EDGE_SHAPES,
                          ids=lambda s: "b{}_{}x{}_c{}".format(*s))
 def test_k3_plan_covers_every_pooled_element_once(shape):
     b, h, w, c = shape

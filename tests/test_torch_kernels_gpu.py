@@ -21,8 +21,9 @@ sums in a different order.  K2 and K3: stated at each test.  No JAX here."""
 import pytest
 import torch
 
-from chip_smoke import (K2_EDGE_SHAPES, K2_SHAPES, K3_EDGE_SHAPES,
-                        K3_SHAPES, bf16_ulp_diff, k1_case, k1_seed_case,
+from chip_smoke import (K2_CIFAR_SHAPES, K2_EDGE_SHAPES, K2_SHAPES,
+                        K3_CIFAR_SHAPES, K3_EDGE_SHAPES, K3_SHAPES,
+                        TIERED_BASE, bf16_ulp_diff, k1_case, k1_seed_case,
                         k2_agreement, k2_case, k2_term_scale, k3_agreement,
                         k3_case)
 from subspace_reg_tpu_torch.ops import conv_fused as cf
@@ -30,6 +31,9 @@ from subspace_reg_tpu_torch.ops import finetune as ft
 from subspace_reg_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.gpu
+# the fused step's shapes at 84 px (resnet18) and at CIFAR's 32 px (resnet12)
+K2_STEP_SHAPES = K2_SHAPES + K2_CIFAR_SHAPES
+K3_STEP_SHAPES = K3_SHAPES + K3_CIFAR_SHAPES
 
 
 @pytest.fixture
@@ -121,8 +125,8 @@ def test_cuda_tensors_never_reach_the_twin(cuda, monkeypatch):
     assert ft.finetune_loop.launches == before + 1
 
 
-@pytest.mark.parametrize("case", range(len(K2_SHAPES)),
-                         ids=[s[0] for s in K2_SHAPES])
+@pytest.mark.parametrize("case", range(len(K2_STEP_SHAPES)),
+                         ids=[s[0] for s in K2_STEP_SHAPES])
 def test_k2_matches_plain(cuda, case):
     """At the fused step's shapes: y within 1 bf16 ulp of the plain version,
     the ulp taken at no less than 2^-8 of the summed |terms|
@@ -130,7 +134,7 @@ def test_k2_matches_plain(cuda, case):
     rounds identically), and at most 0.1% of elements differing at all;
     the statistics are the sums of the kernel's own rounded y to rtol 1e-4
     of the sum of |y| (the partial sums run in another order)."""
-    _, cin, cout, hw, pro = K2_SHAPES[case]
+    _, cin, cout, hw, pro = K2_STEP_SHAPES[case]
     x, w, aff = k2_case(cin, cout, hw, pro, cuda)
     y, st = cf.conv3x3_fused(x, w, aff, relu_in=pro)
     yp, _ = cf.conv3x3_fused_plain(x, w, aff, relu_in=pro)
@@ -143,6 +147,29 @@ def test_k2_matches_plain(cuda, case):
     ref = torch.stack([yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))])
     scale = torch.stack([yf.abs().sum((0, 2, 3)), ref[1]])
     assert torch.all((st.double() - ref).abs() <= 1e-4 * scale)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adam", "bias"])
+def test_kernel_matches_twin_at_tiered_shapes(cuda, kind):
+    """The last tieredImageNet session: 391 of 391 classes (ldl 400),
+    476 support rows, 175 replay rows; 60 epochs."""
+    ops, cfg = k1_case(kind, cuda, max_epochs=60, orig_base=TIERED_BASE)
+    assert cfg.n_active == ops["w"].shape[0] == 391
+    _assert_matches_twin(ops, cfg, ft.finetune_loop(**ops, cfg=cfg))
+
+
+def test_seed_batched_bit_identical_at_tiered_shapes(cuda):
+    """S = 10 at tieredImageNet's last session (G = P // 10 blocks a seed,
+    ~31 update tiles a block): each seed bit-identical to a single-seed
+    launch on G blocks; seed 0 against the plain version."""
+    stacked, per, cfg = k1_seed_case("sgd", cuda, 10, max_epochs=40,
+                                     orig_base=TIERED_BASE)
+    out = ft._launch_seeds(stacked, cfg)
+    g = ft.k1_blocks(cuda) // 10
+    for s_ in range(10):
+        alone = ft._launch(per[s_], cfg, blocks=g)
+        assert all(torch.equal(a[s_], b) for a, b in zip(out, alone)), s_
+    _assert_matches_twin(per[0], cfg, tuple(t[0] for t in out))
 
 
 @pytest.mark.parametrize("case", range(len(K2_EDGE_SHAPES)),
@@ -168,10 +195,10 @@ def test_k2_is_deterministic(cuda, cin, cout, hw, batch):
 
 
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("case", range(len(K3_SHAPES)),
-                         ids=[s[0] for s in K3_SHAPES])
+@pytest.mark.parametrize("case", range(len(K3_STEP_SHAPES)),
+                         ids=[s[0] for s in K3_STEP_SHAPES])
 def test_k3_bit_identical_to_plain(cuda, case, ties):
-    _, c, hw = K3_SHAPES[case]
+    _, c, hw = K3_STEP_SHAPES[case]
     ops = k3_case(c, hw, hw, cuda, ties=ties)
     out, idx = cf.block_tail(*ops)
     out_p, idx_p = cf.block_tail_plain(*ops)

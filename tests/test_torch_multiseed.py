@@ -214,11 +214,6 @@ def test_multiseed_refusals(env):
     with pytest.raises(NotImplementedError, match="save_preds_0"):
         few_shot_finetune_multiseed(bbs, heads, [{}, {}], opts, [None] * 2,
                                     [None] * 2, device="cpu")
-    for o in opts:
-        o.save_preds_0, o.dataset = False, "tieredImageNet"
-    with pytest.raises(NotImplementedError, match="tieredImageNet"):
-        few_shot_finetune_multiseed(bbs, heads, [{}, {}], opts, [None] * 2,
-                                    [None] * 2, device="cpu")
 
 
 def _fake_result(seed):

@@ -1,9 +1,13 @@
 """The port's pretraining CLI
-(``python -m subspace_reg_tpu_torch.train_supervised``) for one epoch on the
-CPU, on synthetic category-split miniImageNet (64 classes x 4 images,
-16 px): the reference's printed lines, a saved ``.pth`` that the JAX
-package's importer and the port's loader read, the metric log, and the
-refusal of what is not ported."""
+(``python -m subspace_reg_tpu_torch.train_supervised``) on the CPU, on
+synthetic category-split miniImageNet (64 classes x 4 images, 16 px): the
+reference's printed lines, a saved ``.ckpt`` that the JAX package's loader
+and the port's read, the metric log, ``--reload_path`` (1 epoch, then a
+resumed second, equals 2 epochs straight: atol 1e-6, as
+tests/test_train_cli.py holds the JAX CLI; resuming across the packages is
+``slow``), the other datasets (CIFAR-FS per-partition pickles at 32 px;
+tieredImageNet with ``train_b`` pooled), and the refusal of what is not
+ported."""
 
 import json
 import os
@@ -12,10 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from subspace_reg_tpu.utils.torch_import import import_checkpoint
+from subspace_reg_tpu.utils.checkpoint import load_checkpoint as jax_load
 from subspace_reg_tpu_torch import train_supervised
 from subspace_reg_tpu_torch.data import synthetic
-from subspace_reg_tpu_torch.weights import load_checkpoint
+from subspace_reg_tpu_torch.utils.checkpoint import load_checkpoint
+from subspace_reg_tpu_torch.weights import from_jax_variables
 
 
 @pytest.fixture(scope="module")
@@ -43,15 +48,20 @@ def test_one_epoch_prints_saves_and_logs(root, capsys):
     for i in range(4):                  # 256 images / batch 64
         assert f"Epoch: [1][{i}/4]\tLoss " in out
     assert "Acc@1" in out and " * Val Acc@1 " in out
-    assert "==> Saved resnet18_last.pth" in out
+    assert "==> Saved resnet18_last.ckpt" in out
     assert state.step == 4
-    path = os.path.join(root, "save", "resnet18_last.pth")
-    _, head, meta = import_checkpoint(path, device=False)
+    path = os.path.join(root, "save", "resnet18_last.ckpt")
+    jvars, head, meta = jax_load(path, device=False)
     assert meta["epoch"] == 1 and int(head.n_active) == 64
-    sd, head_t, _ = load_checkpoint(path)
+    assert int(meta["extra"]["step"]) == 4
+    variables, head_t, meta_t = load_checkpoint(path)
     assert tuple(head_t.weight.shape) == (64, 640) and head_t.bias is None
+    np.testing.assert_array_equal(head_t.weight, np.asarray(head.weight))
+    sd = from_jax_variables(variables)
     assert all(torch.isfinite(v).all() for v in sd.values()
                if v.is_floating_point())
+    assert torch.equal(sd["layer4.1.conv3.weight"],
+                       state.backbone.state_dict()["layer4.1.conv3.weight"])
     with open(os.path.join(root, "tb", "miniImageNet_resnet18_classifier_"
                                        "linear", "metrics.jsonl")) as f:
         names = {json.loads(line)["name"] for line in f}
@@ -61,9 +71,7 @@ def test_one_epoch_prints_saves_and_logs(root, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--reload_path", "x.pth"], "reload_path"),
     (["--distill", "kd"], "distill"),
-    (["--dataset", "CIFAR-FS"], "CIFAR-FS"),
 ])
 def test_unported_options_are_refused(root, extra, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -98,3 +106,94 @@ def test_split_above_the_device_data_limit_is_refused(root, monkeypatch):
     monkeypatch.setenv("DEVICE_DATA_MAX_BYTES", "1")
     with pytest.raises(NotImplementedError, match="host-streamed"):
         train_supervised.main(_argv(root))
+
+
+def _final(state):
+    out = {k: v.detach().clone() for k, v in
+           state.backbone.state_dict().items()}
+    out.update({f"head.{k}": v.detach().clone()
+                for k, v in state.head.items()})
+    return out
+
+
+def _assert_same_run(a, b, atol=1e-6):
+    assert a.keys() == b.keys()
+    for k in a:
+        torch.testing.assert_close(b[k], a[k], rtol=0, atol=atol, msg=k)
+
+
+def test_resume_reproduces_the_uninterrupted_run(root, capsys):
+    """2 epochs straight against 1 epoch, then ``--reload_path`` from its
+    ``resnet18_last.ckpt`` for the second: the same steps, weights,
+    statistics, counters and momentum (the shuffle of the skipped epoch
+    consumed, the per-step draws keyed by the restored step)."""
+    def run(save, epochs, *extra):
+        return train_supervised.main(_argv(root, "--model_path",
+                                           os.path.join(root, save),
+                                           "--epochs", str(epochs), *extra))
+    straight = run("straight", 2)
+    run("first", 1)
+    resumed = run("resumed", 2, "--reload_path",
+                  os.path.join(root, "first", "resnet18_last.ckpt"))
+    assert "==> resumed from" in capsys.readouterr().out
+    assert resumed.step == straight.step == 8
+    _assert_same_run(_final(straight), _final(resumed))
+    for p, q in zip(straight.optimizer.param_groups[0]["params"],
+                    resumed.optimizer.param_groups[0]["params"]):
+        torch.testing.assert_close(
+            resumed.optimizer.state[q]["momentum_buffer"],
+            straight.optimizer.state[p]["momentum_buffer"], rtol=0,
+            atol=1e-6)
+
+
+def test_cifar_fs_per_partition_pretraining(tmp_path):
+    """CIFAR-FS without --continual: the per-partition pickles (sparse
+    labels remapped), transform D at 32 px, resnet12 with DropBlock 2."""
+    synthetic.make_cifar(str(tmp_path / "data" / "CIFAR-FS"), n_classes=12,
+                         per_class=8, sparse_labels=True)
+    argv = _argv(str(tmp_path), "--dataset", "CIFAR-FS", "--model",
+                 "resnet12", "--batch_size", "16", "--epochs", "1")
+    state = train_supervised.main(argv)
+    assert state.step == 2 and tuple(state.head["w"].shape) == (4, 640)
+    _, head, meta = load_checkpoint(str(tmp_path / "save" /
+                                        "resnet12_last.ckpt"))
+    assert meta["epoch"] == 1 and head.n_active == 4
+
+
+def test_tiered_pretraining_pools_train_b(tmp_path, capsys):
+    """tieredImageNet with --augment_pretrain_wtrainb: train_a and train_b
+    pooled, the 351-class head, validation over the first 200 logits."""
+    synthetic.make_tiered(str(tmp_path / "data" / "tieredImageNet"),
+                          n_classes=8, per_class=4, img_size=16)
+    argv = _argv(str(tmp_path), "--dataset", "tieredImageNet",
+                 "--augment_pretrain_wtrainb", "--batch_size", "16")
+    state = train_supervised.main(argv)
+    assert state.step == 3                      # (32 + 16) images / 16
+    assert tuple(state.head["w"].shape) == (351, 640)
+    assert "==> Saved resnet18_last.ckpt" in capsys.readouterr().out
+
+
+@pytest.mark.slow
+def test_resume_across_the_packages(root, tmp_path):
+    """A JAX-CLI ``.ckpt`` resumes in the port's CLI, and a port ``.ckpt``
+    in the JAX CLI: each resumed run starts at the saved epoch and step
+    and takes the second epoch's steps (the two packages' f32 steps
+    differ at rounding, so the weights are not compared)."""
+    import train_supervised as jax_cli
+    base = ["--model", "resnet18", "--no_dropblock", "--no_linear_bias",
+            "--classifier", "linear", "--data_root",
+            os.path.join(root, "data"), "--tb_path", str(tmp_path / "tb"),
+            "--batch_size", "64", "--print_freq", "1", "--set_seed", "1"]
+    jax_cli.main(base + ["--model_path", str(tmp_path / "jax1"),
+                         "--epochs", "1"])
+    state = train_supervised.main(base + [
+        "--model_path", str(tmp_path / "port2"), "--epochs", "2",
+        "--device", "cpu", "--reload_path",
+        str(tmp_path / "jax1" / "resnet18_last.ckpt")])
+    assert state.step == 8
+    train_supervised.main(base + ["--model_path", str(tmp_path / "port1"),
+                                  "--epochs", "1", "--device", "cpu"])
+    js = jax_cli.main(base + [
+        "--model_path", str(tmp_path / "jax2"), "--epochs", "2",
+        "--reload_path", str(tmp_path / "port1" / "resnet18_last.ckpt")])
+    assert int(js.step) == 8

@@ -87,8 +87,3 @@ def test_pth_loads_to_the_same_features_in_both(jax_model, tmp_path):
                                jnp.asarray(x), train=False))
     got = model.eval()(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
     np.testing.assert_allclose(got.detach().numpy(), ref, atol=1e-4, rtol=0)
-
-
-def test_jax_ckpt_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_checkpoint(str(tmp_path / "resnet18_last.ckpt"))
