@@ -71,7 +71,10 @@ Phases; any failure raises and the script exits non-zero:
               the golden flags for 5 seeds at full width (84 px, 560
               synthetic images a class, a seeded ``.pth`` per seed) beside
               one single-seed run, with the launch counters: K1 8 launches
-              of 5 seeds each; then 3 seeds at the small size through the
+              of 5 seeds each, one prediction dump a seed
+              (``--save_preds_0``; the checkpoints' ``training_classes``
+              from the split, every row mapped to an original label);
+              then 3 seeds at the small size through the
               multi-seed engine against single-seed runs, all on the card:
               equal epochs.
   12. resume  ``python -m subspace_reg_tpu_torch.train_supervised`` on
@@ -88,6 +91,23 @@ Phases; any failure raises and the script exits non-zero:
               continual (resnet12, 32 px), each from a seeded ``.ckpt``;
               K1 once per session; then the card-against-CPU epoch check
               of phase 4 on both at small width.
+  14. modes   the evaluation's other modes: card against CPU at phase
+              4's small width for ``--track_weights`` (epochs exact,
+              accuracies within 0.5, the CSV's weights within 1e-4) and
+              ``--freeze_backbone_at 3`` with memory and dropout on
+              (epochs exact; two deterministic card runs bit-identical;
+              every session from one state on both devices: accuracies
+              within 0.5, the backbone within ``FREEZE_SHARE`` of the
+              session's update); phase 5's golden run
+              with ``--save_preds_0`` (epochs and accuracies equal phase
+              5's, K1 8 launches, 8 x (125 + 1000) dump rows); the general
+              freeze at full width (``--freeze_backbone_at 3``, epochs cut
+              to 100: losses finite, the backbone trained by session 0,
+              seconds per session, ms per backbone epoch); the tracked
+              path (3 sessions of at most 20 epochs) against the K1 run of
+              the same flags (ms per tracked epoch, CSV bytes); the vis
+              frames (PNG headers) and ``make_predict_fn`` on the base
+              batch's 1000 images (labels equal the engine's argmax, ms).
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -110,6 +130,7 @@ prints the kernels line (launches null) and no ok line.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -1063,7 +1084,7 @@ def small_data(tmp):
     return root
 
 
-def small_model(seed: int = 1, n_base: int = 60):
+def small_model(seed: int = 1, n_base: int = 60, drop_rate: float = 0.0):
     """A narrow backbone and its head over ``n_base`` classes (room for 8
     sessions of 5), drawn from ``seed``; the last stage is 80 wide, or 96
     above 60 base classes, so the subspace pull is not vacuous."""
@@ -1071,7 +1092,7 @@ def small_model(seed: int = 1, n_base: int = 60):
     from subspace_reg_tpu_torch.models.resnet import ResNetRFS
     widths = SMALL_WIDTHS[:3] + (max(SMALL_WIDTHS[-1], n_base + 16),)
     torch.manual_seed(seed)
-    backbone = ResNetRFS(n_blocks=(1, 1, 1, 1), drop_rate=0.0,
+    backbone = ResNetRFS(n_blocks=(1, 1, 1, 1), drop_rate=drop_rate,
                          no_dropblock=True, widths=widths)
     head = init_head(n_base, widths[-1], with_bias=False,
                      max_classes=n_base + 8 * 5,
@@ -1178,7 +1199,8 @@ def phase_main(tmp, counters):
         if config == "subspace":
             out_launches = launches
             run = (root, opt, backbone, head)
-    return out_launches, run
+            golden = dict(res=res, wall=wall)
+    return out_launches, run, golden
 
 
 MULTI_SEEDS = (1, 2, 3, 4, 5)
@@ -1211,6 +1233,16 @@ def write_continual_mini(root: str, per_class: int = 560, img: int = 84,
             f.write(f"{cat} synthetic_{lbl}\n")
 
 
+def training_classes(data_root: str, seed: int):
+    """Original label -> row of seed ``seed``'s continual base classes,
+    as the split draws them: the ``training_classes`` that pretraining on
+    them writes."""
+    from subspace_reg_tpu_torch.data.mini_imagenet import load_mini_imagenet
+    opt = _golden_opt(data_root, "--set_seed", str(seed))
+    return load_mini_imagenet(opt, split="train", phase="test",
+                              lazy=True).basec_map
+
+
 def _quiet(fn):
     """(fn(), wall seconds up to a synchronise, what it printed)."""
     buf, old = io.StringIO(), sys.stdout
@@ -1231,7 +1263,8 @@ def phase_multiseed(tmp, counters, small_root):
     memory flags for 5 seeds at full resnet18 width (84 px, each seed its
     own seeded ``.pth``), beside one single-seed run in the same call; the
     launch counters set to 0 just before each run and read just after (K1
-    8 launches of 5 seeds each; one launch a session).  Then at the small
+    8 launches of 5 seeds each; one launch a session); the multi-seed run
+    with ``--save_preds_0`` writes one dump per seed.  Then at the small
     size, 3 seeds through the multi-seed engine on the card against
     single-seed runs on the card: epochs exact, accuracies within 0.5."""
     import math as _math
@@ -1253,8 +1286,8 @@ def phase_multiseed(tmp, counters, small_root):
         sd = create_model("resnet18", O()).state_dict()
         sd["classifier.weight"] = torch.empty(60, 640).uniform_(-k, k)
         os.makedirs(f"{root}/seed_{seed}")
-        torch.save({"model": sd, "training_classes": {
-            i: i for i in range(60)}}, f"{root}/seed_{seed}/resnet18_last.pth")
+        torch.save({"model": sd, "training_classes": training_classes(
+            root, seed)}, f"{root}/seed_{seed}/resnet18_last.pth")
     print(f"[multiseed] set-up (84 px synthetic set, 560 images a class; "
           f"{len(MULTI_SEEDS)} seeded checkpoints) {time.time() - t0:.1f} s")
     argv = list(GOLDEN_ARGV)
@@ -1275,8 +1308,17 @@ def phase_multiseed(tmp, counters, small_root):
 
     one, wall1, l1 = counted(lambda: run_seeds.main(["--seeds", "1",
                                                      *common]))
-    many, wall, launches = counted(lambda: run_seeds.main(
-        ["--vmap", "--seeds", *map(str, MULTI_SEEDS), *common]))
+    # with one prediction dump per seed, written in the working directory
+    with in_dir(f"{tmp}/multi_preds") as d:
+        many, wall, launches = counted(lambda: run_seeds.main(
+            ["--vmap", "--seeds", *map(str, MULTI_SEEDS), *common,
+             "--save_preds_0"]))
+        dumps, unmapped = {}, {}
+        for f in sorted(os.listdir(f"{d}/csv_files_mem")):
+            rows = read_rows(f"{d}/csv_files_mem/{f}")[1]
+            dumps[f] = len(rows)
+            # rows whose labels found no original label (-1)
+            unmapped[f] = sum("-1" in r[3:5] for r in rows)
     n = len(MULTI_SEEDS)
     print(f"[multiseed] single seed: {wall1:.2f} s, launches {l1}, epochs "
           f"{one['epochs'][0]}")
@@ -1296,6 +1338,18 @@ def phase_multiseed(tmp, counters, small_root):
           "seed 1's epochs differ between the multi- and single-seed runs")
     check(all(np.isfinite(many[k]["mean"]) and np.isfinite(many[k]["ci95"])
               for k in ("novel", "base")), "aggregates not finite")
+    print(f"[multiseed] --save_preds_0: rows of each seed's dump {dumps}; "
+          f"rows without an original label {unmapped}")
+    # 125 session-0 queries and the base batch a session; the CLI's
+    # continual split leaves 560 - 500 - 50 = 10 test images a base class,
+    # 600 of the 1000 the base batch may take
+    check(sorted(dumps) == sorted(
+        f"seed_{s}_miniImageNet_5_1.0_distance2subspace_continual_True_mem_1"
+        "_predictions.csv" for s in MULTI_SEEDS)
+        and set(dumps.values()) == {N_SESSIONS * (125 + 60 * 10)},
+        f"multi-seed prediction dumps {dumps}")
+    check(set(unmapped.values()) == {0}, "multi-seed prediction dumps: rows "
+          f"without an original label {unmapped}")
 
     seeds = (3, 4, 5)
     opts = [_golden_opt(small_root, *SMALL_ARGS, "--set_seed", str(s))
@@ -1962,6 +2016,524 @@ def phase_datasets(tmp, counters):
     return out
 
 
+# --------------------------------------------------------------------------
+# the engine's other modes and the predict API
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def in_dir(path: str):
+    """Run the body in ``path`` (made if missing): the engines write their
+    CSVs into the working directory, as the JAX engine does."""
+    import os
+    os.makedirs(path, exist_ok=True)
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(old)
+
+
+def read_rows(path: str):
+    import csv
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def _launches(counters):
+    return {c.__name__: c.launches for c in counters}
+
+
+def _reset(counters):
+    for c in counters:
+        c.launches = 0
+
+
+# the general freeze, card against CPU, each session from one state on
+# both devices: the backbone within FREEZE_SHARE of each tensor's largest
+# update in the session, the running statistics within FREEZE_STATS
+# (relative).  The card read at most 0.285% and 1.9e-5 in 8 sessions.
+FREEZE_SHARE = 0.01
+FREEZE_STATS = 1e-4
+
+
+def _host_draws(set_seed: int):
+    """``TorchDraws`` whose dropout uniforms are drawn on the CPU and moved
+    to the forward's device, so that a card run and a CPU run drop the same
+    units (a CUDA generator draws other numbers than a CPU one)."""
+    from subspace_reg_tpu_torch.engine.draws import TorchDraws, dropout_seed
+
+    def uniforms(seed):
+        g = torch.Generator().manual_seed(seed)
+        return lambda shape, device: torch.rand(shape, generator=g).to(
+            device)
+
+    class HostDraws(TorchDraws):
+        def dropout(self, idx):
+            return uniforms(dropout_seed(self.set_seed, idx))
+
+        def dropout_full(self, idx):
+            seed = dropout_seed(self.set_seed, idx)
+            return uniforms(seed), uniforms(seed)
+
+    return HostDraws(set_seed, "cpu")
+
+
+def _freeze_run(opt, backbone, head, dev):
+    """The general-freeze engine's sessions on ``dev``, driven as the
+    entry point drives them: (result, the backbone's state after each
+    session, on the host)."""
+    from subspace_reg_tpu_torch.engine.incremental import SeedRun
+    run = SeedRun(backbone, head, {}, opt, **_engine_inputs(opt),
+                  base_split_for_vocab=None, dev=torch.device(dev),
+                  draws=_host_draws(opt.set_seed), prt=lambda *a, **k: None)
+    states = []
+    for idx in range(run.geo.max_sessions):
+        run.run_session(idx)
+        states.append({k: v.detach().cpu().clone() for k, v in
+                       run.program.backbone.state_dict().items()})
+    return run.result(), states
+
+
+def _host_state(module):
+    return {k: v.detach().cpu().clone() for k, v in
+            module.state_dict().items()}
+
+
+def _freeze_lockstep(opt, backbone, head):
+    """The general freeze on the card and the CPU in lockstep: before each
+    session the card run takes the CPU run's carried state (the trained
+    backbone and the head), so that both devices start every session from
+    one state and no difference compounds.  Per session: the card's
+    backbone share and running-statistics difference (``_session_share``)
+    and its novel and weighted-average gaps to the CPU's."""
+    from subspace_reg_tpu_torch.engine.incremental import SeedRun
+    card, cpu = (SeedRun(backbone, head, {}, opt, **_engine_inputs(opt),
+                         base_split_for_vocab=None, dev=torch.device(dev),
+                         draws=_host_draws(opt.set_seed),
+                         prt=lambda *a, **k: None)
+                 for dev in ("cuda", "cpu"))
+    params = dict(backbone.named_parameters())
+    rows = []
+    for idx in range(cpu.geo.max_sessions):
+        before = _host_state(cpu.program.backbone)
+        if idx:
+            card.program.backbone.load_state_dict(before)
+            card.head_w = cpu.head_w.to(card.dev, copy=True)
+            if cpu.head_b is not None:
+                card.head_b = cpu.head_b.to(card.dev, copy=True)
+        card.run_session(idx)
+        cpu.run_session(idx)
+        share, stats = _session_share(_host_state(card.program.backbone),
+                                      _host_state(cpu.program.backbone),
+                                      before, params)
+        rows.append(dict(
+            share=share, stats=stats,
+            novel=abs(card.acc_novel_list[-1] - cpu.acc_novel_list[-1]),
+            weighted=abs(card.weighted_avg_l[-1] - cpu.weighted_avg_l[-1]),
+            epochs=(card.epochs_l[-1], cpu.epochs_l[-1])))
+    return rows
+
+
+def _session_share(got, want, before, params):
+    """The largest |got - want| over the backbone's parameters, as a share
+    of each tensor's largest update |want - before| in the session, and
+    the largest relative difference of the running statistics."""
+    share = stats = 0.0
+    for k, v in want.items():
+        if k in params:
+            step = max(float((v - before[k]).abs().max()), 1e-12)
+            share = max(share, float((got[k] - v).abs().max()) / step)
+        elif v.is_floating_point():
+            stats = max(stats, float(((got[k] - v).abs()
+                                      / (v.abs() + 1e-3)).max()))
+        else:
+            check(torch.equal(got[k], v), f"freeze: counter {k} differs")
+    return share, stats
+
+
+def modes_agree(tmp, small_root):
+    """Phase 4's small width, card against CPU.  The tracked path
+    (``--track_weights``): epoch counts exact, accuracies within 0.5, the
+    tracking CSV's keys equal and its weights within 1e-4.  The general
+    freeze (``--freeze_backbone_at 3``, memory on, dropout 0.1 drawn on
+    the host for both devices), run free twice on the card with cuDNN's
+    default algorithms, twice with ``cudnn.deterministic`` (the two
+    bit-identical), and on the CPU with all its threads and with one:
+    epoch counts exact; the accuracy gaps and each session's backbone
+    share are printed (a difference compounds across sessions, on the CPU
+    between thread counts as on the card).  Then in lockstep
+    (``_freeze_lockstep``), every session from one state on both devices:
+    epochs exact, accuracies within 0.5, the backbone within
+    ``FREEZE_SHARE`` of the session's update and the running statistics
+    within ``FREEZE_STATS``."""
+    import os
+    backbone, head = small_model()
+    opt = _golden_opt(small_root, *SMALL_ARGS, "--set_seed", "3",
+                      "--track_weights")
+    res, csvs = {}, {}
+    for dev in ("cuda", "cpu"):
+        with in_dir(f"{tmp}/modes_tracked_{dev}") as d:
+            res[dev] = _run_engine(small_root, opt, backbone, head, dev,
+                                   draws=_host_draws(opt.set_seed),
+                                   verbose=False)
+            csvs[dev] = {f: read_rows(os.path.join(d, f))
+                         for f in os.listdir(d)}
+    g, c = res["cuda"], res["cpu"]
+    print(f"[modes] agree tracked: epochs card {g.epochs_per_session} cpu "
+          f"{c.epochs_per_session}; novel card {g.acc_novel_list} cpu "
+          f"{c.acc_novel_list}")
+    check(g.epochs_per_session == c.epochs_per_session,
+          "tracked: epochs differ between card and CPU")
+    for n in ("acc_novel_list", "acc_base_list", "weighted_avg_l"):
+        a, b = np.asarray(getattr(g, n)), np.asarray(getattr(c, n))
+        check(np.all(np.abs(a - b) <= 0.5),
+              f"tracked: {n} differs between card and CPU: {a} vs {b}")
+    check(len(csvs["cuda"]) == 1 and set(csvs["cuda"]) == set(csvs["cpu"]),
+          f"tracked: CSVs {set(csvs['cuda'])} vs {set(csvs['cpu'])}")
+    (f, (head_g, rows_g)), = csvs["cuda"].items()
+    head_c, rows_c = csvs["cpu"][f]
+    check(head_g == head_c and [r[:5] for r in rows_g]
+          == [r[:5] for r in rows_c], "tracked: the CSV's keys differ")
+    worst = max(float(np.abs(np.array(rg[5].split(), np.float64)
+                             - np.array(rc[5].split(), np.float64)).max())
+                for rg, rc in zip(rows_g, rows_c))
+    print(f"[modes] agree tracked: {len(rows_g)} CSV rows, max |dW| card "
+          f"vs CPU {worst:.3g}")
+    check(worst <= 1e-4, f"tracked: weights differ by {worst}")
+
+    backbone, head = small_model(drop_rate=0.1)
+    opt = _golden_opt(small_root, *SMALL_ARGS, "--set_seed", "3",
+                      "--freeze_backbone_at", "3")
+    cudnn = torch.backends.cudnn
+    pinned = (cudnn.deterministic, cudnn.benchmark, torch.get_num_threads())
+    runs = {}
+    try:
+        for name, det, dev, threads in (
+                ("card", False, "cuda", None),
+                ("card again", False, "cuda", None),
+                ("card det", True, "cuda", None),
+                ("card det again", True, "cuda", None),
+                ("cpu", False, "cpu", None),
+                ("cpu 1 thread", False, "cpu", 1)):
+            cudnn.deterministic, cudnn.benchmark = det, False
+            torch.set_num_threads(threads or pinned[2])
+            runs[name] = _freeze_run(opt, backbone, head, dev)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = pinned[:2]
+        torch.set_num_threads(pinned[2])
+    names = ("acc_novel_list", "acc_base_list", "weighted_avg_l")
+
+    def gaps(a, b, n):
+        x, y = getattr(runs[a][0], n), getattr(runs[b][0], n)
+        return [round(abs(u - v), 2) for u, v in zip(x, y)]
+
+    for name, (r, _) in runs.items():
+        print(f"[modes] agree freeze, {name}: epochs "
+              f"{r.epochs_per_session}; novel {r.acc_novel_list}; "
+              f"weighted {r.weighted_avg_l}")
+    for a, b in (("card", "card again"), ("card det", "card det again"),
+                 ("card", "cpu"), ("card det", "cpu"),
+                 ("cpu", "cpu 1 thread")):
+        print(f"[modes] agree freeze, {a} vs {b}: gaps novel "
+              f"{gaps(a, b, names[0])} weighted {gaps(a, b, names[2])}")
+    cpu, cpu_states = runs["cpu"]
+    start = _host_state(backbone)
+    params = dict(backbone.named_parameters())
+    for name in ("card", "card det", "cpu 1 thread"):
+        shares = [_session_share(st, cpu_states[i], start if i == 0 else
+                                 cpu_states[i - 1], params)[0]
+                  for i, st in enumerate(runs[name][1])]
+        print(f"[modes] agree freeze, {name} vs cpu: backbone within "
+              f"{[round(100 * x, 3) for x in shares]}% of each session's "
+              "update")
+    (det, det_states), (again, again_states) = (runs["card det"],
+                                                runs["card det again"])
+    check(all(getattr(det, n) == getattr(again, n) for n in names)
+          and all(torch.equal(x[k], y[k]) for x, y in
+                  zip(det_states, again_states) for k in x),
+          "freeze: two deterministic card runs differ")
+    for name in ("card", "card det"):
+        check(runs[name][0].epochs_per_session == cpu.epochs_per_session,
+              f"freeze: {name}'s epochs differ from the CPU's")
+
+    rows = _freeze_lockstep(opt, backbone, head)
+    for idx, r in enumerate(rows):
+        print(f"[modes] agree freeze, lockstep session {idx}: epochs "
+              f"{r['epochs']}; backbone within {100 * r['share']:.3f}% of "
+              f"the session's update; running statistics within "
+              f"{r['stats']:.2e} (relative); gaps novel {r['novel']:.2f} "
+              f"weighted {r['weighted']:.2f}")
+    for idx, r in enumerate(rows):
+        check(r["epochs"][0] == r["epochs"][1],
+              f"freeze, lockstep session {idx}: epochs {r['epochs']}")
+        check(r["share"] <= FREEZE_SHARE, f"freeze, lockstep session {idx}: "
+              f"the backbone differs by {100 * r['share']:.3f}% of its "
+              "update")
+        check(r["stats"] <= FREEZE_STATS, f"freeze, lockstep session {idx}: "
+              f"running statistics differ by {r['stats']:.2e}")
+        check(r["novel"] <= 0.5 and r["weighted"] <= 0.5,
+              f"freeze, lockstep session {idx}: accuracy gaps {r}")
+    return dict(freeze_agree_gaps=gaps("card det", "cpu", names[0]),
+                freeze_lockstep=rows)
+
+
+def modes_save_preds(tmp, counters, run, golden):
+    """Phase 5's golden run again with ``--save_preds_0``: the same epochs
+    and accuracies (the mode adds bookkeeping only), K1 once a session,
+    and the dump's 8 x (session-0 queries + base batch) rows."""
+    import os
+    root, _, backbone, head = run
+    opt = _golden_opt(root, "--save_preds_0")
+    _reset(counters)
+    with in_dir(f"{tmp}/modes_preds") as d:
+        res, wall, _ = _quiet(lambda: _run_engine(root, opt, backbone, head,
+                                                  "cuda", verbose=False))
+        launches = _launches(counters)
+        files = os.listdir(f"{d}/csv_files_mem")
+        header, rows = read_rows(f"{d}/csv_files_mem/{files[0]}")
+    ref = golden["res"]
+    want_rows = N_SESSIONS * (opt.n_ways * opt.n_queries
+                              + opt.test_base_batch_size // 2)
+    print(f"[modes] save_preds: 8-session run {wall:.2f} s (phase 5 "
+          f"{golden['wall']:.2f} s); launches {launches}; {files[0]}: "
+          f"{len(rows)} rows")
+    check(launches["finetune_loop"] == N_SESSIONS,
+          f"save_preds: K1 launched {launches['finetune_loop']} times")
+    check(res.epochs_per_session == ref.epochs_per_session
+          and res.acc_novel_list == ref.acc_novel_list
+          and res.acc_base_list == ref.acc_base_list,
+          "save_preds: the run differs from phase 5's")
+    check(len(files) == 1 and len(rows) == want_rows and header == [
+        "Episode", "Gold", "Prediction", "Original_Gold",
+        "Original_Prediction"], f"save_preds: {files}, {len(rows)} rows")
+    return dict(save_preds_s=wall, save_preds_launches=launches[
+        "finetune_loop"])
+
+
+def modes_freeze(tmp, counters, run):
+    """The golden flags with ``--freeze_backbone_at 3`` at full width, 8
+    sessions, ``--max_novel_epochs`` cut to 100: every session's printed
+    loss finite, the backbone trained by session 0, seconds per session
+    and ms per backbone epoch (epoch 1 in train mode, epoch 2 in eval mode,
+    each a forward and backward of the whole backbone)."""
+    from subspace_reg_tpu_torch.engine.incremental import SeedRun
+    root, _, backbone, head = run
+    opt = _golden_opt(root, "--freeze_backbone_at", "3",
+                      "--max_novel_epochs", "100", "--verbose")
+    lines = []
+    seed_run = SeedRun(backbone, head, {}, opt, **_engine_inputs(opt),
+                       base_split_for_vocab=None, dev=torch.device("cuda"),
+                       draws=None, prt=lambda *a, **k: lines.append(
+                           " ".join(str(x) for x in a)))
+    prog = seed_run.program
+    epoch_s = []
+
+    def clocked(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    prog.prepare_full = clocked(prog.prepare_full)
+    prog.full_epoch = clocked(prog.full_epoch)
+    _reset(counters)
+    secs = []
+    for idx in range(seed_run.geo.max_sessions):
+        t0 = time.time()
+        seed_run.run_session(idx)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+        if idx == 0:
+            moved = sum(not torch.equal(p.detach().cpu(), q.detach())
+                        for p, q in zip(prog.backbone.parameters(),
+                                        backbone.parameters()))
+            check(moved > 0, "freeze: session 0 left the backbone as loaded")
+    res = seed_run.result()
+    launches = _launches(counters)
+    losses = [float(l.split("Train Loss")[1].split()[0]) for l in lines
+              if l.startswith("Novel Epoch")]
+    print(f"[modes] freeze_backbone_at 3: per-session seconds "
+          f"{[round(x, 3) for x in secs]}; epochs {res.epochs_per_session}; "
+          f"{len(epoch_s)} backbone epochs, {1e3 * np.mean(epoch_s):.2f} ms "
+          f"each ({1e3 * np.mean(epoch_s[0::2]):.2f} train-mode epoch 1, "
+          f"{1e3 * np.mean(epoch_s[1::2]):.2f} eval-mode epoch 2); "
+          f"{moved} parameter tensors moved in session 0; launches "
+          f"{launches}; novel {res.acc_novel_list}")
+    check(len(losses) == sum(e // 10 for e in res.epochs_per_session)
+          and all(np.isfinite(losses)), f"freeze: losses {losses}")
+    check(len(epoch_s) == 2 * N_SESSIONS, "freeze: backbone epochs")
+    check(all(np.all(np.isfinite(getattr(res, n))) for n in (
+        "acc_novel_list", "acc_base_list", "weighted_avg_l")),
+        "freeze: accuracies not finite")
+    # the head epochs are per-epoch steps, as in the JAX package
+    check(launches["finetune_loop"] == 0, f"freeze: launches {launches}")
+    return dict(freeze_session_s=secs, freeze_epoch_ms=1e3 * np.mean(
+        epoch_s))
+
+
+def _three_session_head(head, sessions: int):
+    from subspace_reg_tpu_torch.models.head import Head
+    return Head(weight=head.weight[:60 + 5 * sessions], bias=None,
+                n_active=60)
+
+
+def modes_tracked(tmp, counters, run, k1):
+    """The golden flags with ``--track_weights
+    --track_label_inspired_weights``, cut to 3 sessions of at most 20
+    epochs (at 1000 epochs the CSV would take hundreds of MB), against the
+    untracked K1 run of the same flags: epochs exact, accuracies within
+    0.5 (K1's near-ties, ROADMAP.md section C); ms per tracked epoch beside
+    K1's us per epoch, and the CSVs' bytes."""
+    import os
+    from subspace_reg_tpu_torch.engine import incremental as inc
+    root, _, backbone, head = run
+    head3 = _three_session_head(head, 3)
+    flags = ("--neval_episodes", "3", "--max_novel_epochs", "20")
+    _reset(counters)
+    ref, wall_u, _ = _quiet(lambda: _run_engine(
+        root, _golden_opt(root, *flags), backbone, head3, "cuda",
+        verbose=False))
+    k1_launches = _launches(counters)["finetune_loop"]
+    spent = []
+    orig = inc.SeedRun._live_epochs
+
+    def live(self, st, *a, **k):
+        e0 = st.epoch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, st, *a, **k)
+        spent.append((time.perf_counter() - t0, out.epoch - e0))
+        return out
+
+    opt = _golden_opt(root, *flags, "--track_weights",
+                      "--track_label_inspired_weights")
+    _reset(counters)
+    inc.SeedRun._live_epochs = live
+    try:
+        with in_dir(f"{tmp}/modes_tracked") as d:
+            got, wall_t, _ = _quiet(lambda: _run_engine(
+                root, opt, backbone, head3, "cuda", verbose=False))
+            sizes = {f: os.path.getsize(f"{d}/{f}") for f in os.listdir(d)}
+    finally:
+        inc.SeedRun._live_epochs = orig
+    launches = _launches(counters)
+    ms_epoch = 1e3 * sum(s for s, _ in spent) / sum(e for _, e in spent)
+    print(f"[modes] tracked: epochs {got.epochs_per_session} (K1 run "
+          f"{ref.epochs_per_session}); run {wall_t:.2f} s vs {wall_u:.2f} s "
+          f"with K1; {ms_epoch:.3f} ms per tracked epoch (K1, phase 3: "
+          f"{k1['us_per_epoch']:.2f} us/epoch); CSV bytes {sizes}; "
+          f"launches {launches}")
+    check(k1_launches == 3 and launches["finetune_loop"] == 0,
+          f"tracked: K1 launches {k1_launches}, {launches}")
+    check(got.epochs_per_session == ref.epochs_per_session,
+          "tracked: epochs differ from the K1 run")
+    for n in ("acc_novel_list", "acc_base_list", "weighted_avg_l"):
+        a, b = np.asarray(getattr(got, n)), np.asarray(getattr(ref, n))
+        check(np.all(np.abs(a - b) <= 0.5),
+              f"tracked: {n} {a} vs the K1 run's {b}")
+    check(len(sizes) == 2 and all(v > 0 for v in sizes.values()),
+          f"tracked: CSVs {sizes}")
+    return dict(tracked_ms_per_epoch=ms_epoch, tracked_csv_bytes=sizes,
+                tracked_epochs=got.epochs_per_session)
+
+
+def _png_ok(tag: str, size: int) -> bool:
+    """A base64 PNG ``<img>`` tag: the signature, an IHDR of ``size`` x
+    ``size`` 8-bit RGB with its CRC, and an IEND."""
+    import base64
+    import struct
+    import zlib
+    prefix = '<img src="data:image/jpeg;base64,'
+    if not (tag.startswith(prefix) and tag.endswith('">')):
+        return False
+    raw = base64.b64decode(tag[len(prefix):-2])
+    n, kind = struct.unpack(">I4s", raw[8:16])
+    w, h, depth, color = struct.unpack(">IIBB", raw[16:26])
+    crc = struct.unpack(">I", raw[16 + n:20 + n])[0]
+    return (raw[:8] == b"\x89PNG\r\n\x1a\n" and kind == b"IHDR" and n == 13
+            and (w, h, depth, color) == (size, size, 8, 2)
+            and crc == zlib.crc32(raw[12:16 + n]) & 0xFFFFFFFF
+            and raw[-8:-4] == b"IEND")
+
+
+def modes_vis_predict(tmp, run, tracked):
+    """``vis=True``: session 0's frames, one per query and epoch (the
+    tracked run's session 0 has the same epochs), each ``img`` a PNG of the
+    query's size.  Then ``make_predict_fn`` on phase 5's backbone and head
+    over the base batch's uint8 images (1000 at 84 px): labels equal the
+    engine's argmax on the same weights; ms per batch."""
+    import copy
+    from subspace_reg_tpu_torch.data.transforms import (
+        transforms_test_options)
+    from subspace_reg_tpu_torch.engine import incremental as inc
+    from subspace_reg_tpu_torch.engine.predict import make_predict_fn
+    from subspace_reg_tpu_torch.ops.augment import normalize_batch
+    root, _, backbone, head = run
+    opt = _golden_opt(root, "--neval_episodes", "1", "--max_novel_epochs",
+                      "20")
+    t0 = time.time()
+    frames = inc.few_shot_finetune_incremental_test(
+        backbone, _three_session_head(head, 1), {}, opt,
+        **_engine_inputs(opt), verbose=False, device="cuda", vis=True)
+    vis_s = time.time() - t0
+    nq = opt.n_ways * opt.n_queries
+    size = _engine_inputs(opt)["base_test_split"].imgs.shape[1]
+    n = len(frames["img"])
+    print(f"[modes] vis: {n} frames ({n // nq} epochs x {nq} queries) in "
+          f"{vis_s:.2f} s; columns {list(frames)}")
+    check(n == nq * tracked["tracked_epochs"][0]
+          and set(frames["idx"]) == {0}
+          and all(len(v) == n for v in frames.values()),
+          f"vis: {n} frames, session 0 ran {tracked['tracked_epochs'][0]} "
+          "epochs")
+    check(all(_png_ok(t, size) for t in set(frames["img"])),
+          "vis: an img is not a PNG of the query's size")
+
+    base = _engine_inputs(_golden_opt(root))["base_test_split"]
+    imgs = np.ascontiguousarray(base.imgs[:opt.test_base_batch_size // 2])
+    bb = copy.deepcopy(backbone).to("cuda")
+    predict = make_predict_fn(backbone, head)
+    labels, probs = predict(imgs)
+    _, spec = transforms_test_options[opt.transform]
+    x = normalize_batch(torch.from_numpy(imgs).cuda(), spec)
+    with torch.no_grad():
+        want = inc.head_logits({"w": head.weight.cuda()},
+                               bb.eval()(inc._nchw(x)), head.n_active)
+    want = want.argmax(1)
+    dev_imgs = torch.from_numpy(imgs).cuda()
+    ms_dev = cuda_ms(lambda: predict(dev_imgs), 5)
+    ms_host = cuda_ms(lambda: predict(imgs), 5)
+    print(f"[modes] predict: {len(imgs)} images at {size} px: {ms_dev:.2f} "
+          f"ms from device memory, {ms_host:.2f} ms from host memory; labels "
+          f"equal the engine's argmax: {bool(torch.equal(labels, want))}")
+    check(torch.equal(labels, want), "predict: labels differ from the "
+          "engine's argmax")
+    check(torch.allclose(probs.sum(1), torch.ones(len(imgs), device="cuda")),
+          "predict: probabilities do not sum to 1")
+    return dict(predict_ms_per_1000=ms_dev, predict_host_ms_per_1000=ms_host,
+                vis_s=vis_s)
+
+
+def phase_modes(tmp, counters, small_root, run, golden, k1):
+    """Phase 14: the engine's other modes (card against CPU at small
+    width; the prediction dump, the general freeze and the tracked path at
+    full width) and the vis frames and predict API, each part timed."""
+    out = timed("14a modes agree", modes_agree, tmp, small_root)
+    out.update(timed("14b save_preds", modes_save_preds, tmp, counters, run,
+                     golden))
+    out.update(timed("14c freeze", modes_freeze, tmp, counters, run))
+    tracked = timed("14d tracked", modes_tracked, tmp, counters, run, k1)
+    out.update(tracked)
+    out.update(timed("14e vis+predict", modes_vis_predict, tmp, run,
+                     tracked))
+    return out
+
+
 def sass_count(lib: str, opcode: str) -> int:
     """Instructions of ``opcode`` in a built library's SASS, read with the
     toolkit's ``cuobjdump -sass``."""
@@ -2091,10 +2663,11 @@ def main(argv=None) -> int:
         # phase 4: the engine agrees with its CPU run
         small_root = timed("4 agree", phase_agree, tmp)
         # phase 5: the evaluation path, with the launch counters
-        launches, run = timed("5 main", phase_main, tmp, counters)
+        launches, eval_run, golden = timed("5 main", phase_main, tmp,
+                                           counters)
         k1["launches"] = launches["finetune_loop"]
         # phase 6: where the evaluation path's device time goes
-        timed("6 profile", phase_profile, run)
+        timed("6 profile", phase_profile, eval_run)
         # phase 7: the fused pretraining step agrees with the module step
         timed("7 pretrain-agree", phase_pretrain_agree, dev)
         # phase 8: the pretraining path, with the launch counters
@@ -2120,6 +2693,9 @@ def main(argv=None) -> int:
         sets = timed("13 datasets", phase_datasets, tmp, counters)
         k1.update(tiered_launches=sets["tiered_launches"],
                   cifar_launches=sets["cifar_launches"])
+        # phase 14: the engine's other modes and the predict API
+        modes = phase_modes(tmp, counters, small_root, eval_run, golden, k1)
+        k1["save_preds_launches"] = modes["save_preds_launches"]
 
     print_times()
     print(smi)

@@ -8,13 +8,17 @@ formula of ``set_seed`` and the session index (engine/incremental.py):
   * head growth                  ``set_seed*61 + 1000 + idx`` (:1576)
   * dropout / DropBlock          ``set_seed*31 + idx``        (:1633)
 
+The general-freeze path's epoch 1 (``freeze_backbone_at != 1``) hands the
+support and the memory forward the same key (incremental.py:1025-1030),
+where the compiled session splits it in two (:886): ``dropout_full``.
+
 Pretraining draws once per step, from ``fold_in(PRNGKey(set_seed), step)``
 split into an augmentation key and a dropout key (engine/pretrain.py:128).
 
 The port's engines take these from a draw provider.  ``TorchDraws`` seeds a
 ``torch.Generator`` from the same formulas; threefry's bits cannot be
 reproduced, so it matches the JAX draws in distribution only
-(docs/PARITY.md:70-77).  A test can pass any object with the same four
+(docs/PARITY.md:70-77).  A test can pass any object with the same
 methods, e.g. one that returns the numbers ``jax.random`` draws on the same
 keys, and then holds the two engines to exact epoch counts (or, for
 pretraining, to the same augmented batch).  ``dropout`` may return a
@@ -103,6 +107,13 @@ class TorchDraws:
     def dropout(self, idx: int) -> torch.Generator:
         """The generator of session ``idx``'s train-mode forwards."""
         return self._gen(dropout_seed(self.set_seed, idx))
+
+    def dropout_full(self, idx: int) -> Tuple[torch.Generator,
+                                              torch.Generator]:
+        """The general-freeze path's epoch 1: (support, memory) generators
+        seeded alike, so both forwards draw from one key."""
+        return (self._gen(dropout_seed(self.set_seed, idx)),
+                self._gen(dropout_seed(self.set_seed, idx)))
 
     def pretrain_augment(self, step: int, n: int,
                          spec: AugmentSpec) -> AugmentDraws:

@@ -1,9 +1,8 @@
 """Incremental FSCIL engine — counterpart of
-``subspace_reg_tpu/engine/incremental.py`` on its default path
-(``freeze_backbone_at == 1``, no per-epoch tracking), reference
+``subspace_reg_tpu/engine/incremental.py``, reference
 eval/language_eval.py:71-454.
 
-Each session:
+Each session on the default path (``freeze_backbone_at == 1``, untracked):
 
   epoch 1   train-mode backbone forwards of the support set, then of the
             padded replay memory with masked BN statistics (skipped while
@@ -15,7 +14,24 @@ Each session:
             constant for epochs 2..N.
   epochs 2+ K1 (ops/finetune.py): the whole head fine-tune loop in one
             launch on the card, or its plain twin on the CPU.
-  evaluate  per-session novel query chunks and the fixed base batch.
+  evaluate  per-session novel query chunks and the fixed base batch, and
+            the argmax predictions (kept on the device unless
+            ``--save_preds_0`` dumps them).
+
+The other modes, as in the JAX package:
+
+  tracked   ``--track_weights``, ``--track_label_inspired_weights`` or
+            ``vis=True``: epoch 1 and the caches as above, then one
+            host-driven head epoch at a time (autograd gradient of the
+            session loss on the cached features, the same update as K1),
+            one device-to-host pull per epoch for the stop flag and what is
+            recorded (JAX ``_run_tracked``, incremental.py:320-394).
+  general   ``freeze_backbone_at = F != 1``: epoch 1 in train mode and
+  freeze    epochs 2..F-1 in eval mode with gradients to the backbone and
+            the head through one ``torch.optim`` optimizer, then the
+            eval-mode caches and head epochs as on the tracked path; the
+            trained backbone is carried into the next session (JAX
+            ``_run_general_freeze``, incremental.py:397-478).
 
 The host loop keeps the reference's global ``np.random`` stream contract
 (episode sampling reseeds per item; the replay-memory index draw continues
@@ -27,9 +43,6 @@ semantic / mapping attractors, which the host computes per session in
 float64 (models/lang_puller.py) and K1 takes as a target.  The multi-seed
 engine (engine/multiseed.py) drives one ``SeedRun`` per seed around one
 seed-batched K1 launch per session.
-
-Not ported yet (ROADMAP.md queue A): per-epoch tracked / vis mode,
-``freeze_backbone_at != 1``, prediction dumps.
 """
 
 from __future__ import annotations
@@ -50,8 +63,9 @@ from ..models import lang_puller as lp
 from ..ops import augment as aug_ops
 from ..ops import losses
 from ..ops.finetune import LoopConfig, finetune_loop, pack_scalars
+from ..utils import artifacts
 from ..utils.device import resolve_device
-from ..utils.optim import get_optim
+from ..utils.optim import adam_torch, get_optim, sgd_torch
 from .draws import TorchDraws
 
 
@@ -154,6 +168,18 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
 
+@torch.no_grad()
+def _buffers(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Copies of ``module``'s running statistics and block counters."""
+    return {k: b.clone() for k, b in module.named_buffers()}
+
+
+@torch.no_grad()
+def _load_buffers(module: torch.nn.Module, saved) -> None:
+    for k, b in module.named_buffers():
+        b.copy_(saved[k])
+
+
 # --------------------------------------------------------------------------
 # one session
 # --------------------------------------------------------------------------
@@ -200,13 +226,16 @@ class SessionInputs:
     # the semantic / mapping attractors of the session's novel rows
     # (n_ways, feat); None unless the semantic pull is on
     sem_pullers: Optional[torch.Tensor] = None
+    # the orthonormal basis of w0's base rows (feat, orig_base); None
+    # unless the subspace pull is on
+    base_basis: Optional[torch.Tensor] = None
 
 
 @dataclass
 class Prepared:
     """A session up to K1: the head after epoch 1's step with its
-    optimizer state, epoch 1's loss, accuracies and stable count, and the
-    eval-mode feature caches."""
+    optimizer state, epoch 1's loss, accuracies, stable count and stop
+    flag, and the eval-mode feature caches."""
     params: Dict[str, torch.Tensor]
     mom: Dict[str, torch.Tensor]
     nu: Optional[Dict[str, torch.Tensor]]
@@ -214,10 +243,30 @@ class Prepared:
     a1: torch.Tensor
     a5: torch.Tensor
     stable: torch.Tensor
+    stop: torch.Tensor
     f_sup: torch.Tensor
     f_mem: torch.Tensor
     f_query: torch.Tensor
     f_base: torch.Tensor
+
+
+@dataclass
+class EpochState:
+    """A session's fine-tune state between two host-driven epochs (the
+    tracked and general-freeze paths): the head, its optimizer state (SGD
+    momentum or Adam m and v; ``optimizer`` instead while the backbone
+    trains), the last epoch's loss, accuracies, stable count and stop
+    flag, and that epoch's number."""
+    params: Dict[str, torch.Tensor]
+    mom: Optional[Dict[str, torch.Tensor]]
+    nu: Optional[Dict[str, torch.Tensor]]
+    loss: torch.Tensor
+    a1: torch.Tensor
+    a5: torch.Tensor
+    stable: torch.Tensor
+    stop: torch.Tensor
+    epoch: int
+    optimizer: Optional[torch.optim.Optimizer] = None
 
 
 def semantic_pull(opt) -> bool:
@@ -291,7 +340,7 @@ class SessionProgram:
             else:
                 # recomputed from the current weights
                 # (language_eval.py:281-283)
-                target = lp.projected_weight(s.w0[:geo.orig_base], cur)
+                target = lp.project(s.base_basis, cur)
             loss = loss + lp.pull_loss(self.label_pull, target, cur)
         acc1, acc5 = losses.accuracy_topk(logits, s.support_y)
         return loss, acc1.detach(), acc5.detach()
@@ -316,15 +365,142 @@ class SessionProgram:
         feature caches, constant for epochs 2..N."""
         f_sup_tr, f_mem_tr = self.epoch1_forwards(s)
         params, mom, nu, l1, a1, a5 = self.epoch1_step(s, f_sup_tr, f_mem_tr)
-        one = torch.ones((), device=l1.device)
-        stable, _ = stop_update(self.opt, l1, 15.0 * one, 0.0 * one, one)
+        stable, stop = self._stop_epoch1(l1)
+        f_sup, f_mem, f_query, f_base = self.caches(s)
         return Prepared(
             params=params, mom=mom, nu=nu, l1=l1, a1=a1, a5=a5,
-            stable=stable, f_sup=self.features(s.support_x),
-            f_mem=(self.features(s.memory_x) if self.memory_on
-                   else f_mem_tr),
-            f_query=self.features(s.query_x),
-            f_base=self.features(s.base_x))
+            stable=stable, stop=stop, f_sup=f_sup, f_mem=f_mem,
+            f_query=f_query, f_base=f_base)
+
+    def _stop_epoch1(self, l1):
+        one = torch.ones((), device=l1.device)
+        return stop_update(self.opt, l1, 15.0 * one, 0.0 * one, one)
+
+    # -- the tracked path: one host-driven head epoch ----------------------
+    def epoch_state(self, p: Prepared) -> EpochState:
+        return EpochState(params=p.params, mom=p.mom, nu=p.nu, loss=p.l1,
+                          a1=p.a1, a5=p.a5, stable=p.stable, stop=p.stop,
+                          epoch=1)
+
+    def head_epoch(self, s: SessionInputs, f_sup, f_mem,
+                   st: EpochState) -> EpochState:
+        """One epoch of K1's loop on the host's call: the autograd gradient
+        of ``loss_fn`` on the cached features, the same coupled-decay
+        SGD-momentum or Adam update, the stop rule (JAX ``epoch_fn``,
+        incremental.py:943-958).  Nothing leaves the device."""
+        epoch = st.epoch + 1
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in st.params.items()}
+        loss, a1, a5 = self.loss_fn(params, s, f_sup, f_mem)
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        new, mom, nu = self.optim.step(
+            {k: v.detach() for k, v in params.items()},
+            dict(zip(names, grads)), st.mom, st.nu, epoch)
+        loss = loss.detach()
+        stable, stop = stop_update(self.opt, loss, st.loss, st.stable, epoch)
+        return EpochState(params=new, mom=mom, nu=nu, loss=loss, a1=a1,
+                          a5=a5, stable=stable, stop=stop, epoch=epoch)
+
+    # -- the general-freeze path: epochs with the backbone -----------------
+    def full_loss(self, head, s: SessionInputs, train: bool, dropout=None):
+        """The session loss through the backbone (JAX ``_full_loss``,
+        incremental.py:974-1009).  ``train``: train-mode forwards of the
+        support set and the masked memory, each with its dropout source of
+        ``dropout``; the running statistics and counters afterwards are
+        the support forward's, since the memory forward starts from the
+        state before it and its update is discarded.  While the memory is
+        empty its forward is skipped (zero features, a replay CE of 0), as
+        in the compiled session: the JAX path runs it and divides by a
+        zero count.  Otherwise eval-mode forwards (running statistics, no
+        dropout), which advance nothing."""
+        bb = self.backbone.train(train)
+        f_mem = torch.zeros((s.memory_x.shape[0], self.geo.feat_dim),
+                            device=s.memory_x.device)
+        if not train:
+            f_sup = bb(s.support_x)
+            if self.memory_on:
+                f_mem = bb(s.memory_x)
+            return self.loss_fn(head, s, f_sup, f_mem)
+        before = _buffers(bb)
+        f_sup = bb(s.support_x, generator=dropout[0])
+        if self.memory_on and s.memory_count > 0:
+            after = _buffers(bb)
+            _load_buffers(bb, before)
+            f_mem = bb(s.memory_x, sample_mask=self._memory_mask(s),
+                       generator=dropout[1])
+            _load_buffers(bb, after)
+        return self.loss_fn(head, s, f_sup, f_mem)
+
+    def prepare_full(self, s: SessionInputs, dropout) -> EpochState:
+        """Epoch 1 with gradients to the backbone and the head, one step of
+        one ``torch.optim`` optimizer over both (JAX ``prepare_full_fn``,
+        incremental.py:1012-1037).  Trains ``self.backbone`` in place."""
+        head = {"w": s.head_w.clone().requires_grad_(True)}
+        if self.with_bias:
+            head["b"] = s.head_b.clone().requires_grad_(True)
+        hp = self.optim
+        params = list(self.backbone.parameters()) + list(head.values())
+        if hp.adam:
+            optimizer = adam_torch(params, hp.lr, hp.weight_decay, hp.b1,
+                                   hp.b2, hp.eps)
+        else:
+            optimizer = sgd_torch(params, hp.lr, hp.momentum,
+                                  hp.weight_decay)
+        loss, a1, a5 = self._full_step(optimizer, head, s, True, dropout)
+        stable, stop = self._stop_epoch1(loss)
+        return EpochState(params=head, mom=None, nu=None, loss=loss, a1=a1,
+                          a5=a5, stable=stable, stop=stop, epoch=1,
+                          optimizer=optimizer)
+
+    def full_epoch(self, s: SessionInputs, st: EpochState) -> EpochState:
+        """An epoch 2..F-1: eval-mode forwards that carry gradients to every
+        parameter, one optimizer step (JAX ``full_epoch_fn``,
+        incremental.py:1040-1060)."""
+        epoch = st.epoch + 1
+        loss, a1, a5 = self._full_step(st.optimizer, st.params, s, False)
+        stable, stop = stop_update(self.opt, loss, st.loss, st.stable, epoch)
+        return EpochState(params=st.params, mom=None, nu=None, loss=loss,
+                          a1=a1, a5=a5, stable=stable, stop=stop,
+                          epoch=epoch, optimizer=st.optimizer)
+
+    def _full_step(self, optimizer, head, s, train, dropout=None):
+        loss, a1, a5 = self.full_loss(head, s, train, dropout)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), a1, a5
+
+    def freeze(self, st: EpochState) -> EpochState:
+        """The backbone freezes: the head and its surviving optimizer state
+        (JAX ``_subset_opt_state``, incremental.py:1205-1219; the backbone
+        gets no gradient from here on, so torch's optimizer would skip
+        it)."""
+        state = st.optimizer.state
+        params = {k: v.detach() for k, v in st.params.items()}
+        if self.optim.adam:
+            mom = {k: state[v]["exp_avg"] for k, v in st.params.items()}
+            nu = {k: state[v]["exp_avg_sq"] for k, v in st.params.items()}
+        else:
+            # SGD without momentum keeps no buffer: the next step's
+            # "momentum" is then its decayed gradient alone
+            mom = {k: state[v].get("momentum_buffer") for k, v in
+                   st.params.items()}
+            mom = {k: torch.zeros_like(params[k]) if m is None else m
+                   for k, m in mom.items()}
+            nu = None
+        return EpochState(params=params, mom=mom, nu=nu, loss=st.loss,
+                          a1=st.a1, a5=st.a5, stable=st.stable, stop=st.stop,
+                          epoch=st.epoch)
+
+    def caches(self, s: SessionInputs):
+        """Eval-mode features of support, memory, queries and base batch
+        (JAX ``cache_feats_fn``, incremental.py:1063-1068)."""
+        f_mem = (self.features(s.memory_x) if self.memory_on else
+                 torch.zeros((s.memory_x.shape[0], self.geo.feat_dim),
+                             device=s.memory_x.device))
+        return (self.features(s.support_x), f_mem,
+                self.features(s.query_x), self.features(s.base_x))
 
     # -- epochs 2..N -------------------------------------------------------
     def loop_operands(self, s: SessionInputs, p: Prepared):
@@ -364,7 +540,7 @@ class SessionProgram:
                 s.sem_pullers
         elif self.label_pull is not None:
             pull_mode = "subspace"
-            q, _ = torch.linalg.qr(s.w0[:geo.orig_base].T)   # (feat, base)
+            q = s.base_basis                                  # (feat, base)
             pull_op = torch.zeros((d, d), device=dev)
             pull_op[:feat, :feat] = (torch.eye(feat, device=dev)
                                      - q @ q.T)
@@ -408,7 +584,8 @@ class SessionProgram:
     @torch.no_grad()
     def evaluate(self, params, f_query, query_y, f_base, base_y, n_active):
         """Novel query chunks of the sessions so far + the base batch
-        (language_eval.py:18-69)."""
+        (language_eval.py:18-69): (chunk accuracies, base accuracy, query
+        predictions, base predictions)."""
         nq = self.geo.n_query_per_session
         logits_q = head_logits(params, f_query, n_active)
         chunk_accs = torch.stack([
@@ -416,7 +593,8 @@ class SessionProgram:
             for lo in range(0, f_query.shape[0], nq)])
         logits_b = head_logits(params, f_base, n_active)
         base_acc, _ = losses.accuracy_topk(logits_b, base_y)
-        return chunk_accs, base_acc
+        # argmax takes the first of tied rows, as jnp.argmax does
+        return chunk_accs, base_acc, logits_q.argmax(1), logits_b.argmax(1)
 
     def complete(self, s: SessionInputs, p: Prepared, loop_out):
         """The head after K1's ``loop_out`` (w, stats, trace) and the
@@ -427,11 +605,16 @@ class SessionProgram:
         if self.with_bias:
             params["b"] = w_out[:, feat]
         trace[1] = torch.stack([p.l1, p.a1, p.a5])
-        chunk_accs, base_acc = self.evaluate(params, p.f_query, s.query_y,
-                                             p.f_base, s.base_y, s.n_active)
-        metrics = {"chunk_accs": chunk_accs, "base_acc": base_acc,
-                   "epochs": stats[1], "epoch_trace": trace}
+        metrics = self.metrics(params, s, p.f_query, p.f_base, stats[1])
+        metrics["epoch_trace"] = trace
         return params, metrics
+
+    def metrics(self, params, s: SessionInputs, f_query, f_base, epochs):
+        chunk_accs, base_acc, q_preds, b_preds = self.evaluate(
+            params, f_query, s.query_y, f_base, s.base_y, s.n_active)
+        return {"chunk_accs": chunk_accs, "base_acc": base_acc,
+                "epochs": epochs, "query_preds": q_preds,
+                "base_preds": b_preds}
 
     def __call__(self, s: SessionInputs):
         p = self.prepare(s)
@@ -485,6 +668,10 @@ class _Meter:
         return self.sum / max(self.count, 1)
 
 
+# the columns of the vis frames (language_eval.py:81-83)
+VIS_COLUMNS = ("idx", "class", "isbase", "predicted", "img")
+
+
 def _print_epoch_line(prt, epoch, loss, a1, a5):
     """The reference's per-10-epoch fine-tune print
     (language_eval.py:310-315)."""
@@ -494,22 +681,29 @@ def _print_epoch_line(prt, epoch, loss, a1, a5):
         "Acc@5 {:10.3f}".format(epoch, float(loss), float(a1), float(a5)))
 
 
-def _refuse_unported(opt, with_bias: bool):
+def check_options(opt, with_bias: bool, vis: bool = False) -> None:
+    """What the JAX engine refuses too (incremental.py:1313-1331)."""
     if with_bias and opt.lmbd_reg_novel is not None:
         raise NotImplementedError(
             "reference reglossnovel bias branch crashes "
             "(models/resnet_language.py:239)")
-    unported = []
-    if opt.freeze_backbone_at != 1:
-        unported.append("freeze_backbone_at != 1")
-    for flag in ("track_weights", "track_label_inspired_weights",
-                 "save_preds_0"):
-        if getattr(opt, flag, False):
-            unported.append(f"--{flag}")
-    if unported:
+    if vis and opt.freeze_backbone_at != 1:
         raise NotImplementedError(
-            ", ".join(unported) + ": not ported yet (ROADMAP.md queue A); "
-            "the JAX package's eval_incremental.py serves them")
+            "vis frames require the per-epoch tracked engine, which serves "
+            "freeze_backbone_at == 1 only; the general-freeze path records "
+            "tracking CSVs but not vis frames")
+
+
+def _pull(tensors) -> List[np.ndarray]:
+    """``tensors`` on the host in one device-to-host copy, as float32
+    arrays of their shapes (small integers and flags are exact)."""
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
+                      for t in tensors]).cpu().numpy()
+    out, lo = [], 0
+    for t in tensors:
+        out.append(flat[lo:lo + t.numel()].reshape(tuple(t.shape)))
+        lo += t.numel()
+    return out
 
 
 class SeedRun:
@@ -526,7 +720,8 @@ class SeedRun:
     def __init__(self, backbone, head0: head_lib.Head, meta, opt,
                  meta_sampler: EpisodeSampler, base_test_split,
                  base_support_sampler: Optional[EpisodeSampler],
-                 base_split_for_vocab, dev: torch.device, draws, prt):
+                 base_split_for_vocab, dev: torch.device, draws, prt,
+                 vis: bool = False):
         self.opt, self.meta, self.dev, self.prt = opt, meta, dev, prt
         self.meta_sampler = meta_sampler
         self.base_test_split = base_test_split
@@ -552,9 +747,10 @@ class SeedRun:
         min_lbl = min(base_test_split.labels)
         self.base_x = _nchw(aug_ops.normalize_batch(
             self._upload(base_test_split.imgs[:base_eval_n]), test_spec))
-        self.base_y = self._upload(np.asarray(
+        self.base_y_host = np.asarray(
             [l - min_lbl for l in base_test_split.labels[:base_eval_n]],
-            np.int64))
+            np.int64)
+        self.base_y = self._upload(self.base_y_host)
         self.test_spec = test_spec
 
         # fixed base-class exemplars kept in every session's support
@@ -577,6 +773,11 @@ class SeedRun:
                        else None)
         self.n_active = int(head0.n_active)
         self.w0, self.b0 = self.head_w, self.head_b
+        # the subspace pull's basis: w0 stays the session-0 head, so one QR
+        # serves every session and epoch
+        self.base_basis = None
+        if self.program.label_pull is not None and not self.program.semantic:
+            self.base_basis = lp.subspace_basis(self.w0[:geo.orig_base])
         self.reserved = torch.zeros((geo.max_novel, geo.feat_dim),
                                     device=dev)
         self.n_reserved = 0
@@ -589,6 +790,7 @@ class SeedRun:
                                    device=dev)
         self.query_y = torch.zeros((geo.max_queries,), dtype=torch.int64,
                                    device=dev)
+        self.query_y_host = np.zeros((geo.max_queries,), np.int64)
         # the novel split's images live on the device once; episodes are
         # row gathers
         self.novel_imgs = self._upload(meta_sampler.base.imgs)
@@ -602,6 +804,26 @@ class SeedRun:
         self.epochs_l: List[int] = []
         self.secs: List[float] = []
         self.vocab_base = self.vocab_novel = None
+
+        # the tracked path runs the head epochs one at a time for
+        # per-epoch artifacts (incremental.py:1361-1363); it and the
+        # general freeze print each session's header before its epochs
+        # (:1395)
+        self.live = (getattr(opt, "track_weights", False)
+                     or getattr(opt, "track_label_inspired_weights", False)
+                     or vis or opt.freeze_backbone_at != 1)
+        # prediction dumps (language_eval.py:407-438)
+        self.save_preds = bool(getattr(opt, "save_preds_0", False))
+        self.preds_rows = artifacts.new_prediction_rows()
+        self.id2orig: Dict[int, int] = {}
+        self.basec_map_rev = {}
+        if opt.continual and meta.get("training_classes"):
+            self.basec_map_rev = {
+                v: k for k, v in meta["training_classes"].items()}
+        # per-epoch artifacts (language_eval.py:328-349)
+        self.track_weight_rows: List = []
+        self.track_inspired_rows: List = []
+        self.vis_rows = {c: [] for c in VIS_COLUMNS} if vis else None
         # this seed's np.random stream, which the episodes and the replay
         # index draws continue
         self.stream = np.random.get_state()
@@ -639,7 +861,7 @@ class SeedRun:
 
         # vocab bookkeeping (language_eval.py:155-167)
         prev_vocab_base, prev_vocab_novel = self.vocab_base, self.vocab_novel
-        vb, _, vocab_novel, orig2id = get_vocabs(
+        vb, vocab_all, vocab_novel, orig2id = get_vocabs(
             self.base_split_for_vocab or self.base_test_split,
             self.meta_sampler.base, ep.query_y)
         self.vocab_base = (vb if idx == 0
@@ -657,6 +879,7 @@ class SeedRun:
         self.novel_labels = np.sort(np.unique(ep.query_y))
         for k in list(orig2id.keys()):
             orig2id[k] = orig2id[k] + idx * opt.n_ways
+        self.orig2id = orig2id
         query_ys_id = np.asarray([orig2id[int(y)] for y in ep.query_y],
                                  np.int64)
         support_ys_id = np.asarray([orig2id[int(y)] for y in ep.support_y],
@@ -680,6 +903,14 @@ class SeedRun:
         self.query_x[idx * nq:(idx + 1) * nq] = _nchw(
             aug_ops.normalize_batch(qry_u8, self.test_spec))
         self.query_y[idx * nq:(idx + 1) * nq] = self._upload(query_ys_id)
+        self.query_y_host[idx * nq:(idx + 1) * nq] = query_ys_id
+        if self.vis_rows is not None and idx == 0:
+            # the frames show the RAW uint8 queries: the reference hands
+            # image_formatter its normalized tensors, whose max-scale and
+            # uint8 cast wrap them (incremental.py:1558-1562)
+            self.vis_imgs = [artifacts.image_formatter(im)
+                             for im in qry_u8.cpu().numpy()]
+            self.vocab_all = vocab_all
 
         if self.base_sup_x is not None:
             support_x = torch.cat([support_x, self.base_sup_x], 0)
@@ -707,7 +938,8 @@ class SeedRun:
             query_x=self.query_x[:(idx + 1) * nq],
             query_y=self.query_y[:(idx + 1) * nq], base_x=self.base_x,
             base_y=self.base_y, generator=self.draws.dropout(idx),
-            sem_pullers=self._attractors(idx, vocab_novel))
+            sem_pullers=self._attractors(idx, vocab_novel),
+            base_basis=self.base_basis)
 
     def _attractors(self, idx: int, vocab_novel) -> Optional[torch.Tensor]:
         """The semantic / mapping attractors (language_eval.py:216-228),
@@ -731,10 +963,181 @@ class SeedRun:
             self.lang_state, self.w0[:self.geo.orig_base].cpu().numpy())
         return self._upload(sem)
 
-    def finish(self, idx: int, params, metrics, seconds: float) -> None:
+    # -- the live paths: tracked and general freeze ------------------------
+    def run_session(self, idx: int) -> None:
+        """Session ``idx`` of the single-seed engine on its mode's path."""
+        if self.live:
+            self.prt(f"\n**** Iteration {idx + 1}/{self.geo.max_sessions} "
+                     "****\n")
+        t0 = time.time()
+        s = self.begin(idx)
+        if self.opt.freeze_backbone_at != 1:
+            params, metrics = self._general_freeze(idx, s)
+        elif self.live:
+            params, metrics = self._tracked(idx, s)
+        else:
+            params, metrics = self.program(s)
+        # the novel weight of the weighted average: the classes seen less
+        # the reference's constant 60 (incremental.py:1469)
+        self.finish(idx, params, metrics, time.time() - t0,
+                    len(self.vocab_base) + len(self.vocab_novel) - 60)
+
+    def _tracked(self, idx: int, s: SessionInputs):
+        """Epoch 1 and the caches, then one head epoch at a time, recorded
+        after each (JAX ``_run_tracked``, incremental.py:320-394)."""
+        prog = self.program
+        p = prog.prepare(s)
+        watch = self._watch(idx, s, p.f_query)
+        st = self._live_epochs(prog.epoch_state(p), watch, lambda st:
+                               prog.head_epoch(s, p.f_sup, p.f_mem, st),
+                               first=True)
+        return st.params, prog.metrics(st.params, s, p.f_query, p.f_base,
+                                       torch.tensor(st.epoch))
+
+    def _general_freeze(self, idx: int, s: SessionInputs):
+        """freeze_backbone_at = F != 1: epochs 1..F-1 train the backbone
+        too, then the head alone on the trained backbone's features, with
+        the surviving optimizer state (JAX ``_run_general_freeze``,
+        incremental.py:397-478)."""
+        prog, freeze_at = self.program, self.opt.freeze_backbone_at
+        watch = self._watch(idx, s)
+        st = prog.prepare_full(s, self.draws.dropout_full(idx))
+        st = self._live_epochs(st, watch, lambda st: prog.full_epoch(s, st),
+                               first=True,
+                               more=lambda st: st.epoch + 1 < freeze_at)
+        f_sup, f_mem, f_query, f_base = prog.caches(s)
+        st = self._live_epochs(prog.freeze(st), watch, lambda st:
+                               prog.head_epoch(s, f_sup, f_mem, st))
+        return st.params, prog.metrics(st.params, s, f_query, f_base,
+                                       torch.tensor(st.epoch))
+
+    def _live_epochs(self, st: EpochState, watch, step, first=False,
+                     more=lambda st: True) -> EpochState:
+        """Epochs by ``step`` while the stop rule and ``more`` allow, each
+        followed by one device-to-host pull of the stop flag, the printed
+        values and what ``watch`` records.  ``first``: ``st`` is epoch 1's,
+        not yet pulled.  ``st.stop`` comes back a host bool."""
+        tensors, record = watch
+        verbose = getattr(self.opt, "verbose", False)
+
+        def sync(st):
+            host = _pull([torch.stack([st.stop.to(torch.float32), st.loss,
+                                       st.a1, st.a5])] + tensors(st.params))
+            st.stop = bool(host[0][0])
+            record(st.epoch, host[1:])
+            if verbose and st.epoch % 10 == 0:
+                _print_epoch_line(self.prt, st.epoch, *host[0][1:])
+            return st
+
+        if first:
+            st = sync(st)
+        while not st.stop and more(st):
+            st = sync(step(st))
+        return st
+
+    def _watch(self, idx: int, s: SessionInputs, f_query=None):
+        """(tensors(params), record(epoch, arrays)): what to pull after an
+        epoch and how to record it — the tracked weights, the inspired
+        weights (JAX ``_make_recorder``, incremental.py:282-308) and, at
+        session 0 with ``vis``, the query predictions of the frame
+        (:345-366)."""
+        opt, geo = self.opt, self.geo
+        want_w = getattr(opt, "track_weights", False)
+        want_insp = getattr(opt, "track_label_inspired_weights", False)
+        want_vis = (self.vis_rows is not None and idx == 0
+                    and f_query is not None)
+        vocab_base, vocab_novel = self.vocab_base, self.vocab_novel
+        nq = geo.n_query_per_session
+
+        def tensors(params):
+            w = params["w"]
+            out = [w] if want_w else []
+            if want_insp:
+                if opt.attraction_override == "distance2subspace":
+                    # the reference's path crashes on an undefined variable
+                    # (language_eval.py:329); the actual attractors
+                    out.append(lp.project(
+                        s.base_basis,
+                        w[s.n_active - geo.n_ways:s.n_active].detach()))
+                elif s.sem_pullers is not None:
+                    out.append(s.sem_pullers)
+                else:
+                    out.append(torch.zeros((geo.n_ways, geo.feat_dim),
+                                           device=w.device))
+            if want_vis:
+                out.append(head_logits(params, f_query[:nq],
+                                       s.n_active).argmax(1))
+            return out
+
+        def record(epoch, arrays):
+            it = iter(arrays)
+            if want_w:
+                w = next(it)
+                for k, lbl in enumerate(vocab_base):
+                    self.track_weight_rows.append(
+                        [idx, "base", lbl, lbl, epoch, w[k].copy()])
+                for k, lbl in enumerate(vocab_novel):
+                    self.track_weight_rows.append(
+                        [idx, "novel", lbl, lbl, epoch,
+                         w[len(vocab_base) + k].copy()])
+            if want_insp:
+                insp = next(it)
+                for k, lbl in enumerate(vocab_novel):
+                    self.track_inspired_rows.append(
+                        [idx, lbl, epoch, insp[k].copy()])
+            if want_vis:
+                preds = next(it)
+                rows = self.vis_rows
+                for i in range(nq):
+                    rows["idx"].append(idx)
+                    rows["class"].append(
+                        self.vocab_all[int(self.query_y_host[i])])
+                    rows["isbase"].append(False)
+                    rows["predicted"].append(self.vocab_all[int(preds[i])])
+                    rows["img"].append(self.vis_imgs[i])
+
+        return tensors, record
+
+    def write_tracking_csvs(self) -> None:
+        """The tracking CSVs with the reference's names in the working
+        directory (language_eval.py:441-446; JAX
+        ``_write_tracking_csvs``, incremental.py:481-512)."""
+        import csv
+        opt = self.opt
+
+        def fmt(v):
+            if isinstance(v, np.ndarray):
+                return " ".join(f"{x:.6g}" for x in v.ravel())
+            return v
+
+        suffix = (f"{opt.eval_mode}_pulling_{getattr(opt, 'pulling', None)}_"
+                  f"{opt.label_pull}_target_loss_{opt.target_train_loss}_"
+                  f"synonyms_{opt.use_synonyms}.csv")
+        for flag, name, header, rows in (
+                ("track_label_inspired_weights", "track_inspired",
+                 ["episode", "label", "fine_tune_epoch", "inspired_weight"],
+                 self.track_inspired_rows),
+                ("track_weights", "track_weights",
+                 ["episode", "type", "label", "class", "fine_tune_epoch",
+                  "classifier_weight"], self.track_weight_rows)):
+            if not getattr(opt, flag, False):
+                continue
+            path = f"{name}_{suffix}"
+            with open(path, "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(header)
+                for row in rows:
+                    w.writerow([fmt(v) for v in row])
+            self.prt("saved", path)
+
+    def finish(self, idx: int, params, metrics, seconds: float,
+               novel_weight: float) -> None:
         """Take the session's head, update the replay memory
         (language_eval.py:352-359) and record and print the session's
-        metrics (language_eval.py:370-404)."""
+        metrics (language_eval.py:370-404); ``novel_weight`` is the
+        weighted average's novel weight, which the caller's engine
+        defines.  The predictions leave the device only for
+        ``--save_preds_0``."""
         geo, opt, prt = self.geo, self.opt, self.prt
         self.head_w = params["w"]
         if self.with_bias:
@@ -748,14 +1151,20 @@ class SeedRun:
                 self.support_ys_id[inds])
             self.memory_count += n_new
 
-        host = {k: v.cpu().numpy() for k, v in metrics.items()}
+        keys = ["chunk_accs", "base_acc", "epochs"]
+        if not self.live and getattr(opt, "verbose", False):
+            keys.append("epoch_trace")
+        if self.save_preds:
+            keys += ["query_preds", "base_preds"]
+        host = {k: metrics[k].cpu().numpy() for k in keys}
         self.secs.append(seconds)
-        prt(f"\n**** Iteration {idx + 1}/{geo.max_sessions} ****\n")
         epochs_run = int(host["epochs"])
-        if getattr(opt, "verbose", False):
-            tr = host["epoch_trace"]
-            for e in range(10, epochs_run + 1, 10):
-                _print_epoch_line(prt, e, tr[e, 0], tr[e, 1], tr[e, 2])
+        if not self.live:
+            prt(f"\n**** Iteration {idx + 1}/{geo.max_sessions} ****\n")
+            if getattr(opt, "verbose", False):
+                tr = host["epoch_trace"]
+                for e in range(10, epochs_run + 1, 10):
+                    _print_epoch_line(prt, e, tr[e, 0], tr[e, 1], tr[e, 2])
         # the reference reports the mean of per-session accs ROUNDED to two
         # decimals (language_eval.py:370-374)
         session_trace = [round(float(a), 2) for a in host["chunk_accs"]]
@@ -766,7 +1175,7 @@ class SeedRun:
         self.acc_novel.update(test_acc)
         # reference: 60 for mini, 200 for tiered (language_eval.py:383)
         w1 = 200 if opt.dataset == "tieredImageNet" else 60
-        w2 = len(self.vocab_base) + len(self.vocab_novel) - 60
+        w2 = novel_weight
         weighted_avg = (w1 * acc_base_ + w2 * test_acc) / (w1 + w2)
         self.weighted_avg_l.append(round(weighted_avg, 2))
         self.acc_novel_list.append(round(test_acc, 2))
@@ -775,6 +1184,9 @@ class SeedRun:
         self.epochs_l.append(epochs_run)
         acc_base, acc_novel = self.acc_base, self.acc_novel
         prt(f"***Running weighted avg: {weighted_avg}")
+        if self.save_preds:
+            self._dump_predictions(idx, host["query_preds"],
+                                   host["base_preds"])
         prt(f"{'Classes:':25} {self.novel_labels}\n"
             f"{'Labels:':25} {self.vocab_novel}\n"
             f"{'Fine-tuning epochs:':25} {epochs_run}\n"
@@ -786,6 +1198,24 @@ class SeedRun:
             f"{'Running Average:':25} "
             f"{(acc_base.avg + acc_novel.avg) / 2:.4f}\n",
             flush=True)
+
+    def _dump_predictions(self, idx: int, q_preds, b_preds) -> None:
+        """Session ``idx``'s rows of the prediction dump (the session-0
+        queries and the base batch), and at the last session the file
+        (JAX incremental.py:1480-1499)."""
+        import os
+        for k, v in self.orig2id.items():
+            self.id2orig[v] = k
+        nq0 = self.geo.n_query_per_session
+        artifacts.accumulate_prediction_rows(
+            self.preds_rows, idx, q_preds[:nq0], self.query_y_host[:nq0],
+            b_preds, self.base_y_host, self.id2orig, self.basec_map_rev)
+        if idx == self.geo.max_sessions - 1:
+            os.makedirs("csv_files_mem", exist_ok=True)
+            fname = artifacts.predictions_csv_name(self.opt)
+            artifacts.save_predictions_csv(
+                fname, {k: np.asarray(v) for k, v in self.preds_rows.items()})
+            self.prt("saved", fname)
 
     def result(self) -> IncrementalResult:
         self.prt("Overall continual accuracies: ", self.weighted_avg_l)
@@ -805,19 +1235,27 @@ def few_shot_finetune_incremental_test(
         meta_sampler: EpisodeSampler, base_test_split,
         base_support_sampler: Optional[EpisodeSampler] = None,
         base_split_for_vocab=None, verbose: bool = True,
-        device="cuda", draws=None) -> IncrementalResult:
+        device="cuda", draws=None, vis: bool = False):
     """Run the multi-session protocol (language_eval.py:71-454) on
     ``device``.  ``backbone`` and ``head0`` are copied, never mutated.
-    ``draws`` defaults to ``TorchDraws(opt.set_seed, device)``."""
+    ``draws`` defaults to ``TorchDraws(opt.set_seed, device)``.
+
+    Returns an :class:`IncrementalResult`, or with ``vis=True`` the
+    per-epoch session-0 prediction frames (reference
+    language_eval.py:81-83, 345-349, 449-450; JAX incremental.py:1732-1737)
+    as a dict of column lists ``idx, class, isbase, predicted, img`` (each
+    ``img`` an ``<img>`` tag with a base64 PNG of the raw query), which
+    ``pandas.DataFrame(...)`` takes as it is."""
     dev = resolve_device(device)
     prt = print if verbose else (lambda *a, **k: None)
-    _refuse_unported(opt, head0.bias is not None)
+    check_options(opt, head0.bias is not None, vis)
     run = SeedRun(backbone, head0, meta, opt, meta_sampler, base_test_split,
                   base_support_sampler, base_split_for_vocab, dev, draws,
-                  prt)
+                  prt, vis=vis)
     for idx in range(run.geo.max_sessions):
-        t0 = time.time()
-        s = run.begin(idx)
-        params, metrics = run.program(s)
-        run.finish(idx, params, metrics, time.time() - t0)
+        run.run_session(idx)
+    if run.live:
+        run.write_tracking_csvs()
+    if vis:
+        return run.vis_rows
     return run.result()

@@ -16,9 +16,18 @@ order:
      finetune_loop_seeds: the card's blocks split into S groups);
   c. per seed: evaluation and the replay-memory update.
 
-Every seed's numbers equal a single-seed run's: step (a) and (c) are the
-single-seed engine's own code, and per seed the batched K1 launch is
-bit-identical to a single-seed launch on the same group of blocks.
+Every seed's epochs and accuracies equal a single-seed run's: step (a)
+and (c) are the single-seed engine's own code, and per seed the batched K1
+launch is bit-identical to a single-seed launch on the same group of
+blocks.  The weighted average weighs the novel accuracy by the classes
+added so far, ``n_ways * (idx + 1)``, as the JAX multi-seed engine does
+(multiseed.py:477-480); the single-seed engines keep the reference's
+classes seen less 60, which differs on tieredImageNet.
+
+``--save_preds_0`` writes one prediction dump per seed, under the seed's
+reference name (JAX multiseed.py:266-275, 461-505).  The tracked modes and
+``freeze_backbone_at != 1`` are refused, as the JAX multi-seed engine
+serves the compiled session only.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import torch
 from ..ops.finetune import finetune_loop_seeds
 from ..utils.device import resolve_device
 from .draws import per_seed
-from .incremental import IncrementalResult, SeedRun, _refuse_unported
+from .incremental import IncrementalResult, SeedRun, check_options
 
 # fields of the eval config that may differ between the seeds of one run
 SEED_FIELDS = ("set_seed", "model_path")
@@ -72,7 +81,18 @@ def _refuse(opts, heads, shard_over_devices: bool) -> None:
            or tuple(h.weight.shape) != tuple(heads[0].weight.shape)
            for h in heads):
         raise ValueError("the seeds' heads differ in geometry")
-    _refuse_unported(opt0, with_bias)
+    check_options(opt0, with_bias)
+    # the JAX multi-seed engine serves the compiled session program only
+    unserved = [f"--{f}" for f in ("track_weights",
+                                   "track_label_inspired_weights")
+                if getattr(opt0, f, False)]
+    if opt0.freeze_backbone_at != 1:
+        unserved.append("freeze_backbone_at != 1")
+    if unserved:
+        raise NotImplementedError(
+            ", ".join(unserved) + ": the multi-seed engine runs the "
+            "compiled session only, as the JAX package's does; the "
+            "single-seed engine serves them")
 
 
 def few_shot_finetune_multiseed(
@@ -124,7 +144,10 @@ def few_shot_finetune_multiseed(
                                                     prepared))]
         dt = time.time() - t0
         for run, (params, metrics) in zip(runs, done):
-            run.finish(idx, params, metrics, dt / n)
+            # the novel weight of the weighted average: the classes added
+            # so far (JAX multiseed.py:477-480)
+            run.finish(idx, params, metrics, dt / n,
+                       run.geo.n_ways * (idx + 1))
         prt(f"session {idx}: novel {[r.acc_novel_list[-1] for r in runs]} "
             f"base {[r.acc_base_list[-1] for r in runs]} epochs "
             f"{[r.epochs_l[-1] for r in runs]} [{dt:.2f}s]", flush=True)

@@ -15,7 +15,12 @@ repo's ``eval_incremental.py`` (reference eval_incremental.py:24-140), plus
 
 ``--model_path`` is a reference ``.pth`` or a ``.ckpt`` of either
 package's pretraining CLI; ``--dataset`` is miniImageNet, tieredImageNet,
-CIFAR-FS or FC100 (continual).
+CIFAR-FS or FC100 (continual).  Every flag of the JAX CLI runs:
+``--freeze_backbone_at N`` (the backbone trains for epochs 1..N-1 of each
+session), ``--track_weights`` and ``--track_label_inspired_weights`` (the
+reference-named tracking CSVs) and ``--save_preds_0``
+(``csv_files_mem/seed_..._predictions.csv``), each written in the
+working directory as the JAX CLI writes them.
 """
 
 from __future__ import annotations

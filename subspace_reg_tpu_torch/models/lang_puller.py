@@ -186,12 +186,23 @@ def pull_loss(gamma: float, inspired: torch.Tensor, weights: torch.Tensor,
     return gamma * torch.sum(d * d)
 
 
-def projected_weight(base_weight: torch.Tensor,
-                     weights: torch.Tensor) -> torch.Tensor:
-    """Project ``weights`` onto span(base rows): thin QR of W_base^T, then
-    (W @ Q / colnorm(Q)) @ Q^T (reference get_projected_weight, :92-97).
-    The column-norm division is a numerical no-op kept for faithfulness."""
-    q, _ = torch.linalg.qr(base_weight.T)           # (640, n_base)
+def subspace_basis(base_weight: torch.Tensor) -> torch.Tensor:
+    """The orthonormal basis Q (feat, n_base) of span(base rows): thin QR
+    of W_base^T (reference get_projected_weight, :92-93)."""
+    return torch.linalg.qr(base_weight.T)[0]
+
+
+def project(q: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``weights`` projected onto span(Q): (W @ Q / colnorm(Q)) @ Q^T
+    (reference :94-97).  The column-norm division is a numerical no-op
+    kept for faithfulness."""
     mut = weights @ q                               # (k, n_base)
     colnorm = torch.linalg.norm(q.T, dim=1)         # == 1.0 per column
     return (mut / colnorm[None, :]) @ q.T
+
+
+def projected_weight(base_weight: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """Project ``weights`` onto span(base rows) (reference
+    get_projected_weight, :92-97)."""
+    return project(subspace_basis(base_weight), weights)

@@ -10,7 +10,8 @@ after another; with ``--vmap`` the seeds of each group of ``--seed_batch``
 (default: all) run through one multi-seed engine call
 (engine/multiseed.py), with one seed-batched K1 launch per session.  The
 aggregates, mean and 95% confidence half-width over the seeds, are printed
-as JSON.  ``--device`` (default ``cuda``) is the engine's.  Backbone
+as JSON.  ``--save_preds_0`` among the eval flags writes one prediction
+dump per seed.  ``--device`` (default ``cuda``) is the engine's.  Backbone
 pretraining over seeds (``--pretrain``, ``--shard_seeds``, ``--resume``) is
 not ported yet (ROADMAP.md queue A item 7).
 """

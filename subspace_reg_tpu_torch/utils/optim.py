@@ -9,8 +9,10 @@ says (the JAX engine mirrors this at incremental.py:245-246).
 
 The engine takes the first step itself and hands the optimizer state to the
 fused loop (K1), which takes every later step with the same update rule, so
-the optimizer is a set of hyperparameters plus that first step rather than a
-``torch.optim.Optimizer``.
+the optimizer is a set of hyperparameters plus that update (``step``; the
+tracked path takes it one epoch at a time) rather than a
+``torch.optim.Optimizer``.  The general-freeze path's backbone epochs use
+``sgd_torch`` / ``adam_torch`` over the backbone and the head.
 
 Pretraining uses ``torch.optim.SGD`` / ``Adam`` themselves (``sgd_torch``,
 ``adam_torch``): the JAX package's optax chains (utils/optim.py:21-43) were
@@ -47,17 +49,28 @@ class OptimSpec:
     def first_step(self, params: Tree, grads: Tree
                    ) -> Tuple[Tree, Tree, Optional[Tree]]:
         """Step 1 from zero state, torch semantics: returns (params,
-        momentum or Adam m, Adam v or None)."""
+        momentum or Adam m, Adam v or None).  The momentum buffer is the
+        first decayed gradient."""
+        zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+        return self.step(params, grads, zeros, zeros if self.adam else None,
+                         1)
+
+    def step(self, params: Tree, grads: Tree, mom: Tree,
+             nu: Optional[Tree], t: int
+             ) -> Tuple[Tree, Tree, Optional[Tree]]:
+        """Step ``t`` (1-based) from the state of step ``t - 1``, the
+        update K1 takes every epoch: coupled decay, then SGD-momentum or
+        Adam with bias correction; returns (params, mom, nu)."""
         g = {k: grads[k] + self.weight_decay * params[k] for k in params}
         if not self.adam:
-            # momentum buffer = first decayed gradient
-            return ({k: params[k] - self.lr * g[k] for k in params}, g, None)
-        m = {k: (1.0 - self.b1) * g[k] for k in g}
-        v = {k: (1.0 - self.b2) * g[k] * g[k] for k in g}
-        new = {k: params[k] - self.lr * (m[k] / (1.0 - self.b1))
-               / (torch.sqrt(v[k] / (1.0 - self.b2)) + self.eps)
-               for k in params}
-        return new, m, v
+            mom = {k: self.momentum * mom[k] + g[k] for k in g}
+            return {k: params[k] - self.lr * mom[k] for k in params}, mom, None
+        mom = {k: self.b1 * mom[k] + (1.0 - self.b1) * g[k] for k in g}
+        nu = {k: self.b2 * nu[k] + (1.0 - self.b2) * g[k] * g[k] for k in g}
+        c1, c2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+        new = {k: params[k] - self.lr * (mom[k] / c1)
+               / (torch.sqrt(nu[k] / c2) + self.eps) for k in params}
+        return new, mom, nu
 
 
 def get_optim(opt) -> OptimSpec:

@@ -202,6 +202,16 @@ class JaxDraws:
         return JaxDropout(dropout_keys(self.jbb, self.img_size, k_sup)
                           + dropout_keys(self.jbb, self.img_size, k_mem))
 
+    def dropout_full(self, idx):
+        """The general-freeze epoch 1: k_sup's keys for the support and
+        again for the memory forward (incremental.py:1025-1030)."""
+        if self.jbb is None:
+            return None, None
+        k_sup, _ = jax.random.split(
+            jax.random.PRNGKey(self.set_seed * 31 + idx))
+        keys = dropout_keys(self.jbb, self.img_size, k_sup)
+        return JaxDropout(keys), JaxDropout(keys)
+
 
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
@@ -334,10 +344,11 @@ def test_reference_print_lines(env, capsys):
 
 
 def test_unported_options_are_refused(env):
-    for over in (dict(freeze_backbone_at=3), dict(track_weights=True),
-                 dict(save_preds_0=True)):
-        with pytest.raises(NotImplementedError):
-            _run_torch(env, _opt(env["root"], **over), verbose=False)
+    """What stays refused, as in the JAX engine (incremental.py:1313-1317):
+    the vis frames with freeze_backbone_at != 1."""
+    with pytest.raises(NotImplementedError, match="vis frames"):
+        _run_torch(env, _opt(env["root"], freeze_backbone_at=3),
+                   verbose=False, vis=True)
 
 
 def test_cuda_request_without_card_raises(env):

@@ -18,7 +18,9 @@ Held per session as the engine test holds the engines: the "Fine-tuning
 epochs" exact; "Novel only incremental", "Base only incremental" and
 "Overall continual accuracies" within 0.5.  The semantic case is marked
 slow (the fast lane holds the semantic configuration's engine against JAX
-in tests/test_torch_engine.py)."""
+in tests/test_torch_engine.py), as is the ``--track_weights --verbose``
+case, which also holds where the iteration header prints and the
+tracking CSV's name."""
 
 import ast
 import os
@@ -124,3 +126,48 @@ def test_cli_traces_agree(fixture, capsys, config):
         assert len(got[name]) == len(ref[name])
         np.testing.assert_allclose(got[name], ref[name], atol=0.5,
                                    err_msg=name)
+
+
+def _live_lines(out: str):
+    """The iteration headers and the epochs of the Novel Epoch lines, in
+    the order printed."""
+    return [l.split("\t")[0] for l in out.splitlines()
+            if l.startswith("**** Iteration") or l.startswith("Novel Epoch")]
+
+
+# two more full-width CLI runs, ~2 min on the CPU; the fast lane holds the
+# tracked engine against JAX's in tests/test_torch_engine_modes.py
+@pytest.mark.slow
+def test_cli_tracked_traces_agree(fixture, capsys, tmp_path, monkeypatch):
+    """``--track_weights --verbose``: both CLIs run their tracked engines;
+    the printed traces agree as above, each session's header comes before
+    its live Novel Epoch lines, and both write the same CSV name in the
+    working directory."""
+    argv = (fixture["argv"] + CONFIGS["subspace_reg"]
+            + ["--track_weights", "--verbose"])
+    opt = jax_parse(list(argv))
+    jbb = jax_model(opt.model, 60, opt, dataset=opt.dataset)
+    outs, files = {}, {}
+    for name in ("jax", "port"):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        capsys.readouterr()
+        if name == "jax":
+            jax_cli.main(list(argv))
+        else:
+            torch_cli.main(list(argv) + ["--device", "cpu"],
+                           draws=JaxDraws(SEED, jbb, IMG))
+        outs[name] = capsys.readouterr().out
+        files[name] = sorted(os.listdir(tmp_path / name))
+    ref, got = parse_trace(outs["jax"]), parse_trace(outs["port"])
+    assert len(got["epochs"]) == 8 and got["epochs"] == ref["epochs"]
+    for name in LISTS:
+        np.testing.assert_allclose(got[name], ref[name], atol=0.5,
+                                   err_msg=name)
+    lines = _live_lines(outs["port"])
+    assert lines == _live_lines(outs["jax"])
+    assert lines[0] == "**** Iteration 1/8 ****"
+    assert lines[1].startswith("Novel Epoch")
+    assert files["port"] == files["jax"] == [
+        "track_weights_few-shot-incremental-fine-tune_pulling_regularize_"
+        "1.0_target_loss_0.0_synonyms_False.csv"]

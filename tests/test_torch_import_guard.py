@@ -1,7 +1,7 @@
 """The port stands alone: every module of subspace_reg_tpu_torch, and
-chip_smoke.py, imports with JAX, flax, optax, msgpack (the card's machine
-has none of them) and the JAX package blocked, and no source of the port
-names one of them in an import."""
+chip_smoke.py, imports with JAX, flax, optax, msgpack, PIL and pandas (the
+card's machine has none of them) and the JAX package blocked, and no
+source of the port names one of them in an import."""
 
 import ast
 import os
@@ -13,7 +13,8 @@ import subspace_reg_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(subspace_reg_tpu_torch.__file__)
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "subspace_reg_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "pandas",
+           "subspace_reg_tpu")
 
 
 def _modules():
@@ -25,6 +26,8 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "subspace_reg_tpu_torch.engine.incremental" in mods
     assert "subspace_reg_tpu_torch.ops.finetune" in mods
+    assert "subspace_reg_tpu_torch.engine.predict" in mods
+    assert "subspace_reg_tpu_torch.utils.artifacts" in mods
     code = "\n".join(
         ["import sys, importlib"]
         + [f"sys.modules[{name!r}] = None" for name in BLOCKED]

@@ -208,12 +208,20 @@ def test_multiseed_refusals(env):
     opts[1].learning_rate = 0.5
     with pytest.raises(ValueError, match="learning_rate"):
         few_shot_finetune_multiseed(*args, device="cpu")
-    opts = [_opt(env["root"], s) for s in SEEDS]
-    for o in opts:
-        o.save_preds_0 = True
-    with pytest.raises(NotImplementedError, match="save_preds_0"):
-        few_shot_finetune_multiseed(bbs, heads, [{}, {}], opts, [None] * 2,
-                                    [None] * 2, device="cpu")
+    # what the JAX multi-seed engine does not serve either: the tracked
+    # modes and the general freeze
+    for over, match in ((dict(track_weights=True), "track_weights"),
+                        (dict(track_label_inspired_weights=True),
+                         "track_label_inspired_weights"),
+                        (dict(freeze_backbone_at=3), "freeze_backbone_at")):
+        opts = [_opt(env["root"], s) for s in SEEDS]
+        for o in opts:
+            for k, v in over.items():
+                setattr(o, k, v)
+        with pytest.raises(NotImplementedError, match=match):
+            few_shot_finetune_multiseed(bbs, heads, [{}, {}], opts,
+                                        [None] * 2, [None] * 2,
+                                        device="cpu")
 
 
 def _fake_result(seed):
