@@ -108,6 +108,29 @@ Phases; any failure raises and the script exits non-zero:
               the same flags (ms per tracked epoch, CSV bytes); the vis
               frames (PNG headers) and ``make_predict_fn`` on the base
               batch's 1000 images (labels equal the engine's argmax, ms).
+  15. pretrain-rest  the rest of pretraining, golden flags, full-width
+              resnet18 at 84 px, batch 64, cuDNN deterministic for every
+              comparison: (a) ``PrefetchLoader`` over a 635 MB host store
+              (60 x 500 images): an epoch byte for byte, then 50 streamed
+              against 50 device-data steps in turns, bit-identical losses,
+              ms/step and the consumer's wait, a batch's parts timed
+              alone, and an epoch of a 2.54 GB store (above the 2 GiB
+              device-data limit) byte for byte; (b) the CLI one epoch
+              streamed (``DEVICE_DATA_MAX_BYTES=0``) against staged, the
+              ``.ckpt``s within ``RESUME_ATOL``; (c) ``run_seeds
+              --pretrain --vmap`` for 5 seeds (continual split cut to
+              30/5 images a base class), 2 epochs against 1 + a
+              ``--resume`` second and lane 1 against the single-seed CLI,
+              within ``RESUME_ATOL``, aggregate images/s against the
+              single seed's, peak memory; (d) one CLI epoch under
+              ``torchrun --nproc_per_node 1`` (NCCL) against the plain
+              run, a (2, 1) mesh of two gloo ranks on the card against
+              the single-process step (tests/test_torch_mesh.py), and the
+              CLI on two gloo ranks on the card, one step on random and
+              on class-coloured pixels: in f32 against the single
+              process at the CPU test's tolerances, in bf16 as accurate
+              as the single process against its f32 twin.  K1, K2 and K3
+              launch 0 times on these paths.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -2534,6 +2557,693 @@ def phase_modes(tmp, counters, small_root, run, golden, k1):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 15: the rest of pretraining (streamed loader, multi-seed, mesh)
+# --------------------------------------------------------------------------
+# 15a's host store: the continual miniImageNet pretraining split's size
+# (60 classes x 500 images at 84 px, 635 MB of uint8)
+REST_CLASSES, REST_PER_CLASS = 60, 500
+REST_STEPS = 50
+# 15c's continual split, cut from 500/50 images a base class for the
+# phase's time (the loaders' per-class counts); 60 written a class
+MS_TRAIN_PER_CLASS, MS_VAL_PER_CLASS, MS_WRITTEN = 30, 5, 40
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN pinned to its deterministic algorithms inside the block."""
+    cudnn = torch.backends.cudnn
+    pinned = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = pinned
+
+
+def host_store(n_cls: int, per_class: int, img: int = 84, seed: int = 0):
+    """(uint8 images, int64 labels) in host memory: seeded random bytes
+    (every row distinct), ``per_class`` rows a class."""
+    r = np.random.RandomState(seed)
+    n = n_cls * per_class
+    imgs = np.frombuffer(bytearray(r.bytes(n * img * img * 3)),
+                         np.uint8).reshape(n, img, img, 3)
+    return imgs, np.repeat(np.arange(n_cls, dtype=np.int64), per_class)
+
+
+def _loader_threads() -> int:
+    import threading
+    return sum(1 for t in threading.enumerate()
+               if t.name == "PrefetchLoader" and t.is_alive())
+
+
+def rest_loader(dev):
+    """15a: ``PrefetchLoader`` over a host store of the continual
+    pretraining split's size: a full epoch checked byte for byte against
+    ``imgs[order[i:i + 64]]``, an epoch consumed alone, then REST_STEPS
+    timed streamed steps against as many device-data steps on the same
+    batches from the same state, in turns (streamed, device, device,
+    streamed), with cuDNN deterministic: bit-identical losses."""
+    from subspace_reg_tpu_torch.data.pipeline import PrefetchLoader
+    from subspace_reg_tpu_torch.data.transforms import transforms_options
+    from subspace_reg_tpu_torch.engine import pretrain as pt
+    from subspace_reg_tpu_torch.engine.draws import TorchDraws
+    from subspace_reg_tpu_torch.utils.optim import step_decay_schedule
+    t0 = time.time()
+    imgs, labels = host_store(REST_CLASSES, REST_PER_CLASS)
+    n = len(labels)
+    print(f"[rest-loader] set-up: host store of {n} images at 84 px, "
+          f"{imgs.nbytes / 1e6:.0f} MB, {time.time() - t0:.1f} s")
+    loader = PrefetchLoader(imgs, labels, BATCH, np.random.RandomState(1),
+                            device=dev)
+    order = np.random.RandomState(1).permutation(n)
+    t0 = time.time()
+    k = -1
+    for k, (x, y) in enumerate(loader.epoch()):
+        idx = order[k * BATCH:(k + 1) * BATCH]
+        check(torch.equal(x, torch.from_numpy(imgs[idx]).to(dev))
+              and torch.equal(y, torch.from_numpy(labels[idx]).to(dev)),
+              f"streamed batch {k} differs from imgs[order[...]]")
+    torch.cuda.synchronize()
+    check(k + 1 == n // BATCH, f"the epoch gave {k + 1} batches")
+    checked_s = time.time() - t0
+    t0 = time.time()
+    n_b = sum(1 for _ in loader.epoch())
+    torch.cuda.synchronize()
+    alone_s = time.time() - t0
+    print(f"[rest-loader] an epoch of {k + 1} batches checked byte for "
+          f"byte {checked_s:.2f} s; consumed alone {alone_s:.3f} s "
+          f"({n_b * BATCH / alone_s:.0f} images/s, "
+          f"{n_b * BATCH * imgs[0].nbytes / alone_s / 1e9:.2f} GB/s)")
+
+    spec, _ = transforms_options["A"]
+    sched = step_decay_schedule(0.05, [60, 80], 0.1, n // BATCH)
+    bb = pretrain_backbone()
+    losses = {"streamed": [], "device": []}
+    times = {"streamed": [], "device": []}
+    waits = []
+    with deterministic_cudnn():
+        st_s = pretrain_state(bb, dev, REST_CLASSES)
+        st_d = pretrain_state(bb, dev, REST_CLASSES)
+        step_s = pt.make_train_step(st_s.backbone, sched, spec, False,
+                                    TorchDraws(1, dev))
+        step_d = pt.make_train_step_device_data(st_d.backbone, sched, spec,
+                                                False, TorchDraws(1, dev))
+        data_dev = torch.from_numpy(imgs).to(dev)
+        labels_dev = torch.from_numpy(labels).to(dev)
+        loader = PrefetchLoader(imgs, labels, BATCH,
+                                np.random.RandomState(2), device=dev)
+        streamed = loader.epoch()
+        indexed = pt.epoch_batches(np.random.RandomState(2), n, BATCH)
+
+        def run(label, k, timed_run=True):
+            torch.cuda.synchronize()
+            w0, b0 = loader.wait_s, loader.n_batches
+            t0 = time.time()
+            for _ in range(k):
+                if label == "streamed":
+                    x, y = next(streamed)
+                    m = step_s(st_s, x, y)
+                else:
+                    idx = torch.from_numpy(next(indexed)).to(dev)
+                    m = step_d(st_d, data_dev, labels_dev, idx)
+                losses[label].append(m["loss"])
+            torch.cuda.synchronize()
+            if timed_run:
+                times[label].append(1e3 * (time.time() - t0) / k)
+                if label == "streamed":
+                    waits.append(1e3 * (loader.wait_s - w0)
+                                 / (loader.n_batches - b0))
+
+        run("streamed", 3, False)        # warm-up, compared all the same
+        run("device", 3, False)
+        for label in ("streamed", "device", "device", "streamed"):
+            run(label, REST_STEPS // 2)
+        streamed.close()
+    check(_loader_threads() == 0, "a loader thread outlived its epoch")
+    ls = torch.stack(losses["streamed"]).cpu()
+    ld = torch.stack(losses["device"]).cpu()
+    check(ls.shape == ld.shape and torch.equal(ls, ld),
+          f"streamed and device-data losses differ by up to "
+          f"{float((ls - ld).abs().max())}")
+    del data_dev, labels_dev
+    torch.cuda.empty_cache()
+    fmt = lambda v: "/".join(f"{t:.3f}" for t in v)  # noqa: E731
+    out = dict(streamed_ms=sum(times["streamed"]) / 2,
+               device_ms=sum(times["device"]) / 2,
+               wait_ms=sum(waits) / len(waits))
+    print(f"[rest-loader] {REST_STEPS} timed steps each (S D D S): "
+          f"streamed {fmt(times['streamed'])} ms/step, device-data "
+          f"{fmt(times['device'])} ms/step (means {out['streamed_ms']:.3f} "
+          f"/ {out['device_ms']:.3f}, ratio "
+          f"{out['streamed_ms'] / out['device_ms']:.4f}); consumer wait "
+          f"{fmt(waits)} ms a batch; {len(ls)} losses bit-identical "
+          f"(last {float(ls[-1]):.6f})")
+    out.update(loader_breakdown(dev, imgs, labels))
+    del imgs, labels
+    out.update(loader_above_limit(dev))
+    return out
+
+
+def loader_breakdown(dev, imgs, labels):
+    """Where a streamed batch's host time goes, each part timed alone over
+    an epoch's batches: ``gather_u8`` into a pinned buffer (the loader's
+    default threads, 1 and 8), numpy's gather, a pinned host-to-device copy
+    of one batch (synchronized), and the loader's epoch consumed alone."""
+    from subspace_reg_tpu_torch.data import native
+    from subspace_reg_tpu_torch.data.pipeline import PrefetchLoader
+    n = len(labels)
+    order = np.random.RandomState(3).permutation(n)
+    k = n // BATCH
+    hx = torch.empty((BATCH,) + imgs.shape[1:], dtype=torch.uint8,
+                     pin_memory=True)
+    buf = hx.numpy()
+    xd = torch.empty(hx.shape, dtype=torch.uint8, device=dev)
+
+    def per_batch(fn):
+        t0 = time.perf_counter()
+        for b in range(k):
+            fn(order[b * BATCH:(b + 1) * BATCH])
+        return 1e3 * (time.perf_counter() - t0) / k
+
+    def copy(_):
+        xd.copy_(hx, non_blocking=True)
+        torch.cuda.synchronize()
+
+    threads = native._threads(0, buf.nbytes)
+    parts = dict(
+        gather_ms=per_batch(lambda i: native.gather_u8(imgs, i, out=buf)),
+        gather1_ms=per_batch(lambda i: native.gather_u8(
+            imgs, i, out=buf, n_threads=1)),
+        gather8_ms=per_batch(lambda i: native.gather_u8(
+            imgs, i, out=buf, n_threads=8)),
+        numpy_ms=per_batch(lambda i: native.gather_u8(
+            imgs, i, out=buf, backend="numpy")),
+        copy_ms=per_batch(copy))
+    loader = PrefetchLoader(imgs, labels, BATCH, np.random.RandomState(3),
+                            device=dev)
+    t0 = time.perf_counter()
+    n_b = sum(1 for _ in loader.epoch())
+    torch.cuda.synchronize()
+    parts["alone_ms"] = 1e3 * (time.perf_counter() - t0) / n_b
+    print(f"[rest-loader] a batch ({BATCH} x {imgs[0].nbytes} B), each part "
+          f"alone over {k} batches: gather_u8 {parts['gather_ms']:.3f} ms "
+          f"(the default, {threads} thread(s)) / {parts['gather1_ms']:.3f} "
+          f"ms (1 thread) / {parts['gather8_ms']:.3f} ms (8 threads), "
+          f"numpy {parts['numpy_ms']:.3f} ms, pinned copy to the card "
+          f"{parts['copy_ms']:.3f} ms; the loader's epoch alone "
+          f"{parts['alone_ms']:.3f} ms a batch")
+    return {f"loader_{k}": v for k, v in parts.items()}
+
+
+def loader_above_limit(dev):
+    """An epoch of ``PrefetchLoader`` over a store above the device-data
+    limit (``device_data_max_bytes()``, 2 GiB by default): 120,000 seeded
+    images at 84 px (60 classes x 2000, 2.54 GB), byte for byte against
+    ``imgs[order[i:i + 64]]``, then an epoch consumed alone."""
+    from subspace_reg_tpu_torch.data.pipeline import PrefetchLoader
+    from subspace_reg_tpu_torch.train_supervised import device_data_max_bytes
+    t0 = time.time()
+    imgs, labels = host_store(REST_CLASSES, 4 * REST_PER_CLASS, seed=1)
+    limit = device_data_max_bytes()
+    print(f"[rest-loader] set-up: host store of {len(labels)} images, "
+          f"{imgs.nbytes / 1e9:.3f} GB (device-data limit "
+          f"{limit / 1e9:.3f} GB), {time.time() - t0:.1f} s")
+    check(imgs.nbytes > limit, "the store is not above the device-data "
+          "limit")
+    loader = PrefetchLoader(imgs, labels, BATCH, np.random.RandomState(5),
+                            device=dev)
+    order = np.random.RandomState(5).permutation(len(labels))
+    t0 = time.time()
+    k = -1
+    for k, (x, y) in enumerate(loader.epoch()):
+        idx = order[k * BATCH:(k + 1) * BATCH]
+        check(torch.equal(x, torch.from_numpy(imgs[idx]).to(dev))
+              and torch.equal(y, torch.from_numpy(labels[idx]).to(dev)),
+              f"streamed batch {k} of the large store differs")
+    torch.cuda.synchronize()
+    check(k + 1 == len(labels) // BATCH, f"the epoch gave {k + 1} batches")
+    checked_s = time.time() - t0
+    t0 = time.perf_counter()
+    n_b = sum(1 for _ in loader.epoch())
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    gbs = n_b * BATCH * imgs[0].nbytes / alone_s / 1e9
+    print(f"[rest-loader] above the limit: an epoch of {k + 1} batches "
+          f"checked byte for byte {checked_s:.2f} s; consumed alone "
+          f"{alone_s:.3f} s ({1e3 * alone_s / n_b:.3f} ms a batch, "
+          f"{gbs:.2f} GB/s)")
+    return dict(loader_large_gb=imgs.nbytes / 1e9,
+                loader_large_alone_ms=1e3 * alone_s / n_b)
+
+
+def ckpt_leaves(path: str) -> dict:
+    """Every leaf of a ``.ckpt``: variables, optimizer state, step, head."""
+    from subspace_reg_tpu_torch.utils.checkpoint import load_checkpoint
+    variables, head, meta = load_checkpoint(path)
+    out = dict(_tree_items(variables))
+    out.update({f"extra/{k}": v for k, v in
+                _tree_items(meta.get("extra") or {})})
+    out["head"] = np.asarray(head.weight)
+    return out
+
+
+def ckpt_diff(a: str, b: str):
+    """(max |difference| over the leaves of two ``.ckpt``s, bit-identical)."""
+    la, lb = ckpt_leaves(a), ckpt_leaves(b)
+    check(la.keys() == lb.keys(), f"{a} and {b} hold different leaves")
+    diff = max(float(np.abs(np.asarray(la[k], np.float64)
+                            - np.asarray(lb[k], np.float64)).max())
+               if np.asarray(la[k]).size else 0.0 for k in la)
+    same = all(np.array_equal(la[k], lb[k]) for k in la)
+    return diff, same
+
+
+def _pretrain_cli_argv(root: str, save: str):
+    """Phase 10's CLI flags (golden model and optimizer, 84 px, one
+    epoch) writing to ``<root>/<save>``."""
+    return ["--trial", "pretrain", "--model_path", f"{root}/{save}",
+            "--tb_path", f"{root}/tb", "--data_root", f"{root}/data",
+            "--classifier", "linear", "--model", "resnet18",
+            "--save_freq", "100", "--no_dropblock", "--no_linear_bias",
+            "--set_seed", "1", "--epochs", "1", "--print_freq", "100",
+            "--device", "cuda"]
+
+
+def _phase10_data(tmp):
+    import os
+    from subspace_reg_tpu_torch.data import synthetic
+    root = f"{tmp}/pretrain"
+    if not os.path.exists(f"{root}/data/miniImageNet"):
+        synthetic.make_mini_imagenet_category_split(
+            f"{root}/data/miniImageNet", per_class=100, img_size=84, seed=0)
+    return root
+
+
+def _images_per_sec(log: str, epoch: int) -> float:
+    import re
+    m = re.search(rf"epoch {epoch}, total time [\d.]+, images/sec "
+                  r"([\d.]+)", log)
+    check(m is not None, f"no images/sec for epoch {epoch} in the log")
+    return float(m.group(1))
+
+
+def rest_cli(tmp):
+    """15b: the pretraining CLI for one epoch on phase 10's data, streamed
+    (``DEVICE_DATA_MAX_BYTES=0``) and staged (the default), cuDNN
+    deterministic: the two ``.ckpt`` files within RESUME_ATOL."""
+    import os
+    from subspace_reg_tpu_torch import train_supervised
+    root = _phase10_data(tmp)
+    out = {}
+    with deterministic_cudnn():
+        for label, limit, line in (
+                ("streamed", "0", "==> streaming dataset from the host"),
+                ("device", None, "==> staging dataset on")):
+            old = os.environ.pop("DEVICE_DATA_MAX_BYTES", None)
+            if limit is not None:
+                os.environ["DEVICE_DATA_MAX_BYTES"] = limit
+            try:
+                state, wall, log = _quiet(lambda: train_supervised.main(
+                    _pretrain_cli_argv(root, f"rest_{label}")))
+            finally:
+                os.environ.pop("DEVICE_DATA_MAX_BYTES", None)
+                if old is not None:
+                    os.environ["DEVICE_DATA_MAX_BYTES"] = old
+            check(line in log, f"the {label} CLI run did not print {line!r}")
+            check(state.step == 100, f"{label}: {state.step} steps")
+            out[label] = (wall, _images_per_sec(log, 1))
+    diff, same = ckpt_diff(f"{root}/rest_streamed/resnet18_last.ckpt",
+                           f"{root}/rest_device/resnet18_last.ckpt")
+    print(f"[rest-cli] one epoch streamed {out['streamed'][0]:.2f} s "
+          f"({out['streamed'][1]:.1f} images/s), staged "
+          f"{out['device'][0]:.2f} s ({out['device'][1]:.1f} images/s); "
+          f".ckpt max |diff| {diff:.3e} (tolerance {RESUME_ATOL:g}), "
+          f"bit-identical {same}")
+    check(diff <= RESUME_ATOL, f"the streamed CLI run drifts by {diff}")
+    return dict(cli_streamed_ips=out["streamed"][1],
+                cli_device_ips=out["device"][1])
+
+
+@contextlib.contextmanager
+def cut_continual_split(train_per_class: int, val_per_class: int):
+    """The pretraining CLI's continual loaders (which run_seeds shares) at
+    ``train_per_class`` / ``val_per_class`` images a base class."""
+    import functools
+    from subspace_reg_tpu_torch import train_supervised
+    from subspace_reg_tpu_torch.data import mini_imagenet
+    kept = train_supervised.load_mini_imagenet
+    train_supervised.load_mini_imagenet = functools.partial(
+        mini_imagenet.load_mini_imagenet, train_per_class=train_per_class,
+        val_per_class=val_per_class)
+    try:
+        yield
+    finally:
+        train_supervised.load_mini_imagenet = kept
+
+
+def rest_multiseed(tmp, counters):
+    """15c: ``run_seeds --pretrain --vmap`` for 5 seeds on synthetic
+    continual miniImageNet (84 px, full-width resnet18, golden flags; the
+    split cut to MS_TRAIN_PER_CLASS / MS_VAL_PER_CLASS images a base
+    class), 2 epochs straight and 1 epoch + a ``--resume`` second, and
+    the single-seed CLI for seed 1, cuDNN deterministic: resumed equals
+    straight and lane 1 equals the CLI, within RESUME_ATOL; aggregate
+    images/s against the single-seed run's, peak memory, and the launch
+    counters (no kernel of K1-K3 on this path)."""
+    import re
+    from subspace_reg_tpu_torch import run_seeds, train_supervised
+    root = f"{tmp}/rest_ms"
+    t0 = time.time()
+    write_continual_mini(f"{root}/miniImageNet", per_class=MS_WRITTEN)
+    print(f"[rest-multiseed] set-up (100 classes x {MS_WRITTEN} images at "
+          f"84 px; split cut to {MS_TRAIN_PER_CLASS}/{MS_VAL_PER_CLASS} a "
+          f"base class: {60 * MS_TRAIN_PER_CLASS} training images, "
+          f"{60 * MS_TRAIN_PER_CLASS // BATCH} steps an epoch) "
+          f"{time.time() - t0:.1f} s")
+    seeds = [str(s) for s in MULTI_SEEDS]
+    flags = ["--model", "resnet18", "--no_dropblock", "--no_linear_bias",
+             "--classifier", "linear", "--continual", "--data_root", root,
+             "--tb_path", f"{root}/tb", "--batch_size", str(BATCH),
+             "--save_freq", "100", "--print_freq", "100"]
+
+    def fanout(save, epochs, *own):
+        return _quiet(lambda: run_seeds.main(
+            [*own, "--pretrain", "--vmap", "--seeds", *seeds, "--device",
+             "cuda", "--", *flags, "--epochs", str(epochs), "--model_path",
+             f"{root}/{save}"]))
+
+    with deterministic_cudnn(), cut_continual_split(MS_TRAIN_PER_CLASS,
+                                                    MS_VAL_PER_CLASS):
+        _reset(counters)
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, log = fanout("straight", 2)
+        launches = _launches(counters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(not any(launches.values()),
+              f"the multi-seed pretraining launched {launches}")
+        agg = [float(v) for v in re.findall(
+            r"epoch \d+ \[[\d.]+s, ([\d.]+) img/s aggregate\]", log)]
+        check(len(agg) == 2, "no per-epoch aggregate images/s printed")
+        check(sorted(res["val_acc1"]) == list(MULTI_SEEDS),
+              f"the fan-out's JSON {res}")
+        _, wall_1, _ = fanout("resumed", 1)
+        _, wall_r, log_r = fanout("resumed", 2, "--resume")
+        check(f"==> resuming {len(seeds)} seeds at epoch 2" in log_r,
+              "the resumed fan-out did not start at epoch 2")
+        _reset(counters)
+        single, wall_s, log_s = _quiet(lambda: train_supervised.main(
+            flags + ["--epochs", "2", "--set_seed", "1", "--device", "cuda",
+                     "--model_path", f"{root}/single"]))
+        single_launches = _launches(counters)
+        check(not any(single_launches.values()),
+              f"the single-seed CLI launched {single_launches}")
+    torch.cuda.empty_cache()
+    single_ips = _images_per_sec(log_s, 2)
+    worst = 0.0
+    for s in MULTI_SEEDS:
+        d, _ = ckpt_diff(f"{root}/straight/seed_{s}/resnet18_last.ckpt",
+                         f"{root}/resumed/seed_{s}/resnet18_last.ckpt")
+        worst = max(worst, d)
+    lane, lane_same = ckpt_diff(f"{root}/straight/seed_1/resnet18_last.ckpt",
+                                f"{root}/single/resnet18_last.ckpt")
+    print(f"[rest-multiseed] {len(seeds)} seeds x 2 epochs {wall:.2f} s: "
+          f"aggregate {agg[0]:.1f} / {agg[1]:.1f} images/s (epochs 1/2) "
+          f"against the single-seed CLI's {single_ips:.1f} (epoch 2; "
+          f"{wall_s:.2f} s for 2 epochs), ratio {agg[1] / single_ips:.3f}; "
+          f"peak {peak:.2f} GiB; launches {launches} (single-seed "
+          f"{single_launches})")
+    print(f"[rest-multiseed] 1 epoch {wall_1:.2f} s + resumed epoch 2 "
+          f"{wall_r:.2f} s: resumed vs straight max |diff| {worst:.3e}; "
+          f"lane 1 vs the single-seed CLI max |diff| {lane:.3e}, "
+          f"bit-identical {lane_same} (tolerance {RESUME_ATOL:g})")
+    check(worst <= RESUME_ATOL, f"the resumed fan-out drifts by {worst}")
+    check(lane <= RESUME_ATOL, f"lane 1 drifts from the CLI by {lane}")
+    return dict(ms_agg_ips=agg[1], ms_single_ips=single_ips,
+                ms_peak_gib=peak, ms_launches=launches)
+
+
+def mesh_check():
+    """The mesh's check, tests/test_torch_mesh.py (torch and the port
+    only): ``launch``, ``reference``, ``agreement``, ``cli_agreement``,
+    ``shard_summed_statistics``, ``write_one_step_split``."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_mesh.py")
+    spec = importlib.util.spec_from_file_location("torch_mesh_check", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _repo_env():
+    import os
+    env = dict(os.environ)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    return env
+
+
+def rest_mesh(tmp):
+    """15d: one CLI epoch (phase 10's flags and data) under ``torchrun
+    --nproc_per_node 1`` (NCCL, a mesh of one rank) against the same run
+    without torchrun, both with cuDNN deterministic: within RESUME_ATOL.
+    Then a (2, 1) mesh of two gloo ranks on the one card, one f32 step at
+    phase 7's shapes (full-width resnet18, 84 px, global batch 64, drop
+    rate 0.1), against the single-process step on the global batch, at
+    the CPU test's tolerances (tests/test_torch_mesh.py).  Then the CLI
+    (phase 10's flags) in bf16 and f32 under ``torchrun --nproc_per_node
+    2`` on the card, one step of 64 images at 84 px
+    (``rest_mesh_bf16``)."""
+    from subspace_reg_tpu_torch.models.resnet import WIDTHS
+    mc = mesh_check()
+    root = _phase10_data(tmp)
+    launcher = f"{tmp}/deterministic_train.py"
+    with open(launcher, "w") as f:
+        f.write("import runpy\nimport torch\n"
+                "torch.backends.cudnn.deterministic = True\n"
+                "torch.backends.cudnn.benchmark = False\n"
+                "runpy.run_module('subspace_reg_tpu_torch.train_supervised',"
+                " run_name='__main__', alter_sys=True)\n")
+    env = _repo_env()
+    runs = {}
+    for label, head in (
+            ("plain", [sys.executable, launcher]),
+            ("torchrun", [sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc_per_node", "1",
+                          launcher])):
+        t0 = time.time()
+        p = subprocess.run(head + _pretrain_cli_argv(root, f"mesh_{label}"),
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        check(p.returncode == 0, f"the {label} CLI run exited "
+              f"{p.returncode}:\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+        runs[label] = (time.time() - t0, _images_per_sec(p.stdout, 1),
+                       p.stdout)
+    check("==> mesh 1x1 over 1 ranks (nccl)" in runs["torchrun"][2],
+          "the torchrun run built no NCCL mesh")
+    diff, same = ckpt_diff(f"{root}/mesh_plain/resnet18_last.ckpt",
+                           f"{root}/mesh_torchrun/resnet18_last.ckpt")
+    ms = {k: 1e3 * BATCH / v[1] for k, v in runs.items()}
+    print(f"[rest-mesh] one CLI epoch: without torchrun {ms['plain']:.3f} "
+          f"ms/step ({runs['plain'][0]:.1f} s with the process), under "
+          f"torchrun --nproc_per_node 1 (NCCL) {ms['torchrun']:.3f} ms/step "
+          f"({runs['torchrun'][0]:.1f} s); .ckpt max |diff| {diff:.3e}, "
+          f"bit-identical {same}")
+    check(diff <= RESUME_ATOL, f"the torchrun run drifts by {diff}")
+
+    cfg = dict(widths=list(WIDTHS), n_blocks=[1, 1, 2, 2], img=84,
+               batch=BATCH, n_cls=PRETRAIN_CLASSES, n_store=256,
+               device="cuda", timeout_s=300.0,
+               scenarios=[dict(name="data", n_data=2, n_model=1, steps=1,
+                               mode="device_data")])
+    t0 = time.time()
+    ranks = mc.launch(cfg, 2, f"{tmp}/mesh2")
+    wall = time.time() - t0
+    ref = mc.reference(cfg)
+    reps = [mc.agreement(ref["data"], r["data"]) for r in ranks]
+    same = mc.ranks_identical(ranks, "data")
+    print(f"[rest-mesh] (2, 1) mesh, two gloo ranks with CUDA tensors on "
+          f"the one card, one f32 step at 84 px, global batch {BATCH} "
+          f"({wall:.1f} s with the processes): loss rel "
+          f"{reps[0]['loss_rel']:.2e} (tolerance {mc.LOSS_RTOL:g}),"
+          f" running statistics at {reps[0]['stats_excess']:.3f} of their "
+          f"tolerance, update cosine >= {reps[0]['cos_min']:.6f}, norms "
+          f"within {reps[0]['norm_rel_max']:.2e}; ranks bit-identical "
+          f"{same}")
+    check(all(r["ok"] for r in reps) and same,
+          f"the two-rank step departs from the single-process step: {reps}")
+    out = dict(mesh_plain_ms=ms["plain"], mesh_torchrun_ms=ms["torchrun"],
+               mesh_f32_cos=reps[0]["cos_min"])
+    out.update(rest_mesh_bf16(tmp, mc))
+    return out
+
+
+def conv_rows_by_batch(dev):
+    """Whether each bf16 convolution of the backbone's forward (full-width
+    resnet18, 84 px, cuDNN deterministic, eval mode so rows are
+    independent) gives a rank's 32 rows as it gives rows 0-31 of the
+    64-row batch, and the weight gradient of the 64 rows beside the sum of
+    the two halves' (each rounded to bf16, as each rank's is before the
+    ranks' sum); printed, not held: it explains the bf16 readings
+    below."""
+    import torch.nn.functional as F
+    bb = pretrain_backbone().to(dev).eval()
+    x = torch.randn(64, 3, 84, 84, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    conv, calls = F.conv2d, []
+
+    def record(inp, w, *args, **kwargs):
+        y = conv(inp, w, *args, **kwargs)
+        calls.append((inp, w, args, kwargs, y))
+        return y
+
+    F.conv2d = record
+    try:
+        with torch.no_grad(), deterministic_cudnn():
+            bb(x)
+    finally:
+        F.conv2d = conv
+    rows, grads = [], []
+    with deterministic_cudnn():
+        for inp, w, args, kwargs, y in calls:
+            d = (conv(inp[:32], w, *args, **kwargs) - y[:32]).float().abs()
+            layout = ("channels-last" if inp.is_contiguous(
+                memory_format=torch.channels_last) and inp.shape[1] > 1
+                else "NCHW")
+            name = (f"{inp.shape[1]}->{w.shape[0]} {w.shape[2]}x"
+                    f"{w.shape[3]} at {inp.shape[2]} px {layout}")
+            rows.append((name, float((d > 0).float().mean())))
+            wg = w.detach().requires_grad_(True)
+
+            def grad(part):
+                out = conv(part, wg, *args, **kwargs).float().sum()
+                return torch.autograd.grad(out, wg)[0].float()
+
+            g = grad(inp)
+            grads.append(float((g - grad(inp[:32]) - grad(inp[32:]))
+                               .abs().max() / g.abs().max()))
+    differ = [f"{n} ({100 * v:.2f}%)" for n, v in rows if v > 0]
+    print(f"[rest-mesh] bf16: {len(calls)} convolutions of the backbone's "
+          f"forward; rows of 32 differ from the same rows of 64 in "
+          f"{len(differ)}: {', '.join(differ) or 'none'} (equal: "
+          f"{', '.join(sorted({n for n, v in rows if v == 0}))}); weight "
+          f"gradient of 64 rows vs the two halves' sum: max relative "
+          f"{max(grads):.2e}")
+
+
+def rest_mesh_bf16(tmp, mc):
+    """The CLI data-parallel on the card: ``torchrun --nproc_per_node 2``
+    with both ranks on the one card (gloo, CUDA tensors;
+    tests/test_torch_mesh.py::cli_rank), one step of the global batch (64
+    images at 84 px, one a class; phase 10's flags), on random pixels and
+    on class-coloured images, in bf16 as the CLI computes and in f32
+    (``f32_compute``), each against the single-process CLI of its dtype.
+    The f32 step is held to the CPU test's tolerances (running statistics
+    within rtol 1e-4 / atol 1e-5, each update's cosine >= 0.999 and norm
+    within 1%).  The bf16 step's readings against the single process are
+    printed, and it is held to be as accurate as the single process
+    against the f32 twin, within ``BF16_ACCURACY_MAX``
+    (``bf16_readings``): on the card the ranks' bf16 steps round otherwise
+    than the single process's (``conv_rows_by_batch``)."""
+    import os
+    from subspace_reg_tpu_torch import train_supervised
+    conv_rows_by_batch(torch.device("cuda"))
+    roots = {px: f"{tmp}/mesh_bf16_{px}" for px in ("random", "coloured")}
+    for px, root in roots.items():
+        mc.write_one_step_split(f"{root}/data/miniImageNet", 84, px)
+
+    def argv(root, save, epochs=1):
+        a = _pretrain_cli_argv(root, save)
+        a[a.index("--epochs") + 1] = str(epochs)
+        return a
+
+    runs = [(argv(root, f"mesh_{dt}"), dt) for root in roots.values()
+            for dt in ("bf16", "f32")]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", f"{here}/tests/test_torch_mesh.py",
+         "--cli", json.dumps(runs)],
+        env=_repo_env(), capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    check(p.returncode == 0, f"the two-rank CLI exited "
+          f"{p.returncode}:\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+    check(p.stdout.count("==> mesh 2x1 over 2 ranks (gloo)") == len(runs),
+          "the two-rank CLI built no 2x1 gloo mesh")
+    with deterministic_cudnn():
+        for root in roots.values():
+            _quiet(lambda: train_supervised.main(argv(root, "plain_bf16")))
+            with mc.f32_compute():
+                _quiet(lambda: train_supervised.main(
+                    argv(root, "plain_f32")))
+            _quiet(lambda: train_supervised.main(argv(root, "init", 0)))
+    out = {}
+    for px, root in roots.items():
+        a = argv(root, "")
+        model = a[a.index("--model") + 1]
+        ck = {k: f"{root}/{k}/{model}_last.ckpt" for k in (
+            "mesh_bf16", "mesh_f32", "plain_bf16", "plain_f32", "init")}
+        for dt in ("f32", "bf16"):
+            r = mc.cli_agreement(ck[f"plain_{dt}"], ck[f"mesh_{dt}"],
+                                 ck["init"])
+            check(r["step"] == 1, f"{px} {dt}: not one step")
+            print(f"[rest-mesh] {dt} CLI, two gloo ranks on the card, {px} "
+                  f"pixels, against the single process: running "
+                  f"statistics at {r['stats_excess']:.3f} of their "
+                  f"tolerance, update cosine >= {r['cos_min']:.6f}, norms "
+                  f"within {r['norm_rel_max']:.2e}")
+            out[f"mesh_{dt}_{px}_cos"] = r["cos_min"]
+            out[f"mesh_{dt}_{px}_stats"] = r["stats_excess"]
+            if dt == "f32":
+                check(r["ok"], f"the two-rank f32 CLI step departs "
+                      f"({px}): {r}")
+        d = mc.bf16_readings(ck["plain_bf16"], ck["mesh_bf16"],
+                             ck["plain_f32"], ck["init"])
+        print(f"[rest-mesh] bf16, {px} pixels, against the f32 twin: the "
+              f"two-rank step's error over the single process's, updates "
+              f"<= {d['accuracy_update']:.4f}, running statistics <= "
+              f"{d['accuracy_stats']:.4f} (at most "
+              f"{mc.BF16_ACCURACY_MAX:g}); its distance from the single "
+              f"process over that process's error, updates <= "
+              f"{d['departure_update']:.4f}, statistics <= "
+              f"{d['departure_stats']:.4f}; update cosine against the f32 "
+              f"twin >= {d['cos_plain_f32']:.6f} (single process), "
+              f"{d['cos_got_f32']:.6f} (two ranks)")
+        check(d["ok"], f"the two-rank bf16 CLI step is less accurate than "
+              f"the single process ({px}): {d}")
+        out.update({f"mesh_bf16_{px}_{k}": v for k, v in d.items()
+                    if k != "ok"})
+    print(f"[rest-mesh] the two-rank CLI runs took {wall:.1f} s with the "
+          f"processes")
+    return out
+
+
+def phase_pretrain_rest(tmp, counters, dev):
+    """Phase 15: the streamed loader, the streamed CLI, multi-seed
+    pretraining with resume and the mesh, each part timed, the launch
+    counters set to 0 before each part and read after it: no launch of
+    K1, K2 or K3 on these paths (15d's CLI runs are processes of their
+    own, where the counters cannot be read)."""
+    out, total = {}, {c.__name__: 0 for c in counters}
+    for name, fn, args in (("15a rest loader", rest_loader, (dev,)),
+                           ("15b rest cli", rest_cli, (tmp,)),
+                           ("15c rest multiseed", rest_multiseed,
+                            (tmp, counters)),
+                           ("15d rest mesh", rest_mesh, (tmp,))):
+        _reset(counters)
+        out.update(timed(name, fn, *args))
+        for k, v in _launches(counters).items():
+            total[k] += v
+    print(f"[rest] launches on phase 15's paths: {total}")
+    check(not any(total.values()), f"phase 15 launched {total}")
+    out["rest_launches"] = total
+    return out
+
+
 def sass_count(lib: str, opcode: str) -> int:
     """Instructions of ``opcode`` in a built library's SASS, read with the
     toolkit's ``cuobjdump -sass``."""
@@ -2696,6 +3406,10 @@ def main(argv=None) -> int:
         # phase 14: the engine's other modes and the predict API
         modes = phase_modes(tmp, counters, small_root, eval_run, golden, k1)
         k1["save_preds_launches"] = modes["save_preds_launches"]
+        # phase 15: the streamed loader, multi-seed pretraining, the mesh
+        rest = phase_pretrain_rest(tmp, counters, dev)
+        for kname, n in rest["rest_launches"].items():
+            rows[kname]["pretrain_rest_launches"] = n
 
     print_times()
     print(smi)

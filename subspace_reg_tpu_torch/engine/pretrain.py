@@ -24,12 +24,22 @@ the JAX package's ``.ckpt`` (utils/checkpoint.py) with its optimizer
 state and step in ``extra``, as JAX ``train_supervised.py:112-136,325-355``
 saves and resumes it.
 
-Distillation (``teacher``, the NCE/CRD steps) and the device mesh are not
-ported yet and raise (ROADMAP.md queue A).
+Under a mesh (parallel/mesh.py, on ``torch.distributed``) each rank takes
+its rows of the global batch and the step equals the single-device step
+on the global batch: the augmentation and the dropout/DropBlock masks are
+drawn for the global batch and sliced to the rank's rows, BatchNorm
+and DropBlock reduce their batch statistics over the data ranks, the
+classifier's rows are
+split over the model ranks (logits gathered along the classes before the
+loss), and the gradients are reduced to the global batch's mean.
+
+Distillation (``teacher``, the NCE/CRD steps) is not ported yet and raises
+(ROADMAP.md queue A).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, Optional
 
@@ -39,9 +49,13 @@ import torch
 from ..data.transforms import AugmentSpec
 from ..models.fused_forward import can_fuse, fused_forward
 from ..models.head import Head, torch_linear_init
+from ..models.layers import cross_replica
 from ..models.resnet import ResNetRFS
 from ..ops import augment as aug_ops
 from ..ops import losses
+from ..ops.augment import AugmentDraws
+from ..parallel import mesh as mesh_lib
+from ..utils import optim
 from ..utils.optim import Schedule, set_lr
 from ..weights import (from_jax_variables, optimizer_from_jax,
                        optimizer_to_jax, to_jax_variables)
@@ -117,12 +131,44 @@ def restore_pretrain_state(state: PretrainState, variables, head: Head,
     return int(meta.get("epoch", 0)) + 1
 
 
+def make_schedule(opt, steps_per_epoch: int):
+    """The learning-rate schedule of ``opt`` (train_supervised.py:95-101):
+    cosine, or step decay at ``lr_decay_epochs_list``."""
+    if opt.cosine:
+        return optim.cosine_schedule(
+            opt.learning_rate, opt.lr_decay_rate, opt.epochs,
+            steps_per_epoch)
+    return optim.step_decay_schedule(
+        opt.learning_rate, opt.lr_decay_epochs_list, opt.lr_decay_rate,
+        steps_per_epoch)
+
+
+def make_tx(opt):
+    """``params -> torch.optim`` optimizer of ``opt``
+    (train_supervised.py:102-106): Adam with the JAX package's weight
+    decay, or SGD with momentum."""
+    if opt.adam:
+        return functools.partial(optim.adam_torch,
+                                 learning_rate=opt.learning_rate,
+                                 weight_decay=optim.ADAM_WEIGHT_DECAY)
+    return functools.partial(optim.sgd_torch,
+                             learning_rate=opt.learning_rate,
+                             momentum=opt.momentum,
+                             weight_decay=opt.weight_decay)
+
+
 def _logits(state: PretrainState, feats: torch.Tensor,
             with_bias: bool) -> torch.Tensor:
     logits = feats @ state.head["w"].T
     if with_bias:
         logits = logits + state.head["b"]
     return logits
+
+
+def _rows_of_draws(d: AugmentDraws, rows: slice) -> AugmentDraws:
+    return AugmentDraws(offsets=d.offsets[rows], flip=d.flip[rows],
+                        jitter_factors=d.jitter_factors[rows],
+                        jitter_order=d.jitter_order[rows])
 
 
 def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
@@ -142,22 +188,40 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
     ``pretrain_dropout(step)``.  ``fused=True`` runs stages 1-2 through the
     fused block with ``fused_backend``: ``"pallas"`` launches the
     hand-written CUDA kernels K2/K3 (their plain versions on CPU tensors),
-    ``"xla"`` runs the same program as torch ops."""
-    if mesh is not None:
-        raise NotImplementedError("the device mesh is not ported yet")
+    ``"xla"`` runs the same program as torch ops.
+
+    With ``mesh`` (parallel/mesh.py) ``x_u8`` and ``y`` are this rank's
+    rows of the global batch (``mesh_lib.shard_batch``) and the metrics
+    are the global batch's."""
     if teacher is not None:
         raise NotImplementedError("distillation is not ported yet")
+    if mesh is not None and fused and mesh.world_size > 1:
+        raise NotImplementedError(
+            "the fused step under a mesh of more than one rank: its K2 "
+            "epilogue statistics are not reduced over the ranks")
+    n_data = 1 if mesh is None else mesh.n_data
+    sync = None if mesh is None or mesh.n_data == 1 else mesh.data_group
 
     def train_step(state: PretrainState, x_u8: torch.Tensor,
                    y: torch.Tensor) -> Metrics:
         s = state.step
         if schedule is not None:
             set_lr(state.optimizer, schedule(s))
-        x = aug_ops.augment_batch(
-            x_u8, spec, draws.pretrain_augment(s, x_u8.shape[0], spec))
+        n_local = x_u8.shape[0]
+        if n_data == 1:
+            aug = draws.pretrain_augment(s, n_local, spec)
+            gen = draws.pretrain_dropout(s)
+        else:
+            # the global batch's draws, this rank's rows
+            n_global = n_local * n_data
+            rows = mesh_lib.batch_sharding(mesh, n_global)
+            aug = _rows_of_draws(
+                draws.pretrain_augment(s, n_global, spec), rows)
+            gen = mesh_lib.rows_of(draws.pretrain_dropout(s), n_global,
+                                   rows)
+        x = aug_ops.augment_batch(x_u8, spec, aug)
         # NHWC in memory is an NCHW tensor in channels_last
         x = x.permute(0, 3, 1, 2)
-        gen = draws.pretrain_dropout(s)
         backbone.train()
         if fused:
             if not can_fuse(backbone, x.shape[2], True):
@@ -166,21 +230,43 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
                                  "size divisible by 4")
             feats = fused_forward(backbone, x, gen, backend=fused_backend)
         else:
-            feats = backbone(x, generator=gen)
-        logits = _logits(state, feats, with_bias)
-        loss = losses.cross_entropy(logits, y)
+            with cross_replica(backbone, sync):
+                feats = backbone(x, generator=gen)
+        n_model = 1 if mesh is None else mesh.n_model
+        if n_model == 1:
+            logits = _logits(state, feats, with_bias)
+        else:
+            n_cls = state.head["w"].shape[0]
+            cls = mesh_lib.head_sharding(mesh, n_cls)
+            local = feats @ state.head["w"][cls].T
+            if with_bias:
+                local = local + state.head["b"][cls]
+            logits = mesh_lib.gather_classes(mesh, local, n_cls)
+        ce = losses.cross_entropy(logits, y)
+        loss = ce
+        penalty = None
         if label_pull is not None:
             # pretraining pull penalty (train_supervised.py:231-235):
             # attractors computed from the classifier itself
             w = state.head["w"]
             scores = pull_embeds @ pull_embeds.T
             probs = torch.softmax(scores / temperature, dim=1)
-            loss = loss + label_pull * torch.sum(torch.square(probs @ w - w))
+            penalty = label_pull * torch.sum(torch.square(probs @ w - w))
+            # every model rank adds it; the reduced gradient counts it once
+            loss = loss + (penalty if n_model == 1 else penalty / n_model)
         acc1, acc5 = losses.accuracy_topk(logits.detach(), y)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            mesh_lib.reduce_gradients(
+                mesh, [p for g in state.optimizer.param_groups
+                       for p in g["params"]])
         state.optimizer.step()
         state.step += 1
+        if mesh is not None and n_data > 1:
+            ce, acc1, acc5 = mesh_lib.mean_over_data(
+                mesh, torch.stack([ce.detach(), acc1, acc5]))
+            loss = ce if penalty is None else ce + penalty
         return {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
 
     return train_step
@@ -189,14 +275,19 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
 def make_train_step_device_data(backbone: ResNetRFS,
                                 schedule: Optional[Schedule],
                                 spec: AugmentSpec, with_bias: bool, draws,
-                                **kw):
+                                mesh=None, **kw):
     """Device-resident dataset: the whole uint8 image store and the labels
     live on the card and each step gathers its batch there from an index
-    vector, so no image crosses from the host per step."""
-    base = make_train_step(backbone, schedule, spec, with_bias, draws, **kw)
+    vector, so no image crosses from the host per step.  Under ``mesh``
+    every rank keeps the whole store and ``idxs`` is the global batch's
+    index vector: each rank gathers only its shard of it."""
+    base = make_train_step(backbone, schedule, spec, with_bias, draws,
+                           mesh=mesh, **kw)
 
     def train_step(state: PretrainState, data_u8: torch.Tensor,
                    labels: torch.Tensor, idxs: torch.Tensor) -> Metrics:
+        if mesh is not None:
+            idxs = mesh_lib.shard_batch(mesh, idxs)
         return base(state, data_u8[idxs], labels[idxs])
 
     return train_step

@@ -6,10 +6,15 @@ Counterpart of ``subspace_reg_tpu/models/layers.py``:
   ``F.batch_norm``: train mode normalizes with the single-pass biased
   variance E[x^2]-E[x]^2, a ``sample_mask`` restricts the statistics to the
   valid rows of a padded batch (the replay-memory buffer), and the running
-  variance is updated with the unbiased estimate at momentum 0.1.
+  variance is updated with the unbiased estimate at momentum 0.1.  With
+  ``sync_group`` set (``cross_replica``), the train-mode statistics are
+  those of the global batch: the per-channel sums, sums of squares and
+  counts are all-reduced over the data-parallel ranks (parallel/mesh.py),
+  the gradient through them too.
 * ``dropblock`` reproduces models/resnet_language.py:303-357 (block-mask
   geometry and the countM/count_ones normalization) with the seeds drawn
-  from a caller-supplied ``torch.Generator``.
+  from a caller-supplied ``torch.Generator``; given a process group, the
+  normalization counts the global batch's mask.
 * ``SELayer`` is the working squeeze-excitation the JAX package ships.
 
 bf16 compute (pretraining): activations arrive in bf16 while parameters
@@ -22,6 +27,7 @@ The f32 path is unchanged.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -54,6 +60,8 @@ class TorchBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        # a process group: reduce the train-mode statistics over it
+        self.sync_group = None
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)
@@ -66,7 +74,9 @@ class TorchBatchNorm(nn.Module):
         xs = x if in_dtype == torch.float32 else x.to(torch.float32)
         if self.training:
             axes = (0, 2, 3)
-            if sample_mask is None:
+            if self.sync_group is not None:
+                mean, var, n = self._global_stats(xs, sample_mask)
+            elif sample_mask is None:
                 mean = xs.mean(axes)
                 # single-pass biased variance (JAX layers.py:96)
                 var = (xs * xs).mean(axes) - mean * mean
@@ -102,19 +112,78 @@ class TorchBatchNorm(nn.Module):
         b = (self.bias - mean * inv * self.weight).to(in_dtype)
         return x * a.reshape(c) + b.reshape(c)
 
+    @staticmethod
+    def local_sums(xs: torch.Tensor,
+                   sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Σx and Σx² per channel and the count (masked rows left out) of
+        this batch, concatenated: (2C + 1,) f32."""
+        axes = (0, 2, 3)
+        if sample_mask is None:
+            n = torch.full((1,), float(xs.numel() // xs.shape[1]),
+                           dtype=xs.dtype, device=xs.device)
+            s1, s2 = xs.sum(axes), (xs * xs).sum(axes)
+        else:
+            m = sample_mask.reshape(-1, 1, 1, 1).to(xs.dtype)
+            n = (sample_mask.sum() * (xs.shape[2] * xs.shape[3])).reshape(
+                1).to(xs.dtype)
+            s1, s2 = (xs * m).sum(axes), ((xs * xs) * m).sum(axes)
+        return torch.cat([s1, s2, n])
 
-def apply_dropblock(x: torch.Tensor, seeds: torch.Tensor,
-                    block_size: int) -> torch.Tensor:
+    @staticmethod
+    def stats_of_sums(tot: torch.Tensor, c: int):
+        """(mean, single-pass biased variance, count) from ``local_sums``
+        added over shards."""
+        n = tot[2 * c]
+        mean = tot[:c] / n
+        return mean, tot[c:2 * c] / n - mean * mean, n.detach()
+
+    def _global_stats(self, xs: torch.Tensor,
+                      sample_mask: Optional[torch.Tensor]):
+        """(mean, biased variance, count) of the global batch: the sums
+        summed over ``sync_group`` with an autograd-aware all-reduce, then
+        the single-pass variance."""
+        from ..parallel.mesh import all_reduce_sum
+        tot = all_reduce_sum(self.local_sums(xs, sample_mask),
+                             self.sync_group)
+        return self.stats_of_sums(tot, xs.shape[1])
+
+
+@contextlib.contextmanager
+def cross_replica(module: nn.Module, group):
+    """Inside the block, every batch-level statistic of ``module``'s
+    train-mode forward is taken over ``group``'s ranks: the BatchNorm
+    statistics and DropBlock's normalization (each submodule with a
+    ``sync_group``; no-op for None)."""
+    mods = [m for m in module.modules() if hasattr(m, "sync_group")]
+    for m in mods:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.sync_group = None
+
+
+def apply_dropblock(x: torch.Tensor, seeds: torch.Tensor, block_size: int,
+                    group=None) -> torch.Tensor:
     """Dilate the (B, C, H-bs+1, W-bs+1) 0/1 ``seeds`` into bs x bs blocks
     on the H x W canvas, zero them in ``x`` and rescale by
-    numel/count_ones (reference resnet_language.py:318-357)."""
+    numel/count_ones (reference resnet_language.py:318-357), both counted
+    over ``group``'s ranks when one is given (the global batch's mask;
+    exact in f32 below 2^24 elements)."""
     bs = block_size
     canvas = F.pad(seeds, (0, bs - 1, 0, bs - 1))
     # block[i, j] = max of canvas over the trailing bs x bs window; seeds
     # are >= 0, so zero padding equals the reference's -inf padding
     block = F.max_pool2d(F.pad(canvas, (bs - 1, 0, bs - 1, 0)), bs, stride=1)
     block_mask = 1.0 - block
-    return block_mask * x * (block_mask.numel() / block_mask.sum())
+    if group is None:
+        return block_mask * x * (block_mask.numel() / block_mask.sum())
+    import torch.distributed as dist
+    counts = torch.stack([block_mask.new_tensor(float(block_mask.numel())),
+                          block_mask.sum()])
+    dist.all_reduce(counts, group=group)
+    return block_mask * x * (counts[0] / counts[1])
 
 
 def uniform(shape, generator, device) -> torch.Tensor:
@@ -128,13 +197,13 @@ def uniform(shape, generator, device) -> torch.Tensor:
 
 
 def dropblock(x: torch.Tensor, gamma: torch.Tensor, block_size: int,
-              generator) -> torch.Tensor:
+              generator, group=None) -> torch.Tensor:
     """The seeds and the mask are f32 whatever x's dtype, so a bf16 input
     comes out f32, as in the JAX package."""
     b, c, h, w = x.shape
     bs = block_size
     u = uniform((b, c, h - bs + 1, w - bs + 1), generator, x.device)
-    return apply_dropblock(x, (u < gamma).to(torch.float32), bs)
+    return apply_dropblock(x, (u < gamma).to(torch.float32), bs, group)
 
 
 def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:

@@ -83,6 +83,8 @@ class BasicBlock(nn.Module):
                                             TorchBatchNorm(planes))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
+        # a process group: DropBlock normalizes over it (layers.py)
+        self.sync_group = None
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # reference checkpoints keep the counter as a plain attribute, not
@@ -119,7 +121,8 @@ class BasicBlock(nn.Module):
                 gamma = dropblock_gamma(self.drop_rate,
                                         self.num_batches_tracked,
                                         out.shape[2], self.block_size)
-                out = dropblock(out, gamma, self.block_size, generator)
+                out = dropblock(out, gamma, self.block_size, generator,
+                                self.sync_group)
             else:
                 out = dropout(out, self.drop_rate, generator)
         return out

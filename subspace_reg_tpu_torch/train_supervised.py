@@ -9,21 +9,33 @@ plus ``--device`` (default ``cuda``; ``cpu`` runs the plain versions):
 
 miniImageNet (continual or not), tieredImageNet (``train_a``, with
 ``train_b`` pooled under ``--augment_pretrain_wtrainb``) and CIFAR-FS /
-FC100 (continual, or the per-partition pickles).  The dataset lives on the
-device and each step gathers its batch there (the device-data path).  The
-step is the module path in bf16, as the JAX CLI builds it; the fused stages
+FC100 (continual, or the per-partition pickles).  A training split of at
+most ``DEVICE_DATA_MAX_BYTES`` (default 2 GiB) lives on the device and
+each step gathers its batch there (the device-data path); a larger one
+(tieredImageNet at its real size) streams from the host through
+``data.pipeline.PrefetchLoader``, batch for batch the same run.  The step
+is the module path in bf16, as the JAX CLI builds it; the fused stages
 1-2 (K2/K3) are reached through ``engine.pretrain.make_train_step(fused=
 True)``.  Checkpoints are the JAX package's ``.ckpt`` (``<model>_last.ckpt``,
 ``ckpt_epoch_<e>.ckpt``) with the optimizer state and step, which the JAX
 CLI's ``--reload_path`` and loaders read; ``--reload_path`` resumes from
-either package's ``.ckpt`` and reproduces the uninterrupted run.  Not
-ported yet, and refused: distillation, the mesh and the host-streamed
-loader (ROADMAP.md queue A).
+either package's ``.ckpt`` and reproduces the uninterrupted run.
+
+Under ``torchrun`` (one process a card) the CLI trains data-parallel on
+a mesh of every rank (parallel/mesh.py; NCCL on cards, gloo with
+``--device cpu``): ``--batch_size`` is the global batch, each rank steps
+on its rows, rank 0 alone prints, logs and saves, and validation runs on
+the replicated state:
+
+  torchrun --nproc_per_node 8 -m subspace_reg_tpu_torch.train_supervised \
+      <flags>
+
+Distillation is not ported yet and is refused (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
 
-import functools
+import contextlib
 import os
 import sys
 import time
@@ -34,12 +46,13 @@ import torch
 from .config import parse_option_supervised
 from .data.cifar import load_cifar, load_cifar_continual
 from .data.mini_imagenet import load_mini_imagenet
+from .data.pipeline import PrefetchLoader
 from .data.tiered_imagenet import load_tiered_imagenet
 from .data.transforms import transforms_options
 from .engine import pretrain as pt
 from .engine.draws import TorchDraws
 from .models.factory import create_model
-from .utils import optim as optim_lib
+from .parallel import mesh as mesh_lib
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.device import resolve_device
 from .utils.logging import AverageMeter, MetricWriter
@@ -48,17 +61,21 @@ from .utils.logging import AverageMeter, MetricWriter
 def device_data_max_bytes() -> int:
     """The largest training split staged on the device, from the
     ``DEVICE_DATA_MAX_BYTES`` environment variable (default 2 GiB), as the
-    JAX CLI reads it (train_supervised.py:269-270).  A larger split needs
-    the host-streamed loader (PrefetchLoader), which is not ported."""
+    JAX CLI reads it (train_supervised.py:269-270).  A larger split
+    streams from the host (``PrefetchLoader``)."""
     return int(os.environ.get("DEVICE_DATA_MAX_BYTES", 2 * 1024 ** 3))
 
 
-def load_splits(opt):
+def load_splits(opt, lazy: bool = False):
     """(train split, validation split, n_cls) per dataset, as the JAX CLI
-    loads them (train_supervised.py:46-70)."""
+    loads them (train_supervised.py:46-70).  ``lazy`` returns the
+    continual splits' images as ``LazyRows`` views of the cached pickle
+    (the multi-seed fan-out's one shared store)."""
     if opt.dataset == "miniImageNet":
-        train = load_mini_imagenet(opt, split="train", phase="train")
-        val = load_mini_imagenet(opt, split="train", phase="val")
+        train = load_mini_imagenet(opt, split="train", phase="train",
+                                   lazy=lazy)
+        val = load_mini_imagenet(opt, split="train", phase="val",
+                                 lazy=lazy)
         return train, val, 80 if opt.use_trainval else (
             60 if opt.continual else 64)
     if opt.dataset == "tieredImageNet":
@@ -67,8 +84,10 @@ def load_splits(opt):
         return train, val, 448 if opt.use_trainval else 351
     if opt.dataset in ("CIFAR-FS", "FC100"):
         if opt.continual:
-            return (load_cifar_continual(opt, split="train", phase="train"),
-                    load_cifar_continual(opt, split="train", phase="val"),
+            return (load_cifar_continual(opt, split="train", phase="train",
+                                         lazy=lazy),
+                    load_cifar_continual(opt, split="train", phase="val",
+                                         lazy=lazy),
                     60)
         train = load_cifar(opt, partition="train")
         return train, load_cifar(opt, partition="val"), max(train.labels) + 1
@@ -85,10 +104,37 @@ def main(argv=None):
     opt = parse_option_supervised(argv)
     _refuse_unported(opt)
     device = resolve_device(opt.device)
+    mesh = None
+    own_group = False
+    if mesh_lib.under_torchrun():
+        # one process a card: a data-parallel mesh of every rank
+        own_group = not torch.distributed.is_initialized()
+        device = mesh_lib.init_distributed(device.type)
+        mesh = mesh_lib.create_mesh(device=device)
+    try:
+        if mesh is not None and mesh.rank != 0:
+            # rank 0 alone prints
+            with open(os.devnull, "w") as sink, \
+                    contextlib.redirect_stdout(sink):
+                return _train(opt, device, mesh)
+        return _train(opt, device, mesh)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(opt, device, mesh):
+    rank0 = mesh is None or mesh.rank == 0
     print("************* Training arguments *************")
     for k, v in vars(opt).items():
         print(k, v)
     print("End of arguments.\n")
+    if mesh is not None:
+        print(f"==> mesh {mesh.n_data}x{mesh.n_model} over "
+              f"{mesh.world_size} ranks ({torch.distributed.get_backend()})")
+        if opt.batch_size % mesh.n_data:
+            raise ValueError(f"--batch_size {opt.batch_size} does not split "
+                             f"over {mesh.n_data} ranks")
 
     np.random.seed(opt.set_seed)
 
@@ -117,31 +163,11 @@ def main(argv=None):
     torch.manual_seed(opt.set_seed)
     backbone = create_model(opt.model, opt, dataset=opt.dataset,
                             dtype=torch.bfloat16)
-    if opt.cosine:
-        sched = optim_lib.cosine_schedule(
-            opt.learning_rate, opt.lr_decay_rate, opt.epochs,
-            steps_per_epoch)
-    else:
-        sched = optim_lib.step_decay_schedule(
-            opt.learning_rate, opt.lr_decay_epochs_list, opt.lr_decay_rate,
-            steps_per_epoch)
-    if opt.adam:
-        tx = functools.partial(optim_lib.adam_torch,
-                               learning_rate=opt.learning_rate,
-                               weight_decay=optim_lib.ADAM_WEIGHT_DECAY)
-    else:
-        tx = functools.partial(optim_lib.sgd_torch,
-                               learning_rate=opt.learning_rate,
-                               momentum=opt.momentum,
-                               weight_decay=opt.weight_decay)
+    sched = pt.make_schedule(opt, steps_per_epoch)
     state = pt.init_pretrain_state(
-        backbone, n_cls, tx, with_bias=opt.linear_bias,
+        backbone, n_cls, pt.make_tx(opt), with_bias=opt.linear_bias,
         generator=torch.Generator().manual_seed(opt.set_seed),
         device=device)
-    step = pt.make_train_step_device_data(
-        backbone, sched, train_spec, with_bias=opt.linear_bias,
-        draws=TorchDraws(opt.set_seed, device), label_pull=opt.label_pull,
-        pull_embeds=pull_embeds)
     # resume (JAX train_supervised.py:112-136): parameters, BN statistics,
     # counters, the optimizer state and the step, whose per-step draws
     # follow from it
@@ -150,6 +176,10 @@ def main(argv=None):
         start_epoch = pt.restore_pretrain_state(
             state, *load_checkpoint(opt.reload_path))
         print(f"==> resumed from {opt.reload_path} at epoch {start_epoch}")
+    if mesh is not None:
+        # every rank starts from rank 0's state
+        mesh_lib.replicate_tree(mesh, state.backbone)
+        mesh_lib.replicate_tree(mesh, state.head)
     eval_step = pt.make_eval_step(
         backbone, test_spec, with_bias=opt.linear_bias,
         truncate_classes=(200 if (opt.dataset == "tieredImageNet"
@@ -157,25 +187,53 @@ def main(argv=None):
                           else None),
         faithful_nbt=opt.faithful_nbt)
 
-    logger = MetricWriter(opt.tb_folder)
+    logger = MetricWriter(opt.tb_folder) if rank0 else None
     rng_np = np.random.RandomState(opt.set_seed)
     # the skipped epochs' shuffles, so a resumed run draws the batches of
     # the uninterrupted one (JAX train_supervised.py:258-262)
     for _ in range(start_epoch - 1):
         rng_np.permutation(n_train)
 
-    # the dataset on the device: each step sends only its index vector
-    if train_split.imgs.nbytes > device_data_max_bytes():
-        raise NotImplementedError(
-            f"a {train_split.imgs.nbytes / 1e9:.1f} GB training split needs "
-            "the host-streamed loader, which is not ported yet")
-    print(f"==> staging dataset on {device} "
-          f"({train_split.imgs.nbytes / 1e6:.0f} MB)")
-    data_dev = torch.from_numpy(np.ascontiguousarray(train_split.imgs)).to(
-        device)
-    labels_dev = torch.from_numpy(train_labels).to(device)
-    val_dev = torch.from_numpy(np.ascontiguousarray(val_split.imgs)).to(
-        device)
+    step_kw = dict(with_bias=opt.linear_bias,
+                   draws=TorchDraws(opt.set_seed, device),
+                   label_pull=opt.label_pull, pull_embeds=pull_embeds,
+                   mesh=mesh)
+    if train_split.imgs.nbytes <= device_data_max_bytes():
+        # the dataset on the device: each step sends only its index
+        # vector (every rank of a mesh holds the whole store and gathers
+        # its shard of the index vector)
+        print(f"==> staging dataset on {device} "
+              f"({train_split.imgs.nbytes / 1e6:.0f} MB)")
+        data_dev = torch.from_numpy(
+            np.ascontiguousarray(train_split.imgs)).to(device)
+        labels_dev = torch.from_numpy(train_labels).to(device)
+        val_imgs = torch.from_numpy(
+            np.ascontiguousarray(val_split.imgs)).to(device)
+        step_dd = pt.make_train_step_device_data(backbone, sched,
+                                                 train_spec, **step_kw)
+        loader = None
+
+        def batches():
+            for idxs in pt.epoch_batches(rng_np, n_train, opt.batch_size):
+                yield len(idxs), step_dd, (
+                    data_dev, labels_dev, torch.from_numpy(idxs).to(device))
+    else:
+        # host-streamed (JAX train_supervised.py:320-326): the loader
+        # draws the same permutation per epoch from rng_np
+        print(f"==> streaming dataset from the host "
+              f"({train_split.imgs.nbytes / 1e6:.0f} MB)")
+        loader = PrefetchLoader(
+            train_split.imgs, train_labels, opt.batch_size, rng_np,
+            device=device,
+            shard=None if mesh is None else (mesh.data_index, mesh.n_data))
+        step_host = pt.make_train_step(backbone, sched, train_spec,
+                                       **step_kw)
+        val_imgs = val_split.imgs
+        n_data = 1 if mesh is None else mesh.n_data
+
+        def batches():
+            for x, y in loader.epoch():
+                yield len(x) * n_data, step_host, (x, y)
 
     def save(epoch, final=False):
         meta = {}
@@ -190,6 +248,10 @@ def main(argv=None):
                         head, meta, extra=extra)
         print("==> Saved", name)
 
+    def log_value(*args):
+        if logger is not None:
+            logger.log_value(*args)
+
     # ---- training loop (train_supervised.py:156-202) --------------------
     for epoch in range(start_epoch, opt.epochs + 1):
         if not opt.eval_only:
@@ -197,11 +259,8 @@ def main(argv=None):
             t0 = time.time()
             lm, a1m, a5m = AverageMeter(), AverageMeter(), AverageMeter()
             n_img = 0
-            for bi, idxs in enumerate(pt.epoch_batches(
-                    rng_np, n_train, opt.batch_size)):
-                idx_dev = torch.from_numpy(idxs).to(device)
-                m = step(state, data_dev, labels_dev, idx_dev)
-                bsz = len(idxs)
+            for bi, (bsz, step, args) in enumerate(batches()):
+                m = step(state, *args)
                 n_img += bsz
                 if bi % opt.print_freq == 0:
                     lm.update(float(m["loss"]), bsz)
@@ -218,25 +277,31 @@ def main(argv=None):
             ips = n_img / dt
             print(f"epoch {epoch}, total time {dt:.2f}, "
                   f"images/sec {ips:.1f}")
+            if loader is not None and loader.n_batches:
+                print(f"loader: mean wait for a batch "
+                      f"{1e3 * loader.wait_s / loader.n_batches:.3f} ms")
             print(f" * Acc@1 {a1m.avg:.3f} Acc@5 {a5m.avg:.3f}")
-            logger.log_value("train_acc", a1m.avg, epoch)
-            logger.log_value("train_loss", lm.avg, epoch)
-            logger.log_value("images_per_sec", ips, epoch)
+            log_value("train_acc", a1m.avg, epoch)
+            log_value("train_loss", lm.avg, epoch)
+            log_value("images_per_sec", ips, epoch)
 
-        vm = pt.run_validation(eval_step, state, val_dev, val_labels,
+        # every rank validates its replica, which keeps the replicas'
+        # counters equal under --faithful_nbt
+        vm = pt.run_validation(eval_step, state, val_imgs, val_labels,
                                opt.batch_size // 2)
         if opt.faithful_nbt:
             vm, state = vm
         print(f" * Val Acc@1 {vm['acc1']:.3f} Acc@5 {vm['acc5']:.3f}")
-        logger.log_value("test_acc", vm["acc1"], epoch)
-        logger.log_value("test_acc_top5", vm["acc5"], epoch)
-        logger.log_value("test_loss", vm["loss"], epoch)
+        log_value("test_acc", vm["acc1"], epoch)
+        log_value("test_acc_top5", vm["acc5"], epoch)
+        log_value("test_loss", vm["loss"], epoch)
 
-        if epoch % opt.save_freq == 0:
+        if epoch % opt.save_freq == 0 and rank0:
             save(epoch)
 
-    save(opt.epochs, final=True)
-    logger.close()
+    if rank0:
+        save(opt.epochs, final=True)
+        logger.close()
     return state
 
 

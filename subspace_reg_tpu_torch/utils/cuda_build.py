@@ -1,11 +1,14 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native code: its hand-written CUDA kernels
+and its host staging library.
 
 Each ``csrc/*.cu`` source has a plain ``extern "C"`` launcher and is built
 with ``nvcc`` into a shared library under ``subspace_reg_tpu_torch/_build/``
 (listed in ``.gitignore``) at first use, then loaded with ``ctypes``.  The
-library name carries a hash of the source, the headers under ``csrc/`` and
-the flags, so an edited source or header is rebuilt.  Nothing here runs at
-import time, and a failed build raises.
+host library ``csrc/staging.cpp`` (the streamed loader's batch gather) is
+built the same way with ``g++``.  The library name carries a hash of the
+source, the headers under ``csrc/`` and the flags, so an edited source or
+header is rebuilt.  Nothing here runs at import time, and a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -27,9 +30,12 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {"finetune_loop": "finetune_loop.cu",
            "conv3x3_fused": "conv3x3_fused.cu",
            "block_tail": "block_tail.cu"}
+# host libraries (g++, no CUDA) -> source file under csrc/
+HOST_SOURCES = {"staging": "staging.cpp"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -45,22 +51,47 @@ def nvcc_path() -> str:
                        "csrc/ at first use and need the CUDA toolkit")
 
 
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the host staging library is built "
+                       "from csrc/staging.cpp at first use and needs a C++ "
+                       "compiler")
+
+
+def _source(name: str) -> Path:
+    return CSRC_DIR / (HOST_SOURCES.get(name) or SOURCES[name])
+
+
+def _command(name: str, out: Path):
+    src = _source(name)
+    if name in HOST_SOURCES:
+        return [gxx_path(), *GXX_FLAGS, "-o", str(out), str(src),
+                "-lpthread"]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
     """The library's path, named by a hash of its source, every header
     under csrc/ (any source may include one) and the flags."""
-    h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(_source(name).read_bytes())
+    if name in HOST_SOURCES:
+        h.update(" ".join(GXX_FLAGS).encode())
+    else:
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Build the named kernels (default: all), one ``nvcc`` per source, all
-    started together.  Returns per kernel: ``path``, ``seconds`` (0 when
-    the library was already built) and ``ptxas`` (nvcc's -Xptxas -v
-    report).  Raises if any build fails."""
+    """Build the named libraries (default: every CUDA kernel), one
+    compiler per source, all started together.  Returns per library:
+    ``path``, ``seconds`` (0 when it was already built) and ``ptxas``
+    (nvcc's -Xptxas -v report; g++'s output for a host library).  Raises
+    if any build fails."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -72,8 +103,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             out[name] = {"path": str(target), "seconds": 0.0, "ptxas": ""}
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / SOURCES[name])]
+        cmd = _command(name, tmp)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
@@ -81,7 +111,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     for name, (proc, tmp, target) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failed.append(f"{name}: {os.path.basename(proc.args[0])} exited "
+                          f"{proc.returncode}\n{log}")
             continue
         os.replace(tmp, target)
         out[name] = {"path": str(target), "seconds": time.time() - t0,
@@ -92,7 +123,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built first if needed."""
+    """The named library, built first if needed."""
     if name not in _LIBS:
         path = build_all([name])[name]["path"]
         _LIBS[name] = ctypes.CDLL(path)

@@ -28,6 +28,11 @@ def test_every_module_imports_without_jax():
     assert "subspace_reg_tpu_torch.ops.finetune" in mods
     assert "subspace_reg_tpu_torch.engine.predict" in mods
     assert "subspace_reg_tpu_torch.utils.artifacts" in mods
+    # the streamed loader (and csrc/staging.cpp's ctypes binding), the
+    # mesh, the multi-seed trainer
+    for name in ("data.native", "data.pipeline", "parallel.mesh",
+                 "engine.multiseed_pretrain"):
+        assert f"subspace_reg_tpu_torch.{name}" in mods, name
     code = "\n".join(
         ["import sys, importlib"]
         + [f"sys.modules[{name!r}] = None" for name in BLOCKED]

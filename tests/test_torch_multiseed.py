@@ -277,9 +277,10 @@ def test_run_seeds_argv_per_seed():
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--pretrain"], NotImplementedError, "A item 7"),
-    (["--shard_seeds"], NotImplementedError, "A item 7"),
-    (["--resume"], NotImplementedError, "A item 7"),
+    # sequential pretraining needs a folder a seed
+    (["--pretrain"], SystemExit, "--model_path"),
+    (["--shard_seeds"], ValueError, "--pretrain --vmap"),
+    (["--resume"], ValueError, "--pretrain --vmap"),
     (["--pallas", "off"], ValueError, "hand-written"),
     (["--pallas", "interpret"], ValueError, "hand-written"),
 ])

@@ -5,9 +5,10 @@ reference's printed lines, a saved ``.ckpt`` that the JAX package's loader
 and the port's read, the metric log, ``--reload_path`` (1 epoch, then a
 resumed second, equals 2 epochs straight: atol 1e-6, as
 tests/test_train_cli.py holds the JAX CLI; resuming across the packages is
-``slow``), the other datasets (CIFAR-FS per-partition pickles at 32 px;
-tieredImageNet with ``train_b`` pooled), and the refusal of what is not
-ported."""
+``slow``), the host-streamed path (a split above
+``DEVICE_DATA_MAX_BYTES``: bit-identical to the device-data run), the
+other datasets (CIFAR-FS per-partition pickles at 32 px; tieredImageNet
+with ``train_b`` pooled), and the refusal of what is not ported."""
 
 import json
 import os
@@ -99,13 +100,29 @@ def test_device_data_limit_follows_the_environment(monkeypatch, limit, want):
     assert train_supervised.device_data_max_bytes() == want
 
 
-def test_split_above_the_device_data_limit_is_refused(root, monkeypatch):
+def test_split_above_the_device_data_limit_is_refused(root, monkeypatch,
+                                                      capsys):
     """Below the split's size the CLI does not stage it (the default
-    stages it: ``test_one_epoch_prints_saves_and_logs``); the host-streamed
-    loader it would need is not ported."""
-    monkeypatch.setenv("DEVICE_DATA_MAX_BYTES", "1")
-    with pytest.raises(NotImplementedError, match="host-streamed"):
-        train_supervised.main(_argv(root))
+    stages it: ``test_one_epoch_prints_saves_and_logs``): it streams the
+    split from the host (``PrefetchLoader``), and the streamed run is
+    bit-identical to the device-data run (``DEVICE_DATA_MAX_BYTES=0``,
+    as the JAX CLI's branch, train_supervised.py:271,320-326)."""
+    def run(save):
+        return train_supervised.main(_argv(root, "--model_path",
+                                           os.path.join(root, save)))
+    staged = run("staged")
+    assert "==> staging dataset on cpu" in capsys.readouterr().out
+    monkeypatch.setenv("DEVICE_DATA_MAX_BYTES", "0")
+    streamed = run("streamed")
+    out = capsys.readouterr().out
+    assert "==> streaming dataset from the host" in out
+    assert "loader: mean wait for a batch" in out
+    assert streamed.step == staged.step == 4
+    _assert_same_run(_final(staged), _final(streamed), atol=0)
+    for p, q in zip(staged.optimizer.param_groups[0]["params"],
+                    streamed.optimizer.param_groups[0]["params"]):
+        assert torch.equal(staged.optimizer.state[p]["momentum_buffer"],
+                           streamed.optimizer.state[q]["momentum_buffer"])
 
 
 def _final(state):
