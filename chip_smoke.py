@@ -131,6 +131,29 @@ Phases; any failure raises and the script exits non-zero:
               process at the CPU test's tolerances, in bf16 as accurate
               as the single process against its f32 twin.  K1, K2 and K3
               launch 0 times on these paths.
+  16. distill  distillation pretraining and the mapping trainer: (a) KD
+              at full width (resnet18, 84 px, batch 64, bf16, a seeded
+              64-class resnet18 teacher, T 4, alpha = beta = 1): the
+              fused "pallas" KD step against the module KD step inside
+              phase 7's envelope, the counters around it (K2 6, K3 2,
+              K1 0), then 20 timed steps each of the module step, module
+              KD and fused KD in two rounds, the teacher's statistics and
+              counters unchanged; (b) NCE/CRD at the RFS geometry over
+              15a's 30,000-image store (feat_dim 128, nce_k 16384, T
+              0.07, m 0.5): one ``nce_forward`` card against CPU (rtol
+              1e-5, updated rows atol 1e-6, untouched rows bit-identical)
+              and its time in each contrast form, then 20 timed steps
+              each of NCE in the three forms and of CRD; (c) the CLI's
+              ``--distill kd|crd|nce`` one epoch each on phase 10's data
+              with phase 10's ``.ckpt`` as the teacher, and on a split
+              cut to 20 images a class (cuDNN deterministic) ``--distill
+              nce`` 2 epochs straight against 1 + a resumed 1,
+              bit-identical, and 1 epoch streamed from the host against
+              staged, within ``RESUME_ATOL``; (d) ``learn_mapping``
+              on the card from phase 11's seed-1 weights (60 base rows,
+              300 -> 640, 1000 epochs) against the CPU, then the
+              8-session mapping configuration on the mapped ``.ckpt``
+              through the eval CLI (K1 8 launches).
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -1500,24 +1523,43 @@ def pretrain_backbone(widths=None, drop_rate: float = 0.1, seed: int = 0,
                      widths=widths or WIDTHS, dtype=torch.bfloat16)
 
 
-def pretrain_state(backbone, device, n_cls: int = PRETRAIN_CLASSES):
-    """A fresh state over a copy of ``backbone``: golden SGD (lr 0.05,
-    momentum 0.9, wd 5e-4), no linear bias, the head drawn from seed 1."""
-    import copy
+def golden_tx():
+    """The golden SGD (lr 0.05, momentum 0.9, wd 5e-4) as ``params ->
+    optimizer``."""
     import functools
-    from subspace_reg_tpu_torch.engine.pretrain import init_pretrain_state
     from subspace_reg_tpu_torch.utils.optim import sgd_torch
-    tx = functools.partial(sgd_torch, learning_rate=0.05, momentum=0.9,
-                           weight_decay=5e-4)
-    return init_pretrain_state(copy.deepcopy(backbone), n_cls, tx, False,
-                               torch.Generator().manual_seed(1), device)
+    return functools.partial(sgd_torch, learning_rate=0.05, momentum=0.9,
+                             weight_decay=5e-4)
+
+
+def pretrain_state(backbone, device, n_cls: int = PRETRAIN_CLASSES):
+    """A fresh state over a copy of ``backbone``: golden SGD, no linear
+    bias, the head drawn from seed 1."""
+    import copy
+    from subspace_reg_tpu_torch.engine.pretrain import init_pretrain_state
+    return init_pretrain_state(copy.deepcopy(backbone), n_cls, golden_tx(),
+                               False, torch.Generator().manual_seed(1),
+                               device)
+
+
+def pretrain_teacher(device, widths=None, n_cls: int = PRETRAIN_CLASSES,
+                     seed: int = 7):
+    """A KD teacher ``(module, head_w, None)``: a bf16 resnet18-RFS with
+    weights and a ``torch.nn.Linear``-initialized ``n_cls``-row head drawn
+    from ``seed``, in eval mode on ``device``."""
+    from subspace_reg_tpu_torch.models.head import torch_linear_init
+    module = pretrain_backbone(widths, seed=seed).to(device).eval()
+    w, _ = torch_linear_init(n_cls, module.feature_dim, False,
+                             torch.Generator().manual_seed(seed))
+    return module, w.to(device), None
 
 
 def pretrain_step(state, device, fused: bool, backend: str = "xla",
-                  transform: str = "A"):
+                  transform: str = "A", teacher=None):
     """The device-data step over ``state``'s backbone (golden schedule:
     decay at epochs 60 and 80, 100 steps an epoch; ``transform`` 'A' at
-    84 px, 'D' at CIFAR's 32 px)."""
+    84 px, 'D' at CIFAR's 32 px), with the KD term when a ``teacher`` is
+    given (T 4, alpha and beta 1)."""
     from subspace_reg_tpu_torch.data.transforms import transforms_options
     from subspace_reg_tpu_torch.engine.draws import TorchDraws
     from subspace_reg_tpu_torch.engine.pretrain import (
@@ -1526,7 +1568,8 @@ def pretrain_step(state, device, fused: bool, backend: str = "xla",
     spec, _ = transforms_options[transform]
     return make_train_step_device_data(
         state.backbone, step_decay_schedule(0.05, [60, 80], 0.1, 100), spec,
-        False, TorchDraws(1, device), fused=fused, fused_backend=backend)
+        False, TorchDraws(1, device), fused=fused, fused_backend=backend,
+        teacher=teacher)
 
 
 def _named_params(state):
@@ -1537,14 +1580,16 @@ def _named_params(state):
 
 def step_agreement(device, backbone, data, labels, idxs,
                    backend: str = "pallas", n_cls: int = PRETRAIN_CLASSES,
-                   transform: str = "A"):
+                   transform: str = "A", teacher=None):
     """The fused step against the module step from the same weights and
     batch, inside the chaos-control envelope of
     tests/test_fused_forward.py:55-125: loss within 3%, running statistics
     within 0.05 (rtol and atol), every block counter at 1, and per
     parameter the fused-vs-module update difference at most 3x that of the
     module step from weights perturbed by 0.4% (bf16's half ulp), or 2% of
-    the update.  Both steps draw the same augmentation and dropout.
+    the update.  Both steps draw the same augmentation and dropout.  With
+    a KD ``teacher`` every step carries its term, and the teacher's
+    statistics and counters must be unchanged.
     Returns (module loss, fused loss, worst difference / allowance)."""
     s_ref = pretrain_state(backbone, device, n_cls)
     s_ctl = pretrain_state(backbone, device, n_cls)
@@ -1558,12 +1603,19 @@ def step_agreement(device, backbone, data, labels, idxs,
             p.mul_(1.0 + 0.004 * noise.to(p.device))
     init_ctl = {k: v.detach().clone()
                 for k, v in _named_params(s_ctl).items()}
-    m_ref = pretrain_step(s_ref, device, False, transform=transform)(
-        s_ref, data, labels, idxs)
-    pretrain_step(s_ctl, device, False, transform=transform)(
-        s_ctl, data, labels, idxs)
-    m_fus = pretrain_step(s_fus, device, True, backend, transform)(
-        s_fus, data, labels, idxs)
+    t_bufs = None if teacher is None else {
+        k: v.clone() for k, v in teacher[0].state_dict().items()}
+    m_ref = pretrain_step(s_ref, device, False, transform=transform,
+                          teacher=teacher)(s_ref, data, labels, idxs)
+    pretrain_step(s_ctl, device, False, transform=transform,
+                  teacher=teacher)(s_ctl, data, labels, idxs)
+    m_fus = pretrain_step(s_fus, device, True, backend, transform,
+                          teacher)(s_fus, data, labels, idxs)
+    if teacher is not None:
+        check(all(torch.equal(v, t_bufs[k]) for k, v in
+                  teacher[0].state_dict().items()),
+              "the KD steps moved the teacher's weights, statistics or "
+              "counters")
     l_ref, l_fus = float(m_ref["loss"]), float(m_fus["loss"])
     check(abs(l_fus - l_ref) <= 0.03 * abs(l_ref),
           f"fused loss {l_fus} vs module {l_ref}")
@@ -2581,6 +2633,22 @@ def deterministic_cudnn():
         cudnn.deterministic, cudnn.benchmark = pinned
 
 
+@contextlib.contextmanager
+def device_data_limit(limit):
+    """``DEVICE_DATA_MAX_BYTES`` set to ``limit`` (None: unset, the CLI's
+    default) inside the block."""
+    import os
+    old = os.environ.pop("DEVICE_DATA_MAX_BYTES", None)
+    if limit is not None:
+        os.environ["DEVICE_DATA_MAX_BYTES"] = limit
+    try:
+        yield
+    finally:
+        os.environ.pop("DEVICE_DATA_MAX_BYTES", None)
+        if old is not None:
+            os.environ["DEVICE_DATA_MAX_BYTES"] = old
+
+
 def host_store(n_cls: int, per_class: int, img: int = 84, seed: int = 0):
     """(uint8 images, int64 labels) in host memory: seeded random bytes
     (every row distinct), ``per_class`` rows a class."""
@@ -2852,7 +2920,6 @@ def rest_cli(tmp):
     """15b: the pretraining CLI for one epoch on phase 10's data, streamed
     (``DEVICE_DATA_MAX_BYTES=0``) and staged (the default), cuDNN
     deterministic: the two ``.ckpt`` files within RESUME_ATOL."""
-    import os
     from subspace_reg_tpu_torch import train_supervised
     root = _phase10_data(tmp)
     out = {}
@@ -2860,16 +2927,9 @@ def rest_cli(tmp):
         for label, limit, line in (
                 ("streamed", "0", "==> streaming dataset from the host"),
                 ("device", None, "==> staging dataset on")):
-            old = os.environ.pop("DEVICE_DATA_MAX_BYTES", None)
-            if limit is not None:
-                os.environ["DEVICE_DATA_MAX_BYTES"] = limit
-            try:
+            with device_data_limit(limit):
                 state, wall, log = _quiet(lambda: train_supervised.main(
                     _pretrain_cli_argv(root, f"rest_{label}")))
-            finally:
-                os.environ.pop("DEVICE_DATA_MAX_BYTES", None)
-                if old is not None:
-                    os.environ["DEVICE_DATA_MAX_BYTES"] = old
             check(line in log, f"the {label} CLI run did not print {line!r}")
             check(state.step == 100, f"{label}: {state.step} steps")
             out[label] = (wall, _images_per_sec(log, 1))
@@ -3244,6 +3304,390 @@ def phase_pretrain_rest(tmp, counters, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: distillation pretraining and the mapping trainer
+# --------------------------------------------------------------------------
+DISTILL_STEPS = 20
+# the RFS contrastive geometry (the CLI's defaults, JAX config.py:199-202)
+NCE_FEAT, NCE_K, NCE_T, NCE_M = 128, 16384, 0.07, 0.5
+KD_LAUNCHES = {"conv3x3_fused": 6, "block_tail": 2}     # per fused step
+
+
+def _timed_rounds(tag, runs, counters, want, steps: int = DISTILL_STEPS):
+    """``steps`` timed calls of each ``runs[label](i)`` (i = 3.. after
+    3 warm-up calls), in two rounds (in order, then reversed); host clock
+    around work ending in a synchronise; every launch counter set to 0
+    just before each timed run and read just after, checked against
+    ``want[label]`` per step (0 where absent).  Returns ({label: [ms per
+    step of each round]}, {label: the first round's launches})."""
+    labels = list(runs)
+    ms, first = {k: [] for k in labels}, {}
+    for order in (labels, labels[::-1]):
+        for label in order:
+            for i in range(3):
+                runs[label](i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(counters)
+            t0 = time.time()
+            for i in range(steps):
+                m = runs[label](3 + i)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = _launches(counters)
+            check(math.isfinite(float(m["loss"])), f"{label}: loss not "
+                  "finite")
+            for k, n in launches.items():
+                check(n == steps * want.get(label, {}).get(k, 0),
+                      f"{label}: {k} launched {n} times in {steps} steps")
+            first.setdefault(label, launches)
+            ms[label].append(1e3 * wall / steps)
+            print(f"[{tag}] {label}: {ms[label][-1]:.3f} ms/step, "
+                  f"{BATCH * steps / wall:.1f} images/s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                  f"final loss {float(m['loss']):.4f}; launches "
+                  f"{launches}")
+    return ms, first
+
+
+def distill_kd(dev, counters, widths=None, img: int = 84,
+               steps: int = DISTILL_STEPS):
+    """16a: KD at full width (resnet18-RFS 64/160/320/640, 84 px, batch
+    64, bf16, golden flags; a seeded resnet18 teacher over the same 64
+    classes, T 4, alpha = beta = 1).  The fused "pallas" KD step against
+    the module KD step inside phase 7's envelope, the counters set to 0
+    just before and read just after (K2 6, K3 2, K1 0: the one fused
+    step); then ``steps`` timed device-data steps each of the plain
+    module step, module KD and fused KD in two rounds.  The teacher's
+    weights, statistics and counters must not move."""
+    data, labels = pretrain_data(dev, img=img)
+    teacher = pretrain_teacher(dev, widths)
+    bufs = {k: v.clone() for k, v in teacher[0].state_dict().items()}
+    idxs = torch.from_numpy(np.random.RandomState(2).randint(
+        0, len(labels), BATCH)).to(dev)
+    _reset(counters)
+    l_ref, l_fus, worst = step_agreement(dev, pretrain_backbone(widths),
+                                         data, labels, idxs,
+                                         teacher=teacher)
+    launches = _launches(counters)
+    print(f"[distill-kd] loss module KD {l_ref:.6f} fused-pallas KD "
+          f"{l_fus:.6f}; worst update difference {worst:.3f} of its "
+          f"allowance; launches around the three steps {launches}")
+    check(launches == dict(finetune_loop=0, **KD_LAUNCHES),
+          f"the KD agreement's launches {launches}")
+    bb = pretrain_backbone(widths)
+    r = np.random.RandomState(3)
+    batches = [torch.from_numpy(r.randint(0, len(labels), BATCH)).to(dev)
+               for _ in range(steps + 3)]
+    runs = {}
+    for label, fused, t in (("module", False, None),
+                            ("module KD", False, teacher),
+                            ("fused KD", True, teacher)):
+        st = pretrain_state(bb, dev)
+        step = pretrain_step(st, dev, fused, "pallas", teacher=t)
+        runs[label] = (lambda i, st=st, step=step:
+                       step(st, data, labels, batches[i]))
+    ms, first = _timed_rounds("distill-kd", runs, counters,
+                              {"fused KD": KD_LAUNCHES}, steps)
+    check(all(torch.equal(v, bufs[k]) for k, v in
+              teacher[0].state_dict().items()),
+          "the KD steps moved the teacher's statistics or counters")
+    return dict(kd_launches=first["fused KD"],
+                kd_agree_worst=worst,
+                **{f"kd_{k.replace(' ', '_').lower()}_ms": v
+                   for k, v in ms.items()})
+
+
+def _unit(r, n, d, dev):
+    v = torch.from_numpy(r.standard_normal((n, d)).astype(np.float32))
+    return (v / v.norm(dim=1, keepdim=True)).to(dev)
+
+
+def distill_nce(dev, counters, n_cls: int = REST_CLASSES,
+                per_class: int = REST_PER_CLASS, widths=None,
+                img: int = 84, nce_k: int = NCE_K,
+                steps: int = DISTILL_STEPS):
+    """16b: NCE and CRD at the RFS geometry over 15a's store (60 x 500
+    images at 84 px, so N = 30,000 and each bank 15.4 MB; feat_dim 128,
+    nce_k 16384, T 0.07, m 0.5, batch 64).  One ``nce_forward`` from one
+    state on the card against the same call on the CPU (out_l/out_ab and
+    Z within rtol 1e-5, updated rows within atol 1e-6, untouched rows
+    bit-identical; every form against ``auto`` on the card), its time in
+    each form; then ``steps`` timed steps of NCE in each form and of CRD
+    (``auto``), in two rounds, no kernel launch."""
+    from subspace_reg_tpu_torch.data.transforms import transforms_options
+    from subspace_reg_tpu_torch.distill.nce import (
+        CONTRAST_AUTO, NCEAverageState, init_nce_average, nce_forward)
+    from subspace_reg_tpu_torch.engine import pretrain as pt
+    from subspace_reg_tpu_torch.engine.draws import TorchDraws
+    from subspace_reg_tpu_torch.utils.optim import step_decay_schedule
+    imgs, labels = host_store(n_cls, per_class, img)
+    n = len(labels)
+    r = np.random.RandomState(4)
+    state = init_nce_average(torch.Generator().manual_seed(0), n, NCE_FEAT,
+                             nce_k, NCE_T, NCE_M, device="cpu")
+    l, ab = _unit(r, BATCH, NCE_FEAT, "cpu"), _unit(r, BATCH, NCE_FEAT,
+                                                    "cpu")
+    y = torch.from_numpy(r.choice(n, BATCH, replace=False))
+    idx = torch.from_numpy(r.randint(0, n, (BATCH, nce_k + 1)))
+    idx[:, 0] = y
+    t0 = time.time()
+    ref = nce_forward(state, l, ab, y, idx=idx)
+    cpu_s = time.time() - t0
+    on_card = NCEAverageState(**{k: getattr(state, k).to(dev) for k in (
+        "memory_l", "memory_ab", "z_l", "z_ab", "params")})
+    args = (l.to(dev), ab.to(dev), y.to(dev))
+    got = nce_forward(on_card, *args, idx=idx.to(dev))
+    rows = torch.zeros(n, dtype=torch.bool)
+    rows[y] = True
+    err = {}
+    # each side's similarities against f64 ones name the side at fault
+    t = float(state.params[1])
+    for i, (name, bank, v) in enumerate((("out_l", "memory_ab", l),
+                                         ("out_ab", "memory_l", ab))):
+        g, w = got[i].cpu(), ref[i]
+        err[name] = float(((g - w).abs() / w.abs()).max())
+        s64 = torch.einsum("bkd,bd->bk", getattr(state, bank).double()[idx],
+                           v.double())
+        z = (getattr(got[2], "z" + name[3:]).cpu(),
+             getattr(ref[2], "z" + name[3:]))
+        side = {k: float((torch.log(o.double() * zz.double()) * t
+                          - s64).abs().max())
+                for k, o, zz in (("card", g, z[0]), ("CPU", w, z[1]))}
+        check(torch.allclose(g, w, rtol=1e-5, atol=0),
+              f"nce_forward {name}: card and CPU differ by {err[name]:.3e}; "
+              f"each side's similarities against f64: {side}")
+    for z in ("z_l", "z_ab"):
+        g, w = getattr(got[2], z).cpu(), getattr(ref[2], z)
+        check(torch.allclose(g, w, rtol=1e-5, atol=0), f"{z}: {g} vs {w}")
+    for bank in ("memory_l", "memory_ab"):
+        g, w = getattr(got[2], bank).cpu(), getattr(ref[2], bank)
+        err[bank] = float((g[rows] - w[rows]).abs().max())
+        check(err[bank] <= 1e-6, f"{bank}: updated rows differ by "
+              f"{err[bank]:.3e}")
+        check(torch.equal(g[~rows], getattr(state, bank)[~rows]),
+              f"{bank}: an untouched row moved")
+    for mode in ("paired", "gather", "matmul"):
+        other = nce_forward(on_card, *args, idx=idx.to(dev), mode=mode)
+        for i in range(2):
+            check(torch.allclose(other[i], got[i], rtol=1e-5, atol=0),
+                  f"nce_forward {mode} differs from {CONTRAST_AUTO} (auto) "
+                  "on the card")
+    fwd_ms = {mode: cuda_ms(lambda m=mode: nce_forward(
+        on_card, *args, idx=idx.to(dev), mode=m), 10)
+        for mode in ("paired", "gather", "matmul")}
+    print(f"[distill-nce] nce_forward (N {n}, K {nce_k}, D {NCE_FEAT}, B "
+          f"{BATCH}): card against CPU, out_l {err['out_l']:.3e}, out_ab "
+          f"{err['out_ab']:.3e} (rtol 1e-5); updated rows "
+          f"{err['memory_l']:.3e} / {err['memory_ab']:.3e} (atol 1e-6); "
+          f"untouched rows bit-identical; ms per call on the card "
+          f"{ {k: round(v, 4) for k, v in fwd_ms.items()} }, on the CPU "
+          f"{1e3 * cpu_s:.1f}")
+
+    data = torch.from_numpy(imgs).to(dev)
+    labels_dev = torch.from_numpy(labels).to(dev)
+    table = tuple(torch.from_numpy(a).to(dev).long()
+                  for a in pt.build_negative_table(labels, n_cls))
+    teacher = pretrain_teacher(dev, widths, n_cls)
+    bb = pretrain_backbone(widths)
+    batches = [torch.from_numpy(r.choice(n, BATCH, replace=False)).to(dev)
+               for _ in range(steps + 3)]
+    spec, _ = transforms_options["A"]
+    runs = {}
+    for mode, form in (("nce", "paired"), ("nce", "gather"),
+                       ("nce", "matmul"), ("crd", "auto")):
+        st = pretrain_state(bb, dev, n_cls)
+        st, es, et, banks = pt.init_nce_training(
+            torch.Generator().manual_seed(1), st, golden_tx(),
+            teacher[0].feature_dim, bb.feature_dim, NCE_FEAT, n, nce_k,
+            NCE_T, NCE_M, device=dev)
+        step = pt.make_train_step_nce(
+            st.backbone, step_decay_schedule(0.05, [60, 80], 0.1, 100),
+            spec, False, TorchDraws(1, dev), teacher, es, et, n, nce_k,
+            mode=mode, contrast_mode=form)
+        held = {"banks": banks}
+
+        def run(i, st=st, step=step, held=held):
+            held["banks"], m = step.device_data(st, held["banks"], data,
+                                                labels_dev, table,
+                                                batches[i])
+            return m
+        runs[f"{mode.upper()} {form}"] = run
+    ms, _ = _timed_rounds("distill-nce", runs, counters, {}, steps)
+    forms = {k.split()[1]: float(np.mean(v)) for k, v in ms.items()
+             if k.startswith("NCE")}
+    print(f"[distill-nce] NCE step by contrast form, mean of the two "
+          f"rounds: { {k: round(v, 3) for k, v in forms.items()} } ms; "
+          f"fastest {min(forms, key=forms.get)}; 'auto' is "
+          f"{CONTRAST_AUTO}")
+    return dict(nce_forward_ms=fwd_ms, nce_card_cpu_err=err,
+                **{f"{k.lower().replace(' ', '_')}_ms": v
+                   for k, v in ms.items()})
+
+
+# 16c's resume pair runs on a category split cut from phase 10's 100 to
+# 20 images a class (20 steps an epoch)
+DISTILL_RESUME_PER_CLASS = 20
+
+
+def distill_cli(tmp):
+    """16c: ``python -m subspace_reg_tpu_torch.train_supervised
+    --distill kd|crd|nce`` for one epoch each on phase 10's data with
+    phase 10's ``.ckpt`` as the teacher (the CLI's contrastive defaults:
+    feat_dim 128, nce_k 16384 over N = 6400); then ``--distill nce`` 2
+    epochs straight against 1 epoch and a ``--reload_path`` second on the
+    cut split (``DISTILL_RESUME_PER_CLASS``), cuDNN deterministic: every
+    leaf of the two final ``.ckpt``s (weights, statistics, counters,
+    optimizer state, embed heads, banks, Z) bit-identical; and the 1-epoch
+    run streamed from the host (``DEVICE_DATA_MAX_BYTES=0``: the loader
+    with each batch's items) against the staged one, within RESUME_ATOL
+    as 15b holds the plain CLI."""
+    from subspace_reg_tpu_torch import train_supervised
+    from subspace_reg_tpu_torch.data import synthetic
+    root = _phase10_data(tmp)
+    teacher = f"{root}/save/resnet18_last.ckpt"
+    cut = f"{tmp}/distill_cut"
+    synthetic.make_mini_imagenet_category_split(
+        f"{cut}/data/miniImageNet", per_class=DISTILL_RESUME_PER_CLASS,
+        img_size=84, seed=0)
+
+    def cli(data, save, distill, *extra):
+        return _quiet(lambda: train_supervised.main(
+            _pretrain_cli_argv(data, save) + [
+                "--distill", distill, "--teacher_path", teacher, *extra]))
+    out = {}
+    for distill, line in (("kd", "==> KD teacher: resnet18 (64 classes)"),
+                          ("crd", "==> CRD teacher: resnet18, feat_dim=128 "
+                                  "K=16384"),
+                          ("nce", "==> NCE teacher: resnet18")):
+        state, wall, log = cli(root, f"distill_{distill}", distill)
+        check(line in log, f"--distill {distill} did not print {line!r}")
+        check(state.step == 100, f"--distill {distill}: {state.step} steps")
+        out[f"cli_{distill}"] = (wall, _images_per_sec(log, 1))
+    steps = 64 * DISTILL_RESUME_PER_CLASS // BATCH
+    with deterministic_cudnn():
+        cli(cut, "nce1", "nce")
+        with device_data_limit("0"):
+            _, host_wall, host_log = cli(cut, "nce1_host", "nce")
+        cli(cut, "nce2", "nce", "--epochs", "2")
+        state, _, log = cli(cut, "nce_r", "nce", "--epochs", "2",
+                            "--reload_path", f"{cut}/nce1/resnet18_last.ckpt")
+    check("==> streaming dataset from the host" in host_log,
+          "the contrastive run with DEVICE_DATA_MAX_BYTES=0 did not stream")
+    host_diff, host_same = ckpt_diff(f"{cut}/nce1/resnet18_last.ckpt",
+                                     f"{cut}/nce1_host/resnet18_last.ckpt")
+    check("==> resumed contrastive state" in log, "the resumed run did not "
+          "restore its contrastive state")
+    check(state.step == 2 * steps, f"the resumed run ended at step "
+          f"{state.step}, not {2 * steps}")
+    diff, same = ckpt_diff(f"{cut}/nce2/resnet18_last.ckpt",
+                           f"{cut}/nce_r/resnet18_last.ckpt")
+    leaves = ckpt_leaves(f"{cut}/nce_r/resnet18_last.ckpt")
+    check("extra/nce/memory_l" in leaves and "extra/embed_s/linear/kernel"
+          in leaves, "the contrastive .ckpt lacks its banks or heads")
+    print(f"[distill-cli] one epoch (100 steps + validation): "
+          + ", ".join(f"{k[4:]} {w:.2f} s ({ips:.1f} images/s)"
+                      for k, (w, ips) in out.items())
+          + f"; --distill nce on the cut split ({steps} steps an epoch) 2 "
+          f"epochs straight vs 1 + resumed 1: max |diff| {diff:.3e} over "
+          f"{len(leaves)} leaves, bit-identical {same}; 1 epoch streamed "
+          f"from the host {host_wall:.2f} s "
+          f"({_images_per_sec(host_log, 1):.1f} images/s) against staged: max |diff| {host_diff:.3e} "
+          f"(tolerance {RESUME_ATOL:g}), bit-identical {host_same}")
+    check(same, "the resumed contrastive run is not bit-identical")
+    check(host_diff <= RESUME_ATOL, f"the streamed contrastive run drifts "
+          f"by {host_diff}")
+    return {f"{k}_images_per_s": ips for k, (_, ips) in out.items()}
+
+
+def distill_mapping(tmp, counters, dev):
+    """16d: ``python -m subspace_reg_tpu_torch.learn_mapping`` on the
+    card from a continual ``.ckpt`` (phase 11's seed-1 weights, its 60
+    base classes and their names) and a synthetic embedding pickle (60
+    base rows, 300 -> 640, 1000 epochs), its map against
+    ``train_linear_map`` on the CPU (rtol 1e-4, atol 1e-6, as the CPU
+    test holds it against the JAX tool), its seconds; then one 8-session
+    run of the mapping configuration through the eval CLI on the mapped
+    ``.ckpt`` and phase 11's data (K1 8 launches, K2/K3 none)."""
+    import os
+    from subspace_reg_tpu_torch import learn_mapping
+    from subspace_reg_tpu_torch.data import synthetic
+    from subspace_reg_tpu_torch.data.mini_imagenet import load_mini_imagenet
+    from subspace_reg_tpu_torch.models.embeds import get_embeds
+    from subspace_reg_tpu_torch.utils.checkpoint import (load_any,
+                                                         load_checkpoint,
+                                                         save_checkpoint)
+    from subspace_reg_tpu_torch.weights import to_jax_variables
+    root = f"{tmp}/multi"
+    synthetic.make_word_embeds(f"{root}/word_embeds")
+    sd, head, _ = load_any(f"{root}/seed_1/resnet18_last.pth")
+    base = load_mini_imagenet(_golden_opt(root), split="train",
+                              phase="train", lazy=True)
+    n_base = int(head.n_active)
+    os.makedirs(f"{tmp}/mapping", exist_ok=True)
+    src, out = f"{tmp}/mapping/src.ckpt", f"{tmp}/mapping/mapped.ckpt"
+    save_checkpoint(src, to_jax_variables(sd), head,
+                    {"epoch": 100, "training_classes": base.basec_map,
+                     "label2human": base.label2human})
+    t0 = time.time()
+    _, wall, log = _quiet(lambda: learn_mapping.main([
+        "--model_path", src, "--save_path", out, "--word_embed_path",
+        f"{root}/word_embeds", "--device", dev.type]))
+    check("final MSE: " in log, "learn_mapping printed no MSE")
+    mapping = load_checkpoint(out)[2]["mapping_linear_label2image"]
+    vocab = [n for n in base.label2human if n != ""]
+    check(len(vocab) == n_base, f"{len(vocab)} base names, {n_base} rows")
+    e = np.asarray(get_embeds(f"{root}/word_embeds/miniImageNet_dim500"
+                              ".pickle", vocab, 500), np.float32)[:, :300]
+    w_t = np.asarray(head.weight[:n_base].cpu(), np.float32)
+    t0 = time.time()
+    w_cpu, b_cpu = learn_mapping.train_linear_map(e, w_t, device="cpu")
+    cpu_s = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    learn_mapping.train_linear_map(e, w_t, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    err = max(float(np.abs(mapping["weight"] - w_cpu).max()),
+              float(np.abs(mapping["bias"] - b_cpu).max()))
+    check(np.allclose(mapping["weight"], w_cpu, rtol=1e-4, atol=1e-6)
+          and np.allclose(mapping["bias"], b_cpu, rtol=1e-4, atol=1e-6),
+          f"the card's map departs from the CPU's by {err:.3e}")
+    mse = float(np.mean((e @ mapping["weight"].T + mapping["bias"] - w_t)
+                        ** 2))
+    print(f"[distill-mapping] learn_mapping on the card {wall:.2f} s (the "
+          f"1000 epochs alone {card_s:.3f} s; CPU {cpu_s:.3f} s); final "
+          f"MSE {mse:.6e}; card against CPU max |diff| {err:.3e} (rtol "
+          f"1e-4, atol 1e-6)")
+    argv = config_argv("mapping", root) + ["--model_path", out, "--device",
+                                           dev.type]
+    res, wall_run, launches = _eval_cli(argv, counters)
+    print(f"[distill-mapping] mapping configuration on the mapped .ckpt: "
+          f"8-session run {wall_run:.2f} s; epochs "
+          f"{res.epochs_per_session}; novel {res.acc_novel_list}; "
+          f"launches {launches}")
+    check(launches["finetune_loop"] == N_SESSIONS
+          and launches["conv3x3_fused"] == launches["block_tail"] == 0,
+          f"the mapping run's launches {launches}")
+    check(len(res.acc_novel_list) == N_SESSIONS and all(
+        np.all(np.isfinite(getattr(res, k))) for k in
+        ("acc_novel_list", "acc_base_list", "weighted_avg_l")),
+        "the mapping run's trace")
+    return dict(learn_mapping_s=wall, learn_mapping_epochs_s=card_s,
+                mapping_run_s=wall_run)
+
+
+def phase_distill(tmp, counters, dev):
+    """Phase 16: distillation pretraining (KD at full width on the module
+    and fused paths, NCE/CRD at the RFS geometry, the CLI with resume)
+    and the mapping trainer, each part timed."""
+    out = timed("16a distill kd", distill_kd, dev, counters)
+    out.update(timed("16b distill nce", distill_nce, dev, counters))
+    out.update(timed("16c distill cli", distill_cli, tmp))
+    out.update(timed("16d mapping", distill_mapping, tmp, counters, dev))
+    return out
+
+
 def sass_count(lib: str, opcode: str) -> int:
     """Instructions of ``opcode`` in a built library's SASS, read with the
     toolkit's ``cuobjdump -sass``."""
@@ -3410,6 +3854,10 @@ def main(argv=None) -> int:
         rest = phase_pretrain_rest(tmp, counters, dev)
         for kname, n in rest["rest_launches"].items():
             rows[kname]["pretrain_rest_launches"] = n
+        # phase 16: distillation pretraining and the mapping trainer
+        distill = phase_distill(tmp, counters, dev)
+        for kname in KD_LAUNCHES:
+            rows[kname]["distill_launches"] = distill["kd_launches"][kname]
 
     print_times()
     print(smi)

@@ -33,7 +33,9 @@ _JOIN_S = 30.0
 
 class PrefetchLoader:
     """Iterates (x_u8, y) device batches of one epoch with ``depth``-deep
-    prefetch: x (B, H, W, C) uint8, y (B,) int64.
+    prefetch: x (B, H, W, C) uint8, y (B,) int64; with ``with_indices``,
+    (x_u8, y, items) with the batch's dataset items (B,) int64 (the
+    contrastive step's memory-bank rows).
 
     ``rng`` is the ``np.random.RandomState`` the caller shuffles with: each
     ``epoch()`` draws one ``rng.permutation(n)``, as the device-data path
@@ -45,7 +47,8 @@ class PrefetchLoader:
     def __init__(self, imgs: np.ndarray, labels, batch_size: int,
                  rng: np.random.RandomState, drop_last: bool = True,
                  depth: int = 2, device="cuda",
-                 shard: Optional[Tuple[int, int]] = None):
+                 shard: Optional[Tuple[int, int]] = None,
+                 with_indices: bool = False):
         if not isinstance(imgs, np.ndarray):
             imgs = np.asarray(imgs)
         self.imgs = np.ascontiguousarray(imgs)
@@ -62,6 +65,7 @@ class PrefetchLoader:
             # the producer thread sets this device as its current one
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.shard = shard
+        self.with_indices = with_indices
         if shard is not None and batch_size % shard[1]:
             raise ValueError(f"batch {batch_size} does not split into "
                              f"{shard[1]} shards")
@@ -83,19 +87,21 @@ class PrefetchLoader:
         return idxs[index * per:(index + 1) * per]
 
     def _pinned_buffers(self):
-        """``depth + 1`` pinned (x, y) host buffers at the largest batch
-        and the event of each one's last copy, made once per loader."""
+        """``depth + 1`` pinned (x, y, items) host buffers at the largest
+        batch and the event of each one's last copy, made once per
+        loader."""
         if self._pinned is None:
             rows = self.batch_size // (self.shard[1] if self.shard else 1)
             self._pinned = [
-                (torch.empty((rows,) + self.imgs.shape[1:],
-                             dtype=torch.uint8, pin_memory=True),
-                 torch.empty((rows,), dtype=torch.int64, pin_memory=True),
+                ((torch.empty((rows,) + self.imgs.shape[1:],
+                              dtype=torch.uint8, pin_memory=True),
+                  torch.empty((rows,), dtype=torch.int64, pin_memory=True),
+                  torch.empty((rows,), dtype=torch.int64, pin_memory=True)),
                  None)
                 for _ in range(self.depth + 1)]
         return self._pinned
 
-    def epoch(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    def epoch(self) -> Iterator[Tuple[torch.Tensor, ...]]:
         n = len(self.labels)
         order = self.rng.permutation(n)
         end = (n // self.batch_size) * self.batch_size if self.drop_last \
@@ -105,6 +111,7 @@ class PrefetchLoader:
         cuda = self.device.type == "cuda"
         side = torch.cuda.Stream(self.device) if cuda else None
         slots = self._pinned_buffers() if cuda else None
+        n_out = 3 if self.with_indices else 2
 
         def put(item) -> bool:
             # a blocked put wakes up to see the stop flag
@@ -122,25 +129,28 @@ class PrefetchLoader:
                     return
                 idxs = self._rows(order[i:i + self.batch_size])
                 if not cuda:
-                    item = (torch.from_numpy(native.gather_u8(self.imgs,
-                                                              idxs)),
-                            torch.from_numpy(self.labels[idxs]), None)
+                    batch = (torch.from_numpy(native.gather_u8(self.imgs,
+                                                               idxs)),
+                             torch.from_numpy(self.labels[idxs]),
+                             torch.from_numpy(idxs.astype(np.int64)))
+                    item = (batch[:n_out], None)
                 else:
                     s = k % len(slots)
-                    hx, hy, done = slots[s]
+                    host, done = slots[s]
                     if done is not None:
                         # the buffer's previous copy must have finished
                         done.synchronize()
-                    m = len(idxs)
-                    native.gather_u8(self.imgs, idxs, out=hx[:m].numpy())
-                    hy[:m].numpy()[:] = self.labels[idxs]
+                    hx, hy, hi = (h[:len(idxs)] for h in host)
+                    native.gather_u8(self.imgs, idxs, out=hx.numpy())
+                    hy.numpy()[:] = self.labels[idxs]
+                    hi.numpy()[:] = idxs
                     with torch.cuda.stream(side):
-                        x = hx[:m].to(self.device, non_blocking=True)
-                        y = hy[:m].to(self.device, non_blocking=True)
+                        batch = tuple(h.to(self.device, non_blocking=True)
+                                      for h in (hx, hy, hi)[:n_out])
                         ev = torch.cuda.Event()
                         ev.record(side)
-                    slots[s] = (hx, hy, ev)
-                    item = (x, y, ev)
+                    slots[s] = (host, ev)
+                    item = (batch, ev)
                 if not put(item):
                     return
             put(None)
@@ -165,16 +175,17 @@ class PrefetchLoader:
                     break
                 if isinstance(item, Exception):
                     raise item
-                x, y, ev = item
+                batch, ev = item
                 if ev is not None:
                     cur = torch.cuda.current_stream(self.device)
                     cur.wait_event(ev)
-                    # the allocator must not hand x, y to the side stream
-                    # again before the consumer's work on them is done
-                    x.record_stream(cur)
-                    y.record_stream(cur)
+                    # the allocator must not hand the batch's tensors to
+                    # the side stream again before the consumer's work on
+                    # them is done
+                    for tensor in batch:
+                        tensor.record_stream(cur)
                 self.n_batches += 1
-                yield x, y
+                yield batch
         finally:
             stop.set()
             t.join(timeout=_JOIN_S)

@@ -13,7 +13,9 @@ support and the memory forward the same key (incremental.py:1025-1030),
 where the compiled session splits it in two (:886): ``dropout_full``.
 
 Pretraining draws once per step, from ``fold_in(PRNGKey(set_seed), step)``
-split into an augmentation key and a dropout key (engine/pretrain.py:128).
+split into an augmentation key and a dropout key (engine/pretrain.py:128);
+the contrastive-distillation step splits it three ways (:279), the third
+key drawing the (B, nce_k) uniforms that pick the negatives.
 
 The port's engines take these from a draw provider.  ``TorchDraws`` seeds a
 ``torch.Generator`` from the same formulas; threefry's bits cannot be
@@ -62,6 +64,12 @@ def pretrain_augment_seed(set_seed: int, step: int) -> int:
 
 def pretrain_dropout_seed(set_seed: int, step: int) -> int:
     return (set_seed * 1000003 + step) * 2 + 1
+
+
+def pretrain_contrastive_seed(set_seed: int, step: int, part: int) -> int:
+    """The contrastive step's three draws: ``part`` 0 augmentation, 1
+    dropout, 2 the negatives' uniforms."""
+    return (set_seed * 1000003 + step) * 3 + part
 
 
 class TorchDraws:
@@ -125,6 +133,19 @@ class TorchDraws:
         """The generator of pretraining step ``step``'s dropout and
         DropBlock."""
         return self._gen(pretrain_dropout_seed(self.set_seed, step))
+
+    def pretrain_contrastive(self, step: int, n: int, spec: AugmentSpec,
+                             nce_k: int) -> Tuple[AugmentDraws,
+                                                  torch.Generator,
+                                                  torch.Tensor]:
+        """The contrastive step ``step``'s draws: the augmentation of
+        ``n`` images, the dropout generator and (n, nce_k) uniforms in
+        [0, 1) that pick the negatives."""
+        seed = lambda part: pretrain_contrastive_seed(  # noqa: E731
+            self.set_seed, step, part)
+        u = torch.rand((n, nce_k), generator=self._gen(seed(2)),
+                       device=self.device)
+        return self._augment(seed(0), n, spec), self._gen(seed(1)), u
 
 
 def per_seed(seeds: Sequence[int], device, draws=None) -> List:

@@ -33,8 +33,12 @@ classifier's rows are
 split over the model ranks (logits gathered along the classes before the
 loss), and the gradients are reduced to the global batch's mean.
 
-Distillation (``teacher``, the NCE/CRD steps) is not ported yet and raises
-(ROADMAP.md queue A).
+Distillation: ``make_train_step(teacher=...)`` adds the KD term
+(``kd_alpha * CE + kd_beta * DistillKL``) on the module or the fused path,
+the teacher running in eval mode without gradient; ``init_nce_training``
+and ``make_train_step_nce`` are the contrastive (NCE/CRD) step with its two
+embed heads and memory banks (distill/nce.py).  Distillation under a mesh
+of more than one rank raises.
 """
 
 from __future__ import annotations
@@ -47,6 +51,10 @@ import numpy as np
 import torch
 
 from ..data.transforms import AugmentSpec
+from ..distill.criterion import DistillKL, nce_loss, nce_softmax_loss
+from ..distill.embed import Embed, embed_from_jax, embed_to_jax
+from ..distill.nce import (CONTRAST_MODES, NCEAverageState,
+                           init_nce_average, nce_forward)
 from ..models.fused_forward import can_fuse, fused_forward
 from ..models.head import Head, torch_linear_init
 from ..models.layers import cross_replica
@@ -69,6 +77,15 @@ class PretrainState:
     head: Dict[str, torch.nn.Parameter]     # 'w' (n_cls, D), optional 'b'
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # the contrastive step's embed heads (init_nce_training)
+    embed_s: Optional[Embed] = None
+    embed_t: Optional[Embed] = None
+
+    def embeds(self) -> Dict[str, Embed]:
+        """``{"embed_s", "embed_t"}`` of a contrastive state, else {}."""
+        if self.embed_s is None:
+            return {}
+        return {"embed_s": self.embed_s, "embed_t": self.embed_t}
 
 
 def init_pretrain_state(backbone: ResNetRFS, n_cls: int,
@@ -89,29 +106,38 @@ def init_pretrain_state(backbone: ResNetRFS, n_cls: int,
     return PretrainState(backbone=backbone, head=head, optimizer=optimizer)
 
 
-def checkpoint_parts(state: PretrainState):
+def checkpoint_parts(state: PretrainState,
+                     nce_state: Optional[NCEAverageState] = None):
     """(variables, head, extra) of ``state`` for ``utils.checkpoint.
     save_checkpoint``: the JAX-form backbone tree, the head with every row
-    active, and ``{"opt_state", "step"}`` in the JAX state's form."""
+    active, and ``{"opt_state", "step"}`` in the JAX state's form; a
+    contrastive run adds ``embed_s``, ``embed_t`` (flax trees) and
+    ``nce`` (the banks' state dict), as JAX train_supervised.py:345-352
+    saves them."""
     w = state.head["w"].detach()
     b = state.head.get("b")
     head = Head(weight=w, bias=None if b is None else b.detach(),
                 n_active=w.shape[0])
     extra = {"opt_state": optimizer_to_jax(state.optimizer, state.backbone,
-                                           state.head, state.step),
+                                           state.head, state.step,
+                                           state.embeds()),
              "step": np.asarray(state.step, np.int32)}
+    if nce_state is not None:
+        extra.update({k: embed_to_jax(m) for k, m in state.embeds().items()})
+        extra["nce"] = nce_state.to_jax()
     return to_jax_variables(state.backbone.state_dict()), head, extra
 
 
 def restore_pretrain_state(state: PretrainState, variables, head: Head,
-                           meta) -> int:
+                           meta, optimizer: bool = True) -> int:
     """Resume ``state`` in place from a loaded ``.ckpt`` (``utils.
     checkpoint.load_checkpoint``: numpy leaves) as JAX
     ``train_supervised.py:112-136`` does: parameters, BN statistics,
     counters (kept when the checkpoint has none), the head's first
     ``n_cls`` rows, and the optimizer state and step from
-    ``meta["extra"]`` when present.  Returns the epoch to start at,
-    ``meta["epoch"] + 1``."""
+    ``meta["extra"]`` when present and ``optimizer`` (a contrastive run
+    restores those with its embed heads: ``restore_contrastive``).
+    Returns the epoch to start at, ``meta["epoch"] + 1``."""
     sd = dict(state.backbone.state_dict())
     sd.update(from_jax_variables(variables))
     state.backbone.load_state_dict(sd)
@@ -121,14 +147,34 @@ def restore_pretrain_state(state: PretrainState, variables, head: Head,
                 p = state.head[k]
                 p.copy_(torch.from_numpy(np.array(t[:p.shape[0]])))
     extra = meta.get("extra")
-    if extra is not None:
-        count = optimizer_from_jax(state.optimizer, state.backbone,
-                                   state.head, extra["opt_state"])
-        state.step = int(np.asarray(extra["step"]))
-        if count != state.step:
-            raise ValueError(f"the optimizer state counts {count} steps, "
-                             f"the checkpoint {state.step}")
+    if extra is not None and optimizer:
+        _restore_optimizer(state, extra)
     return int(meta.get("epoch", 0)) + 1
+
+
+def _restore_optimizer(state: PretrainState, extra) -> None:
+    count = optimizer_from_jax(state.optimizer, state.backbone, state.head,
+                               extra["opt_state"], state.embeds())
+    state.step = int(np.asarray(extra["step"]))
+    if count != state.step:
+        raise ValueError(f"the optimizer state counts {count} steps, "
+                         f"the checkpoint {state.step}")
+
+
+def restore_contrastive(state: PretrainState, meta, device
+                        ) -> Optional[NCEAverageState]:
+    """The second-phase resume of a contrastive run (JAX
+    train_supervised.py:193-220), after ``init_nce_training``: the
+    optimizer state, step and embed heads in place, and the memory banks
+    returned; None (nothing restored) when the checkpoint has no
+    contrastive state."""
+    extra = meta.get("extra") or {}
+    if "nce" not in extra or "embed_s" not in extra:
+        return None
+    for name, module in state.embeds().items():
+        embed_from_jax(module, extra[name])
+    _restore_optimizer(state, extra)
+    return NCEAverageState.from_jax(extra["nce"], device)
 
 
 def make_schedule(opt, steps_per_epoch: int):
@@ -171,11 +217,30 @@ def _rows_of_draws(d: AugmentDraws, rows: slice) -> AugmentDraws:
                         jitter_order=d.jitter_order[rows])
 
 
+def teacher_features(teacher, x: torch.Tensor) -> torch.Tensor:
+    """The teacher's eval-mode features of ``x`` (NCHW), without
+    gradient: its BN running statistics and block counters stay as they
+    were (JAX ``apply(..., train=False)`` under ``stop_gradient``)."""
+    module = teacher[0]
+    module.eval()
+    with torch.no_grad():
+        return module(x)
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None and mesh.world_size > 1:
+        raise NotImplementedError(
+            "distillation under a mesh of more than one rank is not ported "
+            "(JAX train_supervised.py:221-235)")
+
+
 def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
                     spec: AugmentSpec, with_bias: bool, draws,
                     label_pull: Optional[float] = None,
                     pull_embeds: Optional[torch.Tensor] = None,
                     temperature: float = 1.0, mesh=None, teacher=None,
+                    kd_temperature: float = 4.0, kd_alpha: float = 1.0,
+                    kd_beta: float = 1.0,
                     fused: bool = False, fused_backend: str = "xla"):
     """One pretraining step: augment -> forward (train) -> CE (+ pull) ->
     backward -> optimizer step (reference hot loop
@@ -192,9 +257,16 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
 
     With ``mesh`` (parallel/mesh.py) ``x_u8`` and ``y`` are this rank's
     rows of the global batch (``mesh_lib.shard_batch``) and the metrics
-    are the global batch's."""
+    are the global batch's.
+
+    ``teacher=(module, head_w, head_b)`` adds knowledge distillation:
+    loss = kd_alpha * CE + kd_beta * DistillKL(student, teacher,
+    kd_temperature), the teacher's logits from ``teacher_features`` on the
+    same augmented batch (JAX engine/pretrain.py:106-115); the student
+    takes the module or the fused path as without a teacher.  The teacher
+    must have the student's class count."""
     if teacher is not None:
-        raise NotImplementedError("distillation is not ported yet")
+        _refuse_mesh(mesh)
     if mesh is not None and fused and mesh.world_size > 1:
         raise NotImplementedError(
             "the fused step under a mesh of more than one rank: its K2 "
@@ -244,6 +316,17 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
             logits = mesh_lib.gather_classes(mesh, local, n_cls)
         ce = losses.cross_entropy(logits, y)
         loss = ce
+        if teacher is not None:
+            _, t_w, t_b = teacher
+            t_logits = teacher_features(teacher, x) @ t_w.T
+            if t_b is not None:
+                t_logits = t_logits + t_b
+            if t_logits.shape[1] != logits.shape[1]:
+                raise ValueError(
+                    f"the KD teacher has {t_logits.shape[1]} classes, the "
+                    f"student {logits.shape[1]}")
+            loss = kd_alpha * ce + kd_beta * DistillKL(logits, t_logits,
+                                                       kd_temperature)
         penalty = None
         if label_pull is not None:
             # pretraining pull penalty (train_supervised.py:231-235):
@@ -293,16 +376,136 @@ def make_train_step_device_data(backbone: ResNetRFS,
     return train_step
 
 
-def init_nce_training(*args, **kwargs):
-    """Contrastive (NCE/CRD) distillation state: not ported yet
-    (ROADMAP.md queue A item 8)."""
-    raise NotImplementedError("NCE/CRD distillation is not ported yet")
+def init_nce_training(generator: Optional[torch.Generator],
+                      state: PretrainState, tx, teacher_feat_dim: int,
+                      student_feat_dim: int, feat_dim: int, n_data: int,
+                      nce_k: int, nce_t: float, nce_m: float, device=None):
+    """Extend ``state`` for contrastive (NCE/CRD) distillation (JAX
+    engine/pretrain.py:172-195): two ``Embed(feat_dim)`` heads, student
+    and teacher, drawn from ``generator``, join the state, and the
+    optimizer ``tx(params)`` is rebuilt over the parameters in the JAX
+    tree's order (backbone, embed_s, embed_t, head); the memory banks of
+    ``n_data`` rows are drawn after them.  Returns (state, embed_s,
+    embed_t, NCEAverageState)."""
+    if device is None:
+        device = state.head["w"].device
+    # the heads are drawn on the host from a host generator
+    embed_s = Embed(student_feat_dim, feat_dim, generator).to(device)
+    embed_t = Embed(teacher_feat_dim, feat_dim, generator).to(device)
+    params = (list(state.backbone.parameters())
+              + list(embed_s.parameters()) + list(embed_t.parameters())
+              + list(state.head.values()))
+    state.embed_s, state.embed_t = embed_s, embed_t
+    state.optimizer = tx(params)
+    nce_state = init_nce_average(generator, n_data, feat_dim, nce_k,
+                                 temperature=nce_t, momentum=nce_m,
+                                 device=device)
+    return state, embed_s, embed_t, nce_state
 
 
-def make_train_step_nce(*args, **kwargs):
-    """The contrastive-distillation step: not ported yet (ROADMAP.md queue A
-    item 8)."""
-    raise NotImplementedError("NCE/CRD distillation is not ported yet")
+def build_negative_table(labels: np.ndarray, n_cls: int):
+    """Class-sorted complement-sampling structure for the cls_negative
+    contract (reference dataset/mini_imagenet.py:154-160; JAX
+    engine/pretrain.py:328): uniform negatives from every other class in
+    O(n_data) memory.  Returns int32 (order, class_off, class_cnt):
+    ``order`` is the stable class-sorted permutation of dataset indices;
+    a sample of class c draws a position in [0, n_data - cnt[c]), shifts
+    it past the class block at ``off[c]`` and maps it through ``order``."""
+    labels = np.asarray(labels)
+    order = np.argsort(labels, kind="stable").astype(np.int32)
+    cnt = np.bincount(labels, minlength=n_cls).astype(np.int32)
+    off = np.concatenate([[0], np.cumsum(cnt)[:-1]]).astype(np.int32)
+    return order, off, cnt
+
+
+def draw_negatives(neg_table, y: torch.Tensor, u: torch.Tensor,
+                   n_data: int) -> torch.Tensor:
+    """(B, nce_k) dataset indices, each uniform over the other classes'
+    items, from the (B, nce_k) uniforms ``u`` and the negative table
+    (tensors on ``u``'s device) by the complement trick of JAX
+    engine/pretrain.py:282-292."""
+    order, class_off, class_cnt = neg_table
+    cnt = class_cnt[y][:, None]
+    off = class_off[y][:, None]
+    pos = torch.minimum((u * (n_data - cnt)).to(torch.int32),
+                        n_data - cnt - 1)
+    pos = torch.where(pos >= off, pos + cnt, pos)
+    return order[pos.long()]
+
+
+def make_train_step_nce(backbone: ResNetRFS, schedule: Optional[Schedule],
+                        spec: AugmentSpec, with_bias: bool, draws, teacher,
+                        embed_s: Embed, embed_t: Embed, n_data: int,
+                        nce_k: int, kd_alpha: float = 1.0,
+                        kd_beta: float = 1.0, mode: str = "nce",
+                        contrast_mode: str = "auto", mesh=None):
+    """The contrastive-distillation step (JAX engine/pretrain.py:198-325):
+    augment (the draw provider's ``pretrain_contrastive``: augmentation,
+    dropout and the negatives' uniforms, the JAX step's three-way split)
+    -> student forward (train) -> CE; teacher forward (eval, no
+    gradient); ``embed_s``/``embed_t`` of the two features; negatives by
+    the complement trick, ``idx[:, 0]`` the item itself; the contrast
+    against both memory banks and their update; loss = kd_alpha * CE +
+    kd_beta * (NCE_l + NCE_ab), or with ``mode="crd"`` the InfoNCE
+    softmax criterion on log(out); backward; optimizer step.
+
+    ``train_step(state, nce_state, x_u8, y, items, neg_table)`` takes a
+    uint8 batch, its labels and dataset items and the negative table
+    (``build_negative_table`` as tensors on the device); it updates
+    ``state`` in place and returns (new NCEAverageState, metrics {"loss",
+    "ce", "contrast", "acc1", "acc5"}).  ``train_step.device_data(state,
+    nce_state, data_u8, labels, neg_table, idxs)`` gathers the batch
+    from a device-resident store.  ``contrast_mode`` is the contrast's
+    form, one of ``distill.nce.CONTRAST_MODES``."""
+    _refuse_mesh(mesh)
+    if contrast_mode not in CONTRAST_MODES:
+        raise ValueError(f"unknown NCE contrast mode {contrast_mode!r}; "
+                         f"expected one of {CONTRAST_MODES}")
+
+    def train_step(state: PretrainState, nce_state: NCEAverageState,
+                   x_u8: torch.Tensor, y: torch.Tensor, items: torch.Tensor,
+                   neg_table):
+        s = state.step
+        if schedule is not None:
+            set_lr(state.optimizer, schedule(s))
+        aug, gen, u = draws.pretrain_contrastive(s, x_u8.shape[0], spec,
+                                                 nce_k)
+        x = aug_ops.augment_batch(x_u8, spec, aug).permute(0, 3, 1, 2)
+        backbone.train()
+        feat_s = backbone(x, generator=gen)
+        logits = _logits(state, feat_s, with_bias)
+        ce = losses.cross_entropy(logits, y)
+        feat_t = teacher_features(teacher, x)
+        l = embed_s(feat_s.float())
+        ab = embed_t(feat_t.float())
+        items = items.long()
+        idx = torch.cat([items[:, None],
+                         draw_negatives(neg_table, y.long(), u, n_data)],
+                        dim=1)
+        out_l, out_ab, nce_state = nce_forward(nce_state, l, ab, items,
+                                               idx=idx, mode=contrast_mode)
+        if mode == "crd":
+            log = lambda o: torch.log(torch.clamp_min(o, 1e-20))  # noqa
+            contrast = (nce_softmax_loss(log(out_l))
+                        + nce_softmax_loss(log(out_ab)))
+        else:
+            contrast = nce_loss(out_l, n_data) + nce_loss(out_ab, n_data)
+        loss = kd_alpha * ce + kd_beta * contrast
+        acc1, acc5 = losses.accuracy_topk(logits.detach(), y)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return nce_state, {"loss": loss.detach(), "ce": ce.detach(),
+                           "contrast": contrast.detach(), "acc1": acc1,
+                           "acc5": acc5}
+
+    def device_data(state, nce_state, data_u8, labels, neg_table, idxs):
+        return train_step(state, nce_state, data_u8[idxs], labels[idxs],
+                          idxs, neg_table)
+
+    train_step.device_data = device_data
+    return train_step
 
 
 def make_eval_step(backbone: ResNetRFS, spec: AugmentSpec, with_bias: bool,

@@ -30,7 +30,15 @@ the replicated state:
   torchrun --nproc_per_node 8 -m subspace_reg_tpu_torch.train_supervised \
       <flags>
 
-Distillation is not ported yet and is refused (ROADMAP.md queue A).
+Distillation (JAX train_supervised.py:138-235): ``--distill kd`` adds the
+KL term against a teacher loaded from ``--teacher_path`` (a reference
+``.pth`` or either package's ``.ckpt``; ``--teacher_model`` defaults to
+``--model``); ``--distill nce|crd`` trains two embed heads against two
+memory banks of the training split's size, and its ``.ckpt`` carries the
+heads and banks, so ``--reload_path`` resumes them.  A contrastive run on
+a split above ``DEVICE_DATA_MAX_BYTES`` streams it through
+``PrefetchLoader`` with each batch's items, the same run as on the device.
+Distillation on a mesh of more than one rank is refused.
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ from .engine import pretrain as pt
 from .engine.draws import TorchDraws
 from .models.factory import create_model
 from .parallel import mesh as mesh_lib
-from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.checkpoint import load_any, load_checkpoint, save_checkpoint
 from .utils.device import resolve_device
 from .utils.logging import AverageMeter, MetricWriter
 
@@ -94,15 +102,46 @@ def load_splits(opt, lazy: bool = False):
     raise NotImplementedError(opt.dataset)
 
 
-def _refuse_unported(opt) -> None:
-    if opt.distill != "none":
-        raise NotImplementedError(f"--distill {opt.distill} is not ported "
-                                  "yet")
+def _refuse_unported(opt, mesh) -> None:
+    if opt.distill != "none" and mesh is not None and mesh.world_size > 1:
+        raise NotImplementedError(
+            f"--distill {opt.distill} on a mesh of {mesh.world_size} ranks "
+            "is not ported (JAX train_supervised.py:221-235)")
+
+
+def load_teacher(opt, n_cls: int, device):
+    """The distillation teacher ``(module, head_w, head_b)`` of
+    ``--teacher_path`` (JAX train_supervised.py:138-173): a bf16
+    ``--teacher_model`` (default ``--model``) in eval mode on ``device``,
+    block counters 0 where the checkpoint has none, and the head's active
+    rows.  ``--distill kd`` needs the run's class count."""
+    if not opt.teacher_path:
+        raise ValueError(f"--distill {opt.distill} requires --teacher_path")
+    t_sd, t_head, _ = load_any(opt.teacher_path)
+    t_name = opt.teacher_model or opt.model
+    module = create_model(t_name, opt, dataset=opt.dataset,
+                          dtype=torch.bfloat16)
+    module.load_state_dict(t_sd)
+    module.to(device).eval()
+    n_t = int(t_head.n_active)
+    t_w = t_head.weight[:n_t].to(device)
+    t_b = None if t_head.bias is None else t_head.bias[:n_t].to(device)
+    if opt.distill == "kd":
+        if n_t != n_cls:
+            raise ValueError(
+                f"--distill kd needs a teacher trained on the same classes: "
+                f"teacher head has {n_t}, this run trains {n_cls}")
+        print(f"==> KD teacher: {t_name} ({n_t} classes), "
+              f"T={opt.kd_T} alpha={opt.kd_alpha} beta={opt.kd_beta}")
+    else:
+        print(f"==> {opt.distill.upper()} teacher: {t_name}, "
+              f"feat_dim={opt.feat_dim} K={opt.nce_k} T={opt.nce_t} "
+              f"m={opt.nce_m} alpha={opt.kd_alpha} beta={opt.kd_beta}")
+    return module, t_w, t_b
 
 
 def main(argv=None):
     opt = parse_option_supervised(argv)
-    _refuse_unported(opt)
     device = resolve_device(opt.device)
     mesh = None
     own_group = False
@@ -112,6 +151,7 @@ def main(argv=None):
         device = mesh_lib.init_distributed(device.type)
         mesh = mesh_lib.create_mesh(device=device)
     try:
+        _refuse_unported(opt, mesh)
         if mesh is not None and mesh.rank != 0:
             # rank 0 alone prints
             with open(os.devnull, "w") as sink, \
@@ -170,12 +210,38 @@ def _train(opt, device, mesh):
         device=device)
     # resume (JAX train_supervised.py:112-136): parameters, BN statistics,
     # counters, the optimizer state and the step, whose per-step draws
-    # follow from it
+    # follow from it; a contrastive run restores the optimizer, step, embed
+    # heads and banks after init_nce_training (:193-220)
+    contrastive = opt.distill in ("nce", "crd")
     start_epoch = 1
     if opt.reload_path:
-        start_epoch = pt.restore_pretrain_state(
-            state, *load_checkpoint(opt.reload_path))
+        reloaded = load_checkpoint(opt.reload_path)
+        start_epoch = pt.restore_pretrain_state(state, *reloaded,
+                                                optimizer=not contrastive)
         print(f"==> resumed from {opt.reload_path} at epoch {start_epoch}")
+
+    # ---- distillation teacher and contrastive state (:138-220) ---------
+    teacher = load_teacher(opt, n_cls, device) \
+        if opt.distill != "none" else None
+    nce_state = None
+    if contrastive:
+        state, embed_s, embed_t, nce_state = pt.init_nce_training(
+            torch.Generator().manual_seed(opt.set_seed + 1), state,
+            pt.make_tx(opt), teacher_feat_dim=teacher[0].feature_dim,
+            student_feat_dim=backbone.feature_dim, feat_dim=opt.feat_dim,
+            n_data=n_train, nce_k=opt.nce_k, nce_t=opt.nce_t,
+            nce_m=opt.nce_m, device=device)
+        neg_table = tuple(torch.from_numpy(a).to(device).long() for a in
+                          pt.build_negative_table(train_labels, n_cls))
+        if opt.reload_path:
+            restored = pt.restore_contrastive(state, reloaded[2], device)
+            if restored is not None:
+                nce_state = restored
+                print("==> resumed contrastive state "
+                      "(optimizer + embed heads + NCE banks)")
+            else:
+                print("==> WARNING: checkpoint has no contrastive state; "
+                      "optimizer/banks start fresh")
     if mesh is not None:
         # every rank starts from rank 0's state
         mesh_lib.replicate_tree(mesh, state.backbone)
@@ -195,9 +261,23 @@ def _train(opt, device, mesh):
         rng_np.permutation(n_train)
 
     step_kw = dict(with_bias=opt.linear_bias,
-                   draws=TorchDraws(opt.set_seed, device),
-                   label_pull=opt.label_pull, pull_embeds=pull_embeds,
-                   mesh=mesh)
+                   draws=TorchDraws(opt.set_seed, device), mesh=mesh)
+    if contrastive:
+        step_nce = pt.make_train_step_nce(
+            backbone, sched, train_spec, teacher=teacher, embed_s=embed_s,
+            embed_t=embed_t, n_data=n_train, nce_k=opt.nce_k,
+            kd_alpha=opt.kd_alpha, kd_beta=opt.kd_beta, mode=opt.distill,
+            **step_kw)
+
+        def nce_step(st, run, *args):
+            # the banks thread through the steps
+            nonlocal nce_state
+            nce_state, m = run(st, nce_state, *args)
+            return m
+    else:
+        step_kw.update(label_pull=opt.label_pull, pull_embeds=pull_embeds,
+                       teacher=teacher, kd_temperature=opt.kd_T,
+                       kd_alpha=opt.kd_alpha, kd_beta=opt.kd_beta)
     if train_split.imgs.nbytes <= device_data_max_bytes():
         # the dataset on the device: each step sends only its index
         # vector (every rank of a mesh holds the whole store and gathers
@@ -209,31 +289,45 @@ def _train(opt, device, mesh):
         labels_dev = torch.from_numpy(train_labels).to(device)
         val_imgs = torch.from_numpy(
             np.ascontiguousarray(val_split.imgs)).to(device)
-        step_dd = pt.make_train_step_device_data(backbone, sched,
-                                                 train_spec, **step_kw)
         loader = None
+        if not contrastive:
+            step_dd = pt.make_train_step_device_data(backbone, sched,
+                                                     train_spec, **step_kw)
 
         def batches():
             for idxs in pt.epoch_batches(rng_np, n_train, opt.batch_size):
-                yield len(idxs), step_dd, (
-                    data_dev, labels_dev, torch.from_numpy(idxs).to(device))
+                idxs_dev = torch.from_numpy(idxs).to(device)
+                if contrastive:
+                    yield len(idxs), nce_step, (
+                        step_nce.device_data, data_dev, labels_dev,
+                        neg_table, idxs_dev)
+                else:
+                    yield len(idxs), step_dd, (data_dev, labels_dev,
+                                               idxs_dev)
     else:
-        # host-streamed (JAX train_supervised.py:320-326): the loader
-        # draws the same permutation per epoch from rng_np
+        # host-streamed (JAX train_supervised.py:315-326): the loader
+        # draws the same permutation per epoch from rng_np; a contrastive
+        # step also takes each batch's items, the rows of its banks
         print(f"==> streaming dataset from the host "
               f"({train_split.imgs.nbytes / 1e6:.0f} MB)")
         loader = PrefetchLoader(
             train_split.imgs, train_labels, opt.batch_size, rng_np,
             device=device,
-            shard=None if mesh is None else (mesh.data_index, mesh.n_data))
-        step_host = pt.make_train_step(backbone, sched, train_spec,
-                                       **step_kw)
+            shard=None if mesh is None else (mesh.data_index, mesh.n_data),
+            with_indices=contrastive)
         val_imgs = val_split.imgs
         n_data = 1 if mesh is None else mesh.n_data
+        if not contrastive:
+            step_host = pt.make_train_step(backbone, sched, train_spec,
+                                           **step_kw)
 
         def batches():
-            for x, y in loader.epoch():
-                yield len(x) * n_data, step_host, (x, y)
+            for batch in loader.epoch():
+                if contrastive:
+                    yield len(batch[0]), nce_step, (step_nce, *batch,
+                                                    neg_table)
+                else:
+                    yield len(batch[0]) * n_data, step_host, batch
 
     def save(epoch, final=False):
         meta = {}
@@ -243,7 +337,7 @@ def _train(opt, device, mesh):
         meta["epoch"] = epoch
         name = (f"{opt.model}_last.ckpt" if final
                 else f"ckpt_epoch_{epoch}.ckpt")
-        variables, head, extra = pt.checkpoint_parts(state)
+        variables, head, extra = pt.checkpoint_parts(state, nce_state)
         save_checkpoint(os.path.join(opt.save_folder, name), variables,
                         head, meta, extra=extra)
         print("==> Saved", name)

@@ -16,8 +16,9 @@ the label->image LinearMap of the mapping attractor
 (``mapping_linear_label2image``), which ``load_pth`` puts in ``meta``.
 
 ``save_checkpoint`` writes the reference ``.pth`` layout from a trained
-backbone and head, so the port's and the JAX package's ``.pth`` loaders
-both read it.
+backbone (or its state dict) and head, with the mapping when given, so the
+port's and the JAX package's ``.pth`` loaders both read it.  The
+optimizer bridge also carries the contrastive embed heads' leaves.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .distill.embed import embed_to_jax
 from .models.head import Head
 
 _CONV_KEYS = {"conv1", "conv2", "conv3"}
@@ -135,25 +137,36 @@ def load_pth(path: str, max_classes: Optional[int] = None):
     return backbone, head, meta
 
 
-def save_checkpoint(path: str, backbone: torch.nn.Module,
-                    head_w: torch.Tensor,
+def save_checkpoint(path: str, backbone, head_w: torch.Tensor,
                     head_b: Optional[torch.Tensor] = None,
                     training_classes: Optional[Dict[int, int]] = None,
-                    label2human=None, epoch: Optional[int] = None) -> None:
+                    label2human=None, epoch: Optional[int] = None,
+                    mapping: Optional[Mapping[str, Any]] = None) -> None:
     """Write ``{"model": state_dict, "training_classes", "label2human",
-    "epoch"}`` (reference train_supervised.py:180-202): the backbone's keys
-    plus ``classifier.weight`` (and ``classifier.bias``); the class metadata
-    only when given, as the continual protocol gives it."""
-    sd = {k: v.detach().cpu().clone() for k, v in
-          backbone.state_dict().items()}
-    sd["classifier.weight"] = head_w.detach().to(torch.float32).cpu().clone()
+    "epoch"}`` (reference train_supervised.py:180-202): the keys of
+    ``backbone`` (a module or its state dict) plus ``classifier.weight``
+    (and ``classifier.bias``); the class metadata only when given, as the
+    continual protocol gives it.  ``mapping`` (``{"weight": (out, in),
+    "bias": (out,)}``) is stored as the reference's LinearMap state dict
+    under ``mapping_linear_label2image`` (``map.weight``, ``map.bias``;
+    reference learn_mapping.py:37-39)."""
+    sd = backbone.state_dict() if isinstance(backbone, torch.nn.Module) \
+        else backbone
+    sd = {k: torch.as_tensor(v).detach().cpu().clone()
+          for k, v in sd.items()}
+    f32 = lambda t: torch.as_tensor(t).detach().to(  # noqa: E731
+        torch.float32).cpu().clone()
+    sd["classifier.weight"] = f32(head_w)
     if head_b is not None:
-        sd["classifier.bias"] = head_b.detach().to(torch.float32).cpu().clone()
+        sd["classifier.bias"] = f32(head_b)
     ckpt: Dict[str, Any] = {"model": sd, "epoch": epoch}
     if training_classes is not None:
         ckpt["training_classes"] = training_classes
     if label2human is not None:
         ckpt["label2human"] = label2human
+    if mapping is not None:
+        ckpt["mapping_linear_label2image"] = {
+            f"map.{k}": f32(mapping[k]) for k in ("weight", "bias")}
     torch.save(ckpt, path)
 
 
@@ -230,25 +243,33 @@ def _chain(optimizer: torch.optim.Optimizer) -> List[str]:
 
 
 def _param_tree(backbone: torch.nn.Module, head: Mapping[str, torch.Tensor],
-                value) -> Dict[str, Any]:
+                value, embeds: Optional[Mapping[str, torch.nn.Module]] = None
+                ) -> Dict[str, Any]:
     """``{"backbone": JAX params tree, "head": {"w"[, "b"]}}`` of
     ``value(parameter)`` for each parameter (the JAX pretraining state's
-    ``params`` layout)."""
+    ``params`` layout), plus each contrastive embed head of ``embeds``
+    (``{"embed_s": module, "embed_t": module}``) as its flax tree."""
     bb = {n: value(p) for n, p in backbone.named_parameters()}
-    return {"backbone": to_jax_variables(bb)["params"],
+    tree = {"backbone": to_jax_variables(bb)["params"],
             "head": {k: np.asarray(value(p), np.float32)
                      for k, p in head.items()}}
+    for name, module in (embeds or {}).items():
+        tree[name] = embed_to_jax(module, value)
+    return tree
 
 
 def optimizer_to_jax(optimizer: torch.optim.Optimizer,
                      backbone: torch.nn.Module,
                      head: Mapping[str, torch.Tensor],
-                     step: int) -> Dict[str, Any]:
+                     step: int,
+                     embeds: Optional[Mapping[str, torch.nn.Module]] = None
+                     ) -> Dict[str, Any]:
     """``torch.optim.SGD``/``Adam`` state -> the optax chain's state dict
     (``flax.serialization.to_state_dict`` form): ``{"0": ..., "1": ...}``
     with ``{}`` for the decay, ``{"trace": params}`` for momentum,
     ``{"count", "mu", "nu"}`` for Adam and ``{"count"}`` for the
-    schedule; a parameter without state yet (no step taken) gives zeros."""
+    schedule; a parameter without state yet (no step taken) gives zeros.
+    ``embeds`` adds the contrastive embed heads' leaves."""
     def slot(name):
         def value(p):
             t = optimizer.state.get(p, {}).get(name)
@@ -263,21 +284,24 @@ def optimizer_to_jax(optimizer: torch.optim.Optimizer,
         if part == "decay":
             out[str(i)] = {}
         elif part == "trace":
-            out[str(i)] = {"trace": _param_tree(backbone, head,
-                                                slot("momentum_buffer"))}
+            out[str(i)] = {"trace": _param_tree(
+                backbone, head, slot("momentum_buffer"), embeds)}
         elif part == "adam":
             out[str(i)] = {"count": count,
-                           "mu": _param_tree(backbone, head, slot("exp_avg")),
+                           "mu": _param_tree(backbone, head, slot("exp_avg"),
+                                             embeds),
                            "nu": _param_tree(backbone, head,
-                                             slot("exp_avg_sq"))}
+                                             slot("exp_avg_sq"), embeds)}
         else:
             out[str(i)] = {"count": count}
     return out
 
 
 def _named_state(backbone: torch.nn.Module, head: Mapping[str, torch.Tensor],
-                 tree: Mapping[str, Any]):
-    """(parameter, numpy value) pairs of a ``{"backbone", "head"}`` tree."""
+                 tree: Mapping[str, Any],
+                 embeds: Optional[Mapping[str, torch.nn.Module]] = None):
+    """(parameter, tensor value) pairs of a ``{"backbone", "head"}`` tree
+    (and its embed heads' subtrees)."""
     sd = from_jax_variables({"params": tree["backbone"]})
     named = dict(backbone.named_parameters())
     missing = set(named) - set(sd)
@@ -286,13 +310,21 @@ def _named_state(backbone: torch.nn.Module, head: Mapping[str, torch.Tensor],
     pairs = [(named[n], sd[n]) for n in named]
     pairs += [(p, torch.from_numpy(np.array(tree["head"][k], np.float32)))
               for k, p in head.items()]
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    for name, module in (embeds or {}).items():
+        for layer in module.layers:
+            sub = tree[name][layer]
+            pairs += [(getattr(module, layer).weight, t(sub["kernel"]).T),
+                      (getattr(module, layer).bias, t(sub["bias"]))]
     return pairs
 
 
 def optimizer_from_jax(optimizer: torch.optim.Optimizer,
                        backbone: torch.nn.Module,
                        head: Mapping[str, torch.Tensor],
-                       tree: Mapping[str, Any]) -> int:
+                       tree: Mapping[str, Any],
+                       embeds: Optional[Mapping[str, torch.nn.Module]] = None
+                       ) -> int:
     """The inverse of ``optimizer_to_jax``: sets each parameter's
     ``momentum_buffer`` (SGD) or ``exp_avg``/``exp_avg_sq``/``step``
     (Adam) from the optax chain's state dict; returns the step count."""
@@ -304,16 +336,18 @@ def optimizer_from_jax(optimizer: torch.optim.Optimizer,
     for i, part in enumerate(parts):
         sub = tree[str(i)]
         if part == "trace":
-            for p, v in _named_state(backbone, head, sub["trace"]):
-                optimizer.state[p]["momentum_buffer"] = v.to(p.device)
+            for p, v in _named_state(backbone, head, sub["trace"], embeds):
+                optimizer.state[p]["momentum_buffer"] = \
+                    v.contiguous().to(p.device)
         elif part == "adam":
             n = float(np.asarray(sub["count"]))
             for (p, m), (_, v) in zip(
-                    _named_state(backbone, head, sub["mu"]),
-                    _named_state(backbone, head, sub["nu"])):
+                    _named_state(backbone, head, sub["mu"], embeds),
+                    _named_state(backbone, head, sub["nu"], embeds)):
                 optimizer.state[p].update(
                     step=torch.tensor(n, dtype=torch.float32),
-                    exp_avg=m.to(p.device), exp_avg_sq=v.to(p.device))
+                    exp_avg=m.contiguous().to(p.device),
+                    exp_avg_sq=v.contiguous().to(p.device))
         elif part == "count":
             count = int(np.asarray(sub["count"]))
     return count

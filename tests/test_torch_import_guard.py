@@ -33,6 +33,11 @@ def test_every_module_imports_without_jax():
     for name in ("data.native", "data.pipeline", "parallel.mesh",
                  "engine.multiseed_pretrain"):
         assert f"subspace_reg_tpu_torch.{name}" in mods, name
+    # distillation, the mapping trainer and the .pth writer
+    for name in ("distill", "distill.alias", "distill.criterion",
+                 "distill.embed", "distill.nce", "learn_mapping",
+                 "export_pth"):
+        assert f"subspace_reg_tpu_torch.{name}" in mods, name
     code = "\n".join(
         ["import sys, importlib"]
         + [f"sys.modules[{name!r}] = None" for name in BLOCKED]

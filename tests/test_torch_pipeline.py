@@ -56,6 +56,26 @@ def test_epochs_equal_device_data_batches_and_jax(drop_last):
     assert not _alive()
 
 
+def test_with_indices_yields_each_batchs_items():
+    """``with_indices`` adds each batch's dataset items, the rows that
+    ``epoch_batches`` draws from the same ``RandomState``, with a shard's
+    rows cut alike."""
+    imgs, labels = _store()
+    for shard in (None, (1, 2)):
+        loader = PrefetchLoader(imgs, labels, 16, np.random.RandomState(4),
+                                device="cpu", shard=shard,
+                                with_indices=True)
+        ref = pt.epoch_batches(np.random.RandomState(4), len(labels), 16)
+        for (x, y, items), idx in zip(loader.epoch(), ref):
+            if shard is not None:
+                idx = idx[8:]
+            assert items.dtype == torch.int64
+            np.testing.assert_array_equal(items.numpy(), idx)
+            np.testing.assert_array_equal(x.numpy(), imgs[idx])
+            np.testing.assert_array_equal(y.numpy(), labels[idx])
+    assert not _alive()
+
+
 def test_shard_yields_a_ranks_rows():
     imgs, labels = _store()
     full = list(PrefetchLoader(imgs, labels, 16, np.random.RandomState(5),
@@ -103,10 +123,11 @@ def test_pinned_buffers_survive_a_slow_consumer():
     dev = torch.device("cuda")
     imgs, labels = _store(n=600, img=32)
     loader = PrefetchLoader(imgs, labels, 16, np.random.RandomState(1),
-                            depth=1, device=dev)
+                            depth=1, device=dev, with_indices=True)
     ref = pt.epoch_batches(np.random.RandomState(1), len(labels), 16)
-    for (x, y), idx in zip(loader.epoch(), ref):
+    for (x, y, items), idx in zip(loader.epoch(), ref):
         torch.cuda._sleep(2_000_000)   # the consumer's stream lags
         assert x.device.type == "cuda"
         assert torch.equal(x.cpu(), torch.from_numpy(imgs[idx]))
         assert torch.equal(y.cpu(), torch.from_numpy(labels[idx]))
+        assert torch.equal(items.cpu(), torch.from_numpy(idx))

@@ -23,6 +23,7 @@ Tolerances:
 """
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -273,11 +274,20 @@ def test_fused_forward_counts_and_refuses_unfusable():
     with pytest.raises(ValueError, match="bf16"):
         pt.make_train_step(bf32, None, spec, False, draws, fused=True)(
             ts32, torch.from_numpy(x), torch.from_numpy(y).long())
-    with pytest.raises(NotImplementedError):
-        pt.make_train_step(bb, None, spec, False, draws, teacher=object())
-    for unported in (pt.make_train_step_nce, pt.init_nce_training):
-        with pytest.raises(NotImplementedError, match="NCE"):
-            unported(bb)
+    # distillation: a KD teacher of another class count raises, and the
+    # KD and contrastive steps under a mesh of two ranks are refused
+    teacher = (pretrain_backbone(widths=WIDTHS, seed=3).eval(),
+               torch.zeros(N_CLS + 1, WIDTHS[-1]), None)
+    with pytest.raises(ValueError, match="KD teacher has 13 classes"):
+        pt.make_train_step(bb, None, spec, False, draws, teacher=teacher)(
+            ts, torch.from_numpy(x), torch.from_numpy(y).long())
+    mesh = types.SimpleNamespace(world_size=2)
+    with pytest.raises(NotImplementedError, match="mesh of more than one"):
+        pt.make_train_step(bb, None, spec, False, draws, teacher=teacher,
+                           mesh=mesh)
+    with pytest.raises(NotImplementedError, match="mesh of more than one"):
+        pt.make_train_step_nce(bb, None, spec, False, draws, teacher, None,
+                               None, 10, 4, mesh=mesh)
 
 
 @pytest.mark.parametrize("cosine", [False, True])

@@ -8,10 +8,12 @@ tests/test_train_cli.py holds the JAX CLI; resuming across the packages is
 ``slow``), the host-streamed path (a split above
 ``DEVICE_DATA_MAX_BYTES``: bit-identical to the device-data run), the
 other datasets (CIFAR-FS per-partition pickles at 32 px; tieredImageNet
-with ``train_b`` pooled), and the refusal of what is not ported."""
+with ``train_b`` pooled), and the refusal of what is not ported
+(distillation on a mesh of more than one rank)."""
 
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -74,7 +76,18 @@ def test_one_epoch_prints_saves_and_logs(root, capsys):
 @pytest.mark.parametrize("extra,match", [
     (["--distill", "kd"], "distill"),
 ])
-def test_unported_options_are_refused(root, extra, match):
+def test_unported_options_are_refused(root, extra, match, monkeypatch):
+    """Distillation on a mesh of more than one rank (JAX
+    train_supervised.py:221-235) is not ported: under ``torchrun`` with two
+    ranks the CLI refuses it before it loads anything."""
+    monkeypatch.setattr(train_supervised.mesh_lib, "under_torchrun",
+                        lambda: True)
+    monkeypatch.setattr(train_supervised.mesh_lib, "init_distributed",
+                        lambda dev: torch.device(dev))
+    monkeypatch.setattr(train_supervised.mesh_lib, "create_mesh",
+                        lambda **kw: types.SimpleNamespace(world_size=2,
+                                                           rank=0))
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     with pytest.raises(NotImplementedError, match=match):
         train_supervised.main(_argv(root, *extra))
 
