@@ -68,10 +68,10 @@ Phases; any failure raises and the script exits non-zero:
               epoch (golden model/optimizer flags, 84 px, 64 classes x 100
               synthetic images) to a saved ``.ckpt``, read back.
   11. multiseed  ``python -m subspace_reg_tpu_torch.run_seeds --vmap`` on
-              the golden flags for 5 seeds at full width (84 px, 560
+              the golden flags for 3 seeds at full width (84 px, 560
               synthetic images a class, a seeded ``.pth`` per seed) beside
               one single-seed run, with the launch counters: K1 8 launches
-              of 5 seeds each, one prediction dump a seed
+              of 3 seeds each, one prediction dump a seed
               (``--save_preds_0``; the checkpoints' ``training_classes``
               from the split, every row mapped to an original label);
               then 3 seeds at the small size through the
@@ -118,7 +118,7 @@ Phases; any failure raises and the script exits non-zero:
               device-data limit) byte for byte; (b) the CLI one epoch
               streamed (``DEVICE_DATA_MAX_BYTES=0``) against staged, the
               ``.ckpt``s within ``RESUME_ATOL``; (c) ``run_seeds
-              --pretrain --vmap`` for 5 seeds (continual split cut to
+              --pretrain --vmap`` for 3 seeds (continual split cut to
               30/5 images a base class), 2 epochs against 1 + a
               ``--resume`` second and lane 1 against the single-seed CLI,
               within ``RESUME_ATOL``, aggregate images/s against the
@@ -136,13 +136,13 @@ Phases; any failure raises and the script exits non-zero:
               64-class resnet18 teacher, T 4, alpha = beta = 1): the
               fused "pallas" KD step against the module KD step inside
               phase 7's envelope, the counters around it (K2 6, K3 2,
-              K1 0), then 20 timed steps each of the module step, module
+              K1 0), then 10 timed steps each of the module step, module
               KD and fused KD in two rounds, the teacher's statistics and
               counters unchanged; (b) NCE/CRD at the RFS geometry over
               15a's 30,000-image store (feat_dim 128, nce_k 16384, T
               0.07, m 0.5): one ``nce_forward`` card against CPU (rtol
               1e-5, updated rows atol 1e-6, untouched rows bit-identical)
-              and its time in each contrast form, then 20 timed steps
+              and its time in each contrast form, then 10 timed steps
               each of NCE in the three forms and of CRD; (c) the CLI's
               ``--distill kd|crd|nce`` one epoch each on phase 10's data
               with phase 10's ``.ckpt`` as the teacher, and on a split
@@ -154,6 +154,23 @@ Phases; any failure raises and the script exits non-zero:
               300 -> 640, 1000 epochs) against the CPU, then the
               8-session mapping configuration on the mapped ``.ckpt``
               through the eval CLI (K1 8 launches).
+  17. mesh    pretraining on a mesh of two ranks, the parity gate, the
+              seed layout: (a) the fused step (full-width resnet18, 84 px,
+              global batch 64) on two gloo ranks on the one card, bf16
+              "pallas" (K2/K3, their epilogue sums all-reduced between
+              the launches) as accurate as the single process against the
+              f32 twin, f32 "xla" at the CPU test's tolerances, each
+              rank's K2/K3 launches (6 and 2 a step) read from the rank;
+              (b) KD, NCE and CRD on two ranks against the single process
+              (f32, feat_dim 128, nce_k 16384), the banks bit-identical
+              across the ranks after two NCE steps, and the CLI with
+              ``--distill nce`` for one epoch under ``torchrun
+              --nproc_per_node 2`` on phase 10's data; (c) the port's
+              parity fixture (``run_parity_gate_fixture``), one seed, the
+              four configurations, record then compare on phase 11's data
+              and seed-1 weights: PASSED, K1 8 launches a run; (d) the
+              multi-seed evaluation with ``shard_over_devices=True``
+              against ``False``, 3 seeds at phase 4's size: bit-identical.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -1249,7 +1266,7 @@ def phase_main(tmp, counters):
     return out_launches, run, golden
 
 
-MULTI_SEEDS = (1, 2, 3, 4, 5)
+MULTI_SEEDS = (1, 2, 3)
 
 
 def write_continual_mini(root: str, per_class: int = 560, img: int = 84,
@@ -1306,10 +1323,10 @@ def _quiet(fn):
 def phase_multiseed(tmp, counters, small_root):
     """The multi-seed evaluation: ``python -m
     subspace_reg_tpu_torch.run_seeds --vmap`` on the golden subspace-reg +
-    memory flags for 5 seeds at full resnet18 width (84 px, each seed its
+    memory flags for 3 seeds at full resnet18 width (84 px, each seed its
     own seeded ``.pth``), beside one single-seed run in the same call; the
     launch counters set to 0 just before each run and read just after (K1
-    8 launches of 5 seeds each; one launch a session); the multi-seed run
+    8 launches of 3 seeds each; one launch a session); the multi-seed run
     with ``--save_preds_0`` writes one dump per seed.  Then at the small
     size, 3 seeds through the multi-seed engine on the card against
     single-seed runs on the card: epochs exact, accuracies within 0.5."""
@@ -2963,7 +2980,7 @@ def cut_continual_split(train_per_class: int, val_per_class: int):
 
 
 def rest_multiseed(tmp, counters):
-    """15c: ``run_seeds --pretrain --vmap`` for 5 seeds on synthetic
+    """15c: ``run_seeds --pretrain --vmap`` for 3 seeds on synthetic
     continual miniImageNet (84 px, full-width resnet18, golden flags; the
     split cut to MS_TRAIN_PER_CLASS / MS_VAL_PER_CLASS images a base
     class), 2 epochs straight and 1 epoch + a ``--resume`` second, and
@@ -3307,7 +3324,7 @@ def phase_pretrain_rest(tmp, counters, dev):
 # --------------------------------------------------------------------------
 # phase 16: distillation pretraining and the mapping trainer
 # --------------------------------------------------------------------------
-DISTILL_STEPS = 20
+DISTILL_STEPS = 10
 # the RFS contrastive geometry (the CLI's defaults, JAX config.py:199-202)
 NCE_FEAT, NCE_K, NCE_T, NCE_M = 128, 16384, 0.07, 0.5
 KD_LAUNCHES = {"conv3x3_fused": 6, "block_tail": 2}     # per fused step
@@ -3688,6 +3705,333 @@ def phase_distill(tmp, counters, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 17: pretraining on a mesh of two ranks, the parity gate, the seed
+# layout of the multi-seed evaluation
+# --------------------------------------------------------------------------
+def mesh_runner():
+    """tests/test_torch_mesh_fused.py, the scenario runner of the fused,
+    KD and contrastive steps on the mesh harness (``launch``,
+    ``reference``, ``stats_excess``; ``mh`` is tests/test_torch_mesh.py)."""
+    import importlib
+    import os
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("test_torch_mesh_fused")
+
+
+def state_readings(mc, plain, got, f32, init):
+    """``mc.bf16_readings`` (tests/test_torch_mesh.py) on the harness's
+    host states instead of ``.ckpt`` files: the momentum buffers left
+    out, ``head.w`` as the head."""
+    import types
+    from unittest import mock
+    import subspace_reg_tpu_torch.utils.checkpoint as ck
+    states = dict(plain=plain, got=got, f32=f32, init=init)
+
+    def load(name):
+        sd = {k: v for k, v in states[name].items()
+              if not k.startswith("momentum.")}
+        return sd, types.SimpleNamespace(weight=sd.pop("head.w")), {}
+
+    with mock.patch.object(ck, "load_any", load):
+        return mc.bf16_readings("plain", "got", "f32", "init")
+
+
+def _mesh_cfg(scenarios, n_store: int = 256):
+    from subspace_reg_tpu_torch.models.resnet import WIDTHS
+    return dict(widths=list(WIDTHS), n_blocks=[1, 1, 2, 2], img=84,
+                batch=BATCH, n_cls=PRETRAIN_CLASSES, n_store=n_store,
+                device="cuda", timeout_s=300.0, scenarios=scenarios)
+
+
+MESH_FUSED = [dict(name="bf16", kind="fused", backend="pallas",
+                   dtype="bf16", n_data=2, n_model=1, steps=1,
+                   mode="device_data"),
+              dict(name="f32", kind="fused", backend="xla", dtype="f32",
+                   n_data=2, n_model=1, steps=1, mode="device_data")]
+_NCE_GEO = dict(feat_dim=NCE_FEAT, nce_k=NCE_K)
+MESH_DISTILL = [dict(name="kd", kind="kd", n_data=2, n_model=1, steps=1,
+                     mode="device_data"),
+                dict(name="nce", kind="nce", n_data=2, n_model=1, steps=1,
+                     mode="device_data", **_NCE_GEO),
+                dict(name="crd", kind="crd", n_data=2, n_model=1, steps=1,
+                     mode="streamed", **_NCE_GEO),
+                dict(name="nce_two", kind="nce", n_data=2, n_model=1,
+                     steps=2, mode="device_data", **_NCE_GEO)]
+
+
+def mesh_steps(tmp):
+    """17a and 17b's steps: one launch of two gloo ranks on the one card
+    (tests/test_torch_mesh_fused.py's scenarios over test_torch_mesh.py's
+    harness; full-width resnet18, 84 px, global batch 64) for every
+    scenario of ``MESH_FUSED`` and ``MESH_DISTILL``, and the single-process
+    reference of each; ``mesh_fused`` and ``mesh_distill`` check them."""
+    runner = mesh_runner()
+    cfg = _mesh_cfg(MESH_FUSED + MESH_DISTILL)
+    t0 = time.time()
+    ranks = runner.launch(cfg, 2, f"{tmp}/mesh_steps")
+    wall = time.time() - t0
+    ref = runner.reference(cfg)
+    print(f"[mesh] two gloo ranks on the one card, {len(cfg['scenarios'])} "
+          f"scenarios: {wall:.1f} s with the processes")
+    out = mesh_fused(runner, ranks, ref)
+    out.update(mesh_distill(runner, ranks, ref))
+    return out
+
+
+def mesh_fused(runner, ranks, ref):
+    """17a: the fused step on a (2, 1) mesh of two ranks, one device-data
+    step each of the bf16 fused "pallas" step (K2/K3, their epilogue sums
+    all-reduced between the launches) and of the f32 fused "xla" step,
+    against the single-process step of each on the global batch.  The
+    f32 step at the CPU test's tolerances; the bf16 step as accurate as
+    the single process against the f32 twin (``BF16_ACCURACY_MAX``, as
+    15d holds the CLI); both ranks bit-identical.  Each rank's K2/K3
+    launches, as the rank counted them, printed as a JSON line: 6 K2 and
+    2 K3 a step for "pallas", none for "xla"."""
+    mc = runner.mh
+    launches = []
+    for r, res in enumerate(ranks):
+        for s in MESH_FUSED:
+            line = {"rank": r, "scenario": s["name"],
+                    "launches": res[s["name"]]["launches"]}
+            print(json.dumps(line))
+            launches.append(line)
+    for line in launches:
+        want = (KD_LAUNCHES if line["scenario"] == "bf16"
+                else {k: 0 for k in KD_LAUNCHES})
+        check(line["launches"] == want, f"17a: rank {line['rank']} "
+              f"{line['scenario']} launched {line['launches']}, want {want}")
+    rep = [mc.agreement(ref["f32"], r["f32"]) for r in ranks]
+    blocks = max(runner.stats_excess(a, b) for a, b in zip(
+        ref["f32"]["block_stats"], ranks[0]["f32"]["block_stats"]))
+    print(f"[mesh-fused] f32 fused \"xla\" step on two gloo ranks on the "
+          f"card against the single process: loss rel "
+          f"{rep[0]['loss_rel']:.2e}, running statistics at "
+          f"{rep[0]['stats_excess']:.3f} of their tolerance, update cosine "
+          f">= {rep[0]['cos_min']:.6f}, norms within "
+          f"{rep[0]['norm_rel_max']:.2e}; block statistics at "
+          f"{blocks:.3f} of their tolerance")
+    check(all(x["ok"] for x in rep) and blocks <= 1.0, f"17a: the f32 "
+          f"two-rank fused step departs from the single process: {rep}")
+    d = state_readings(mc, ref["bf16"]["final"], ranks[0]["bf16"]["final"],
+                       ref["f32"]["final"], ref["bf16"]["init"])
+    print(f"[mesh-fused] bf16 fused \"pallas\" step on two ranks against the "
+          f"f32 twin: error over the single process's, updates <= "
+          f"{d['accuracy_update']:.4f}, running statistics <= "
+          f"{d['accuracy_stats']:.4f} (at most {mc.BF16_ACCURACY_MAX:g}); "
+          f"update cosine against the f32 twin >= {d['cos_plain_f32']:.6f} "
+          f"(single process), {d['cos_got_f32']:.6f} (two ranks)")
+    check(d["ok"], f"17a: the two-rank bf16 fused step is less accurate "
+          f"than the single process: {d}")
+    for s in MESH_FUSED:
+        check(mc.ranks_identical(ranks, s["name"]), f"17a: the ranks' "
+              f"{s['name']} states differ")
+    sec = {s["name"]: ranks[0][s["name"]]["seconds"] for s in MESH_FUSED}
+    print(f"[mesh-fused] a first step on two ranks of one card (warm-up "
+          f"included; not a multi-card figure): {1e3 * sec['bf16']:.1f} ms "
+          f"bf16 \"pallas\", {1e3 * sec['f32']:.1f} ms f32 \"xla\"")
+    return dict(mesh_fused_launches=launches[0]["launches"],
+                mesh_fused_f32_cos=rep[0]["cos_min"],
+                mesh_fused_bf16_accuracy=d["accuracy_update"])
+
+
+def mesh_distill(runner, ranks, ref):
+    """17b's steps: KD, NCE and CRD on a (2, 1) mesh of two ranks (f32, a
+    seeded teacher of the student's geometry, the RFS feat_dim 128 and
+    nce_k 16384 over a 256-item store), one step each against the single
+    process at the CPU test's tolerances (the banks and Z at the
+    statistics'), and two NCE steps: every rank's state and banks
+    bit-identical."""
+    mc = runner.mh
+    for name in ("kd", "nce", "crd"):
+        rep = [mc.agreement(ref[name], r[name]) for r in ranks]
+        print(f"[mesh-distill] {name} on two gloo ranks on the card against "
+              f"the single process: loss rel {rep[0]['loss_rel']:.2e}, "
+              f"running statistics at {rep[0]['stats_excess']:.3f} of their "
+              f"tolerance, update cosine >= {rep[0]['cos_min']:.6f}, norms "
+              f"within {rep[0]['norm_rel_max']:.2e}")
+        check(all(x["ok"] for x in rep), f"17b: {name} departs: {rep}")
+    banks = ("nce.memory_l", "nce.memory_ab", "nce.z_l", "nce.z_ab")
+    excess = {n: runner.stats_excess([ref[n]["final"][k] for k in banks],
+                                     [ranks[0][n]["final"][k]
+                                      for k in banks])
+              for n in ("nce", "nce_two")}
+    same = [mc.ranks_identical(ranks, s["name"]) for s in MESH_DISTILL]
+    print(f"[mesh-distill] banks and Z against the single process, at the "
+          f"statistics' tolerance: one NCE step {excess['nce']:.3f}, two "
+          f"steps {excess['nce_two']:.3f} (not held: the second step's "
+          f"embeddings come from the first step's updates, which agree "
+          f"only to the update cosine above); ranks bit-identical (kd, "
+          f"nce, crd, two nce steps) {same}")
+    check(excess["nce"] <= 1.0 and all(same),
+          "17b: the banks or states differ")
+    return dict(mesh_nce_banks_excess=excess["nce"])
+
+
+def mesh_nce_cli(tmp):
+    """17b's CLI: ``--distill nce`` for one epoch under ``torchrun
+    --nproc_per_node 2`` (gloo, both ranks on the card;
+    tests/test_torch_mesh.py's ``cli_rank``) on phase 10's data with
+    phase 10's ``.ckpt`` as the teacher: one mesh, rank 0 alone prints
+    and saves, 100 steps, the contrastive state in the ``.ckpt``."""
+    import os
+    root = _phase10_data(tmp)
+    teacher = f"{tmp}/pretrain/save/resnet18_last.ckpt"
+    check(os.path.exists(teacher), "17b needs phase 10's .ckpt")
+    argv = _pretrain_cli_argv(root, "mesh_nce") + [
+        "--distill", "nce", "--teacher_path", teacher]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", f"{here}/tests/test_torch_mesh.py",
+         "--cli", json.dumps([(argv, "bf16")])],
+        env=_repo_env(), capture_output=True, text=True, timeout=600)
+    cli_wall = time.time() - t0
+    check(p.returncode == 0, f"17b: the two-rank NCE CLI exited "
+          f"{p.returncode}:\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+    for line in ("==> mesh 2x1 over 2 ranks (gloo)", "==> NCE teacher",
+                 "==> Saved resnet18_last.ckpt"):
+        check(p.stdout.count(line) == 1, f"17b: the CLI printed {line!r} "
+              f"{p.stdout.count(line)} times")
+    from subspace_reg_tpu_torch.utils.checkpoint import load_checkpoint
+    _, _, meta = load_checkpoint(f"{root}/mesh_nce/resnet18_last.ckpt")
+    extra = meta["extra"]
+    check(int(extra["step"]) == 100 and {"embed_s", "embed_t", "nce"}
+          <= set(extra), "17b: the CLI's .ckpt lacks its contrastive state")
+    check(all(np.all(np.isfinite(np.asarray(v))) for _, v in
+              _tree_items(extra["nce"])), "17b: the banks are not finite")
+    ips = _images_per_sec(p.stdout, 1)
+    print(f"[mesh-distill] --distill nce, one epoch (100 steps of 64) under "
+          f"torchrun --nproc_per_node 2 on the one card: {cli_wall:.1f} s "
+          f"with the processes, {ips:.1f} images/s "
+          f"({1e3 * BATCH / ips:.1f} ms a global step)")
+    return dict(mesh_nce_cli_s=cli_wall, mesh_nce_cli_ips=ips)
+
+
+def mesh_parity(tmp, counters):
+    """17c: ``python -m subspace_reg_tpu_torch.run_parity_gate_fixture`` on
+    the card, one seed, the four golden configurations, record then
+    compare: phase 11's data (560 images a class, 84 px) and its seed-1
+    weights as 16d saved them with their class names (exported to the
+    fixture's ``.pth``, so the fixture trains none), the mapping
+    configuration's mapping trained by the gate.  The gate must pass; K1
+    launches 8 times a run (8 runs), K2/K3 never."""
+    import os
+    from subspace_reg_tpu_torch import (export_pth, parity_gate,
+                                        run_parity_gate_fixture)
+    work = f"{tmp}/parity"
+    os.makedirs(f"{work}/data", exist_ok=True)
+    if not os.path.exists(f"{work}/data/miniImageNet"):
+        os.symlink(f"{tmp}/multi/miniImageNet", f"{work}/data/miniImageNet")
+    pth = f"{work}/backbones/continual/resnet18/1/resnet18_last.pth"
+    os.makedirs(os.path.dirname(pth), exist_ok=True)
+    _quiet(lambda: export_pth.main(["--ckpt", f"{tmp}/mapping/src.ckpt",
+                                    "--out", pth]))
+    runs = []
+    run_config = parity_gate.run_config
+
+    def counted(config, seed, *args):
+        _reset(counters)
+        t0 = time.time()
+        out = run_config(config, seed, *args)
+        torch.cuda.synchronize()
+        runs.append((config, time.time() - t0, _launches(counters)))
+        return out
+
+    from unittest import mock
+    with mock.patch.object(parity_gate, "run_config", counted):
+        rc, wall, log = _quiet(lambda: run_parity_gate_fixture.main([
+            "--work_dir", work, "--seeds", "1", "--device", "cuda",
+            "--out", f"{work}/report.json"]))
+    check(rc == 0 and "PARITY GATE PASSED" in log,
+          f"17c: the parity gate failed (rc {rc}):\n{log[-3000:]}")
+    with open(f"{work}/report.json") as f:
+        report = json.load(f)
+    check(report["all_within"] and len(report["runs"]) == 4,
+          "17c: the report")
+    for config, sec, launches in runs:
+        print(f"[parity] {config}: {sec:.2f} s, launches {launches}")
+        check(launches["finetune_loop"] == N_SESSIONS
+              and launches["conv3x3_fused"] == launches["block_tail"] == 0,
+              f"17c: {config} launched {launches}")
+    check(len(runs) == 8, f"17c: {len(runs)} runs, not 8")
+    worst = max(r["max_abs_dev"] for run in report["runs"]
+                for r in run["comparison"])
+    per_run = [sec for _, sec, _ in runs]
+    print(f"[parity] the fixture on the card: {wall:.1f} s, 8 runs of 8 "
+          f"sessions (4 configurations, record and compare), "
+          f"{np.mean(per_run):.2f} s a run ({min(per_run):.2f}-"
+          f"{max(per_run):.2f}); worst deviation {worst:.4f} (tolerance "
+          f"{report['tolerance']}); PASSED")
+    return dict(parity_s=wall, parity_s_per_run=float(np.mean(per_run)),
+                parity_launches=sum(r[2]["finetune_loop"] for r in runs))
+
+
+def mesh_seed_layout(tmp, counters, small_root):
+    """17d: ``few_shot_finetune_multiseed(..., shard_over_devices=True)``
+    against ``False`` on the card (one visible device: the seed layout's
+    largest divisor is 1), 3 seeds at phase 4's small width: bit-identical
+    results, K1 8 launches (of 3 seeds) each."""
+    from subspace_reg_tpu_torch.engine.multiseed import (
+        few_shot_finetune_multiseed)
+    from subspace_reg_tpu_torch.ops.finetune import finetune_loop
+    seeds = (3, 4, 5)
+    out = {}
+    for shard in (False, True):
+        opts = [_golden_opt(small_root, *SMALL_ARGS, "--set_seed", str(s))
+                for s in seeds]
+        models = [small_model(10 + i) for i in range(len(seeds))]
+        ins = [_engine_inputs(o) for o in opts]
+        _reset(counters)
+        finetune_loop.seed_loops = 0
+        t0 = time.time()
+        ms = few_shot_finetune_multiseed(
+            [m[0] for m in models], [m[1] for m in models],
+            [{}] * len(seeds), opts, [x["meta_sampler"] for x in ins],
+            [x["base_test_split"] for x in ins],
+            [x["base_support_sampler"] for x in ins], device="cuda",
+            shard_over_devices=shard)
+        torch.cuda.synchronize()
+        out[shard] = (ms, time.time() - t0, _launches(counters),
+                      finetune_loop.seed_loops)
+    fields = ("acc_novel_avg", "acc_base_avg", "weighted_avg_l",
+              "acc_novel_list", "acc_base_list", "novel_session_traces",
+              "epochs_per_session")
+    same = all(getattr(a, f) == getattr(b, f) for a, b in zip(
+        out[False][0].per_seed, out[True][0].per_seed) for f in fields)
+    for shard, (_, sec, launches, loops) in out.items():
+        print(f"[seed-layout] shard_over_devices={shard}: {sec:.2f} s, "
+              f"launches {launches}, seed loops {loops}")
+        check(launches["finetune_loop"] == N_SESSIONS
+              and loops == len(seeds) * N_SESSIONS,
+              f"17d: shard={shard} launched {launches}, {loops} loops")
+    print(f"[seed-layout] {torch.cuda.device_count()} visible device(s): "
+          f"sharded and unsharded results bit-identical {same}")
+    check(same, "17d: shard_over_devices=True departs from False")
+    return dict(seed_layout_identical=same)
+
+
+def phase_mesh(tmp, counters, small_root):
+    """Phase 17: the fused step and distillation on two ranks, the parity
+    fixture, the seed layout; each part timed, the launch counters of
+    this process set to 0 before each part and read after it (17a's and
+    17b's steps run in rank processes, which count their own)."""
+    out = {}
+    for name, fn, args in (("17a-b mesh steps", mesh_steps, (tmp,)),
+                           ("17b mesh cli", mesh_nce_cli, (tmp,)),
+                           ("17c parity", mesh_parity, (tmp, counters)),
+                           ("17d seed layout", mesh_seed_layout,
+                            (tmp, counters, small_root))):
+        _reset(counters)
+        out.update(timed(name, fn, *args))
+    return out
+
+
 def sass_count(lib: str, opcode: str) -> int:
     """Instructions of ``opcode`` in a built library's SASS, read with the
     toolkit's ``cuobjdump -sass``."""
@@ -3858,6 +4202,12 @@ def main(argv=None) -> int:
         distill = phase_distill(tmp, counters, dev)
         for kname in KD_LAUNCHES:
             rows[kname]["distill_launches"] = distill["kd_launches"][kname]
+        # phase 17: the mesh's fused and distillation steps, the parity
+        # gate, the seed layout
+        mesh = phase_mesh(tmp, counters, small_root)
+        for kname, n in mesh["mesh_fused_launches"].items():
+            rows[kname]["mesh_launches_per_rank"] = n
+        k1["parity_launches"] = mesh["parity_launches"]
 
     print_times()
     print(smi)

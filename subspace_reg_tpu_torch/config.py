@@ -209,7 +209,7 @@ class SupervisedConfig:
     augment_pretrain_wtrainb: bool = False
     eval_mode: Optional[str] = None
     label_pull: Optional[float] = None
-    # distillation (refused by the port's CLI until ported)
+    # distillation
     distill: str = "none"
     teacher_path: str = ""
     teacher_model: str = ""

@@ -7,7 +7,9 @@ reference's parameter vector [K, T, -1, -1, momentum].  ``nce_forward``
 is functional: it returns a new state whose banks are new tensors
 (``index_copy`` out of place), and the input state is left as it was.  No
 gradient reaches the banks; as in the JAX step, the gradient does flow
-through Z on the batch that sets it.
+through Z on the batch that sets it.  Under a data mesh (``group``) Z is
+set from the global batch's mean and every rank applies the global
+batch's bank update, so the banks stay equal bit for bit on every rank.
 
 The contrast is plain torch on the device, as it is XLA (not Pallas) in
 the JAX package.  ``mode`` picks how the (B, K+1) dot products are formed;
@@ -32,6 +34,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import all_reduce_sum, gather_rows, group_size
 
 CONTRAST_MODES = ("auto", "paired", "gather", "matmul")
 CONTRAST_AUTO = "matmul"
@@ -77,24 +81,33 @@ def init_nce_average(generator: Optional[torch.Generator],
         z_ab=f32(-1.0), params=f32([k, temperature, -1.0, -1.0, momentum]))
 
 
-def _set_z(z: torch.Tensor, out: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.where(z < 0, out.mean() * n, z)
+def _set_z(z: torch.Tensor, out: torch.Tensor, n: int,
+           group=None) -> torch.Tensor:
+    """Z, or mean(out) * n while Z is unset; under a data ``group`` the
+    mean is the global batch's (equal shards), with its gradient."""
+    if group is None:
+        mean = out.mean()
+    else:
+        mean = all_reduce_sum(out.sum(), group) / (out.numel()
+                                                   * group_size(group))
+    return torch.where(z < 0, mean * n, z)
 
 
 def _contrast(memory: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
-              temperature: torch.Tensor, z: torch.Tensor, mode: str):
+              temperature: torch.Tensor, z: torch.Tensor, mode: str,
+              group=None):
     """out[i, j] = exp(<memory[idx[i, j]], v[i]> / T) / Z."""
     if mode == "matmul":
         out = torch.take_along_dim(v @ memory.T, idx, dim=1)
     else:
         out = torch.einsum("bkd,bd->bk", memory[idx], v)
     out = torch.exp(out / temperature)
-    z_new = _set_z(z, out, memory.shape[0])
+    z_new = _set_z(z, out, memory.shape[0], group)
     return out / z_new, z_new
 
 
 def _contrast_paired(memory_ab, memory_l, l, ab, idx, temperature,
-                     z_l, z_ab):
+                     z_l, z_ab, group=None):
     """Both views' contrasts from one row gather of the
     feature-concatenated banks (the same idx on both sides)."""
     b, d = l.shape
@@ -104,8 +117,8 @@ def _contrast_paired(memory_ab, memory_l, l, ab, idx, temperature,
                                  w.reshape(b, idx.shape[1], 2, d), v)
                     / temperature)
     out_l, out_ab = out[..., 0], out[..., 1]
-    z_l = _set_z(z_l, out_l, memory_ab.shape[0])
-    z_ab = _set_z(z_ab, out_ab, memory_l.shape[0])
+    z_l = _set_z(z_l, out_l, memory_ab.shape[0], group)
+    z_ab = _set_z(z_ab, out_ab, memory_l.shape[0], group)
     return out_l / z_l, out_ab / z_ab, z_l, z_ab
 
 
@@ -119,8 +132,13 @@ def _update_bank(memory: torch.Tensor, v: torch.Tensor, y: torch.Tensor,
         return memory.index_copy(0, y, new / torch.clamp_min(norm, 1e-12))
 
 
-def _updated(state: NCEAverageState, l, ab, y, z_l, z_ab):
+def _updated(state: NCEAverageState, l, ab, y, z_l, z_ab, group=None):
+    """The state after the bank update; under a data ``group`` the update
+    is the global batch's (every rank's rows gathered in rank order), so
+    every rank's banks stay equal bit for bit."""
     momentum = state.params[4]
+    if group is not None:
+        l, ab, y = (gather_rows(t.detach(), group) for t in (l, ab, y))
     return replace(state,
                    memory_l=_update_bank(state.memory_l, l, y, momentum),
                    memory_ab=_update_bank(state.memory_ab, ab, y, momentum),
@@ -153,13 +171,15 @@ def full_softmax_loss(out: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def nce_forward(state: NCEAverageState, l: torch.Tensor, ab: torch.Tensor,
                 y: torch.Tensor, idx: Optional[torch.Tensor] = None,
                 mode: str = "auto", sampler=None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, NCEAverageState]:
     """Contrast both views against K negatives and the positive; returns
     (out_l, out_ab, new state).  ``idx`` (B, K+1) holds the bank rows,
     slot 0 the positive; without it K negatives are drawn from
     ``sampler`` (an ``AliasSampler``) with ``generator`` and slot 0 set
-    to ``y``.  ``mode`` is one of ``CONTRAST_MODES``."""
+    to ``y``.  ``mode`` is one of ``CONTRAST_MODES``.  ``group``: the
+    data-parallel group whose global batch sets Z and updates the banks
+    (the rows here are this rank's)."""
     if mode not in CONTRAST_MODES:
         raise ValueError(f"unknown NCE contrast mode {mode!r}; expected one "
                          f"of {CONTRAST_MODES}")
@@ -177,9 +197,10 @@ def nce_forward(state: NCEAverageState, l: torch.Tensor, ab: torch.Tensor,
     if mode == "paired":
         out_l, out_ab, z_l, z_ab = _contrast_paired(
             state.memory_ab, state.memory_l, l, ab, idx, t, state.z_l,
-            state.z_ab)
+            state.z_ab, group)
     else:
-        out_l, z_l = _contrast(state.memory_ab, l, idx, t, state.z_l, mode)
+        out_l, z_l = _contrast(state.memory_ab, l, idx, t, state.z_l, mode,
+                               group)
         out_ab, z_ab = _contrast(state.memory_l, ab, idx, t, state.z_ab,
-                                 mode)
-    return out_l, out_ab, _updated(state, l, ab, y, z_l, z_ab)
+                                 mode, group)
+    return out_l, out_ab, _updated(state, l, ab, y, z_l, z_ab, group)

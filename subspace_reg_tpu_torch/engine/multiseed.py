@@ -40,8 +40,9 @@ import numpy as np
 import torch
 
 from ..ops.finetune import finetune_loop_seeds
+from ..parallel.mesh import lane_devices
 from ..utils.device import resolve_device
-from .draws import per_seed
+from .draws import TorchDraws, per_seed
 from .incremental import IncrementalResult, SeedRun, check_options
 
 # fields of the eval config that may differ between the seeds of one run
@@ -62,10 +63,7 @@ class MultiSeedResult:
         return float(np.mean([r.acc_base_avg for r in self.per_seed]))
 
 
-def _refuse(opts, heads, shard_over_devices: bool) -> None:
-    if shard_over_devices:
-        raise NotImplementedError(
-            "shard_over_devices: the port runs its seeds on one card")
+def _refuse(opts, heads) -> None:
     opt0 = opts[0]
     names = [k for k in dir(opt0) if not k.startswith("_")
              and k not in SEED_FIELDS and not callable(getattr(opt0, k))]
@@ -106,20 +104,35 @@ def few_shot_finetune_multiseed(
 
     ``opts`` differ only in ``set_seed`` (and the checkpoint path); every
     list argument has length S.  ``draws``: one draw provider per seed
-    (default ``TorchDraws`` of each seed).  The backbones and heads are
-    copied, never mutated."""
+    (default ``TorchDraws`` of each seed, on the seed's device).  The
+    backbones and heads are copied, never mutated.
+
+    ``shard_over_devices=True`` lays the seeds out over the visible CUDA
+    devices as the JAX engine does (``parallel.mesh.lane_devices``:
+    contiguous blocks over the largest divisor of S that fits; the CPU is
+    one device): each device holds its seeds' backbones, heads and staged
+    data, and each session launches one seed-batched K1 a device, the
+    devices in turn.  On one device it is the unsharded run."""
     n = len(opts)
-    _refuse(opts, per_seed_heads, shard_over_devices)
+    _refuse(opts, per_seed_heads)
     dev = resolve_device(device)
     prt = print if verbose else (lambda *a, **k: None)
     quiet = lambda *a, **k: None    # noqa: E731 (the seeds print nothing)
-    providers = per_seed([o.set_seed for o in opts], dev, draws)
+    devs, slot = lane_devices(n, shard_over_devices, dev)
+    if len(devs) > 1:
+        prt(f"sharding {n} seeds over {len(devs)} devices")
+    seed_dev = [devs[slot[i]] for i in range(n)]
+    providers = (per_seed([o.set_seed for o in opts], dev, draws)
+                 if draws is not None else
+                 [TorchDraws(o.set_seed, d) for o, d in zip(opts, seed_dev)])
     supports = per_seed_base_support or [None] * n
     runs = [SeedRun(per_seed_backbones[i], per_seed_heads[i],
                     per_seed_meta[i], opts[i], per_seed_samplers[i],
-                    per_seed_base_test[i], supports[i], None, dev,
+                    per_seed_base_test[i], supports[i], None, seed_dev[i],
                     providers[i], quiet)
             for i in range(n)]
+    groups = [[i for i in range(n) if slot[i] == d]
+              for d in range(len(devs))]
     if any(r.geo != runs[0].geo for r in runs):
         raise ValueError("the seeds' session geometries differ")
 
@@ -135,11 +148,16 @@ def few_shot_finetune_multiseed(
         cfg = loops[0][1]
         if any(c != cfg for _, c in loops):
             raise ValueError("the seeds' K1 configurations differ")
-        stacked = {k: None if t is None else torch.stack([o[k]
-                                                          for o, _ in loops])
-                   for k, t in loops[0][0].items()}
-        w, stats, trace = finetune_loop_seeds(**stacked, cfg=cfg)
-        done = [run.program.complete(s, p, (w[i], stats[i], trace[i]))
+        outs = [None] * n
+        for group in groups:
+            # one seed-batched K1 launch for the device's seeds
+            stacked = {k: None if t is None else torch.stack(
+                [loops[i][0][k] for i in group])
+                for k, t in loops[0][0].items()}
+            w, stats, trace = finetune_loop_seeds(**stacked, cfg=cfg)
+            for j, i in enumerate(group):
+                outs[i] = (w[j], stats[j], trace[j])
+        done = [run.program.complete(s, p, outs[i])
                 for i, (run, s, p) in enumerate(zip(runs, inputs,
                                                     prepared))]
         dt = time.time() - t0

@@ -50,6 +50,7 @@ import torch
 
 from ..data.mini_imagenet import LazyRows
 from ..data.transforms import transforms_options
+from ..parallel.mesh import lane_devices
 from . import pretrain as pt
 from .draws import TorchDraws
 
@@ -146,28 +147,6 @@ class _Rows:
 
     def __getitem__(self, i):
         return self.store[self.sel[i]]
-
-
-def lane_devices(n_seeds: int, shard_over_devices: Union[bool, Sequence],
-                 device):
-    """(devices, lane -> device index).  ``shard_over_devices=True``
-    spreads the lanes over the visible CUDA devices (for ``device`` a
-    card; the CPU is one device), a sequence of devices over those, in
-    contiguous lane blocks over the largest divisor of S that fits, as the
-    JAX engine lays the seed axis out.  Each device holds its own copy of
-    the store."""
-    device = torch.device(device)
-    if shard_over_devices is False or shard_over_devices is None:
-        return [device], [0] * n_seeds
-    if shard_over_devices is True:
-        devs = ([torch.device("cuda", i)
-                 for i in range(torch.cuda.device_count())]
-                if device.type == "cuda" else [device])
-    else:
-        devs = [torch.device(d) for d in shard_over_devices]
-    n_dev = max(d for d in range(1, len(devs) + 1) if n_seeds % d == 0)
-    per = n_seeds // n_dev
-    return devs[:n_dev], [i // per for i in range(n_seeds)]
 
 
 def default_backbone(opt):

@@ -33,12 +33,20 @@ classifier's rows are
 split over the model ranks (logits gathered along the classes before the
 loss), and the gradients are reduced to the global batch's mean.
 
+The fused step under a mesh takes the global batch's statistics in its
+fused blocks too: K2's epilogue sums are all-reduced over the data group
+between the launches (ops/fused_block.py).
+
 Distillation: ``make_train_step(teacher=...)`` adds the KD term
 (``kd_alpha * CE + kd_beta * DistillKL``) on the module or the fused path,
-the teacher running in eval mode without gradient; ``init_nce_training``
-and ``make_train_step_nce`` are the contrastive (NCE/CRD) step with its two
-embed heads and memory banks (distill/nce.py).  Distillation under a mesh
-of more than one rank raises.
+the teacher running in eval mode without gradient on the rank's rows;
+``init_nce_training`` and ``make_train_step_nce`` are the contrastive
+(NCE/CRD) step with its two embed heads and memory banks (distill/nce.py).
+Under a data mesh the contrastive step is the global batch's, as JAX's
+GSPMD step is (JAX train_supervised.py:221-226): its draws are the global
+batch's, Z is set from the global batch's mean, and every rank applies
+the global batch's bank update, so the banks stay bit-identical across
+the ranks.
 """
 
 from __future__ import annotations
@@ -227,11 +235,21 @@ def teacher_features(teacher, x: torch.Tensor) -> torch.Tensor:
         return module(x)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None and mesh.world_size > 1:
-        raise NotImplementedError(
-            "distillation under a mesh of more than one rank is not ported "
-            "(JAX train_supervised.py:221-235)")
+def _global_draws(mesh, s, n_local, draw):
+    """(augmentation, dropout generator, rest...) of step ``s`` for this
+    rank's ``n_local`` rows: ``draw(s, n)``'s draws of the global batch
+    sliced to the rank's rows under a data mesh (the dropout generator
+    becomes a draw callable, ``mesh_lib.rows_of``; any further tensor is
+    sliced along its rows)."""
+    n_data = 1 if mesh is None else mesh.n_data
+    if n_data == 1:
+        return draw(s, n_local)
+    n_global = n_local * n_data
+    rows = mesh_lib.batch_sharding(mesh, n_global)
+    aug, gen, *rest = draw(s, n_global)
+    return (_rows_of_draws(aug, rows),
+            mesh_lib.rows_of(gen, n_global, rows),
+            *(t[rows] for t in rest))
 
 
 def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
@@ -264,13 +282,9 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
     kd_temperature), the teacher's logits from ``teacher_features`` on the
     same augmented batch (JAX engine/pretrain.py:106-115); the student
     takes the module or the fused path as without a teacher.  The teacher
-    must have the student's class count."""
-    if teacher is not None:
-        _refuse_mesh(mesh)
-    if mesh is not None and fused and mesh.world_size > 1:
-        raise NotImplementedError(
-            "the fused step under a mesh of more than one rank: its K2 "
-            "epilogue statistics are not reduced over the ranks")
+    must have the student's class count.  Under a mesh the teacher runs on
+    the rank's rows and the KD term, a mean over them, joins the CE's
+    gradient all-reduce as it is."""
     n_data = 1 if mesh is None else mesh.n_data
     sync = None if mesh is None or mesh.n_data == 1 else mesh.data_group
 
@@ -279,31 +293,23 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
         s = state.step
         if schedule is not None:
             set_lr(state.optimizer, schedule(s))
-        n_local = x_u8.shape[0]
-        if n_data == 1:
-            aug = draws.pretrain_augment(s, n_local, spec)
-            gen = draws.pretrain_dropout(s)
-        else:
-            # the global batch's draws, this rank's rows
-            n_global = n_local * n_data
-            rows = mesh_lib.batch_sharding(mesh, n_global)
-            aug = _rows_of_draws(
-                draws.pretrain_augment(s, n_global, spec), rows)
-            gen = mesh_lib.rows_of(draws.pretrain_dropout(s), n_global,
-                                   rows)
+        # the global batch's draws, this rank's rows
+        aug, gen = _global_draws(
+            mesh, s, x_u8.shape[0],
+            lambda s, n: (draws.pretrain_augment(s, n, spec),
+                          draws.pretrain_dropout(s)))
         x = aug_ops.augment_batch(x_u8, spec, aug)
         # NHWC in memory is an NCHW tensor in channels_last
         x = x.permute(0, 3, 1, 2)
         backbone.train()
-        if fused:
-            if not can_fuse(backbone, x.shape[2], True):
-                raise ValueError("fused=True needs a bf16 backbone with "
-                                 "single-block stages 1/2, no SE and a "
-                                 "size divisible by 4")
-            feats = fused_forward(backbone, x, gen, backend=fused_backend)
-        else:
-            with cross_replica(backbone, sync):
-                feats = backbone(x, generator=gen)
+        if fused and not can_fuse(backbone, x.shape[2], True):
+            raise ValueError("fused=True needs a bf16 backbone with "
+                             "single-block stages 1/2, no SE and a size "
+                             "divisible by 4")
+        with cross_replica(backbone, sync):
+            feats = (fused_forward(backbone, x, gen, backend=fused_backend,
+                                   group=sync) if fused
+                     else backbone(x, generator=gen))
         n_model = 1 if mesh is None else mesh.n_model
         if n_model == 1:
             logits = _logits(state, feats, with_bias)
@@ -327,7 +333,7 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
                     f"student {logits.shape[1]}")
             loss = kd_alpha * ce + kd_beta * DistillKL(logits, t_logits,
                                                        kd_temperature)
-        penalty = None
+        data_loss, penalty = loss, None
         if label_pull is not None:
             # pretraining pull penalty (train_supervised.py:231-235):
             # attractors computed from the classifier itself
@@ -347,9 +353,9 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
         state.optimizer.step()
         state.step += 1
         if mesh is not None and n_data > 1:
-            ce, acc1, acc5 = mesh_lib.mean_over_data(
-                mesh, torch.stack([ce.detach(), acc1, acc5]))
-            loss = ce if penalty is None else ce + penalty
+            data_loss, acc1, acc5 = mesh_lib.mean_over_data(
+                mesh, torch.stack([data_loss.detach(), acc1, acc5]))
+            loss = data_loss if penalty is None else data_loss + penalty
         return {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
 
     return train_step
@@ -456,8 +462,22 @@ def make_train_step_nce(backbone: ResNetRFS, schedule: Optional[Schedule],
     "ce", "contrast", "acc1", "acc5"}).  ``train_step.device_data(state,
     nce_state, data_u8, labels, neg_table, idxs)`` gathers the batch
     from a device-resident store.  ``contrast_mode`` is the contrast's
-    form, one of ``distill.nce.CONTRAST_MODES``."""
-    _refuse_mesh(mesh)
+    form, one of ``distill.nce.CONTRAST_MODES``.
+
+    Under a data ``mesh`` (parallel/mesh.py; no class split) ``x_u8``,
+    ``y`` and ``items`` are this rank's rows of the global batch (and
+    ``device_data`` takes the global batch's index vector), the draws
+    are the global batch's sliced to the rank's rows, BN takes the global
+    batch's statistics, Z is set from the global batch's mean, the
+    criteria are means over the rank's rows that the gradient all-reduce
+    averages into the global batch's, and every rank applies the global
+    batch's bank update (``nce_forward``'s ``group``); the metrics are
+    the global batch's."""
+    n_ranks = 1 if mesh is None else mesh.n_data
+    sync = None if n_ranks == 1 else mesh.data_group
+    if mesh is not None and mesh.n_model > 1:
+        raise ValueError("the contrastive step splits no classifier: its "
+                         "mesh has one model rank")
     if contrast_mode not in CONTRAST_MODES:
         raise ValueError(f"unknown NCE contrast mode {contrast_mode!r}; "
                          f"expected one of {CONTRAST_MODES}")
@@ -468,11 +488,13 @@ def make_train_step_nce(backbone: ResNetRFS, schedule: Optional[Schedule],
         s = state.step
         if schedule is not None:
             set_lr(state.optimizer, schedule(s))
-        aug, gen, u = draws.pretrain_contrastive(s, x_u8.shape[0], spec,
-                                                 nce_k)
+        aug, gen, u = _global_draws(
+            mesh, s, x_u8.shape[0],
+            lambda s, n: draws.pretrain_contrastive(s, n, spec, nce_k))
         x = aug_ops.augment_batch(x_u8, spec, aug).permute(0, 3, 1, 2)
         backbone.train()
-        feat_s = backbone(x, generator=gen)
+        with cross_replica(backbone, sync):
+            feat_s = backbone(x, generator=gen)
         logits = _logits(state, feat_s, with_bias)
         ce = losses.cross_entropy(logits, y)
         feat_t = teacher_features(teacher, x)
@@ -483,7 +505,8 @@ def make_train_step_nce(backbone: ResNetRFS, schedule: Optional[Schedule],
                          draw_negatives(neg_table, y.long(), u, n_data)],
                         dim=1)
         out_l, out_ab, nce_state = nce_forward(nce_state, l, ab, items,
-                                               idx=idx, mode=contrast_mode)
+                                               idx=idx, mode=contrast_mode,
+                                               group=sync)
         if mode == "crd":
             log = lambda o: torch.log(torch.clamp_min(o, 1e-20))  # noqa
             contrast = (nce_softmax_loss(log(out_l))
@@ -494,13 +517,23 @@ def make_train_step_nce(backbone: ResNetRFS, schedule: Optional[Schedule],
         acc1, acc5 = losses.accuracy_topk(logits.detach(), y)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            mesh_lib.reduce_gradients(
+                mesh, [p for g in state.optimizer.param_groups
+                       for p in g["params"]])
         state.optimizer.step()
         state.step += 1
-        return nce_state, {"loss": loss.detach(), "ce": ce.detach(),
-                           "contrast": contrast.detach(), "acc1": acc1,
+        ce, contrast = ce.detach(), contrast.detach()
+        if n_ranks > 1:
+            ce, contrast, acc1, acc5 = mesh_lib.mean_over_data(
+                mesh, torch.stack([ce, contrast, acc1, acc5]))
+        return nce_state, {"loss": kd_alpha * ce + kd_beta * contrast,
+                           "ce": ce, "contrast": contrast, "acc1": acc1,
                            "acc5": acc5}
 
     def device_data(state, nce_state, data_u8, labels, neg_table, idxs):
+        if mesh is not None:
+            idxs = mesh_lib.shard_batch(mesh, idxs)
         return train_step(state, nce_state, data_u8[idxs], labels[idxs],
                           idxs, neg_table)
 

@@ -15,7 +15,14 @@ match the module path (``ResNetRFS.forward`` in train mode):
     modules unchanged.
 
 Only valid for the geometry ``can_fuse`` admits: single-block stages 1/2,
-no SE, bf16 compute, a size divisible by 4, train mode.
+no SE, bf16 compute, a size divisible by 4, train mode.  The fused blocks
+compute in the backbone's dtype (f32 for ``dtype=None``: the plain
+versions' gradient checks on the CPU).
+
+Under a data mesh (``group``) the fused blocks' statistics are the global
+batch's (ops/fused_block.py) and so is the count behind the running
+variance's unbiased correction; stages 3/4 take theirs from the modules
+under ``models.layers.cross_replica``, which the caller sets.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Optional
 import torch
 
 from ..ops import fused_block as fb
+from ..parallel.mesh import group_size
 from .layers import dropout
 from .resnet import ResNetRFS
 
@@ -52,19 +60,21 @@ def _running_update(block, stats: fb.BlockStats, n: int) -> None:
 
 def fused_forward(backbone: ResNetRFS, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
-                  backend: str = "xla") -> torch.Tensor:
+                  backend: str = "xla", group=None) -> torch.Tensor:
     """Train-mode forward with fused stages 1-2: x (B, 3, H, W) normalized
     images -> (B, feature_dim) f32 features.  ``backend``: ``"pallas"``
     (the hand-written kernels) or ``"xla"`` (the same program as torch ops);
-    dropout draws from ``generator``."""
+    dropout draws from ``generator``; ``group``: the data-parallel group
+    whose global batch the statistics are taken over (None: this batch)."""
     b, _, h, w = x.shape
+    b *= group_size(group)
     drop = backbone.drop_rate
-    out = x.to(torch.bfloat16)
+    out = x.to(backbone.dtype or torch.float32)
     # the image entry (stage 1) needs no input gradient
     for stage, n, need_dx in ((backbone.layer1[0], b * h * w, False),
                               (backbone.layer2[0], b * h * w // 4, True)):
         out, st = fb.fused_block_apply(out, stage, need_dx=need_dx,
-                                       backend=backend)
+                                       backend=backend, group=group)
         _running_update(stage, st, n)
         stage.num_batches_tracked += 1
         if drop > 0:

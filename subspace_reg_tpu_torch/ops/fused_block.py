@@ -32,6 +32,12 @@ dgrad/wgrad as torch's convolution backward (cuDNN on the card), recomputing
 the cheap BN/activation inputs of conv2/conv3.  ``need_dx=False`` (the image
 entry) skips the dgrad of conv1 and of the downsample and returns no input
 gradient.  The statistics are outputs that carry no gradient.
+
+Under a data mesh (``group``) each rank holds its rows of the global
+batch and every BN statistic is the global batch's, as GSPMD makes them
+in the JAX package: the sums of each K2 epilogue are all-reduced between
+the launches (the next K2's prologue takes the global affine), and the
+backward reduces its BN sums likewise.  The kernels do not change.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import leaky_relu
+from ..parallel.mesh import group_size, reduce_sum_
 from . import conv_fused as cf
 
 CL = torch.channels_last
@@ -85,24 +92,26 @@ def _conv1x1(x, wd):
     return F.conv2d(x, wd.to(x.dtype)).contiguous(memory_format=CL)
 
 
-def _forward_pallas(x, p):
+def _forward_pallas(x, p, group=None):
     w1, w2, w3, wd, g1, b1, g2, b2, g3, b3, gd, bd = p
     b, _, h, w = x.shape
-    n = b * h * w
+    # the statistics of each K2 epilogue are summed over the data group
+    # before they fold into the next launch's prologue affine
+    n = b * h * w * group_size(group)
     y1, st1 = cf.conv3x3_fused(x, w1)
-    m1, v1 = cf.fold_stats(st1, n)
+    m1, v1 = cf.fold_stats(reduce_sum_(st1, group), n)
     y2, st2 = cf.conv3x3_fused(y1, w2, cf.bn_affine(m1, v1, g1, b1), True)
-    m2, v2 = cf.fold_stats(st2, n)
+    m2, v2 = cf.fold_stats(reduce_sum_(st2, group), n)
     y3, st3 = cf.conv3x3_fused(y2, w3, cf.bn_affine(m2, v2, g2, b2), True)
-    m3, v3 = cf.fold_stats(st3, n)
+    m3, v3 = cf.fold_stats(reduce_sum_(st3, group), n)
     dsr = _conv1x1(x, wd)
-    md, vd = cf.fold_stats(_sum_stats(dsr), n)
+    md, vd = cf.fold_stats(reduce_sum_(_sum_stats(dsr), group), n)
     pooled, idx = cf.block_tail(y3, dsr, cf.bn_affine(m3, v3, g3, b3),
                                 cf.bn_affine(md, vd, gd, bd))
     return pooled, idx, (y1, y2, y3, dsr), (m1, v1, m2, v2, m3, v3, md, vd)
 
 
-def _forward_xla(x, p):
+def _forward_xla(x, p, group=None):
     w1, w2, w3, wd, g1, b1, g2, b2, g3, b3, gd, bd = p
     dt = x.dtype
 
@@ -111,8 +120,13 @@ def _forward_xla(x, p):
 
     def stats_of(y):
         yf = y.to(torch.float32)
-        m = yf.mean((0, 2, 3))
-        return m, torch.clamp_min((yf * yf).mean((0, 2, 3)) - m * m, 0.0)
+        if group is None:
+            m = yf.mean((0, 2, 3))
+            return m, torch.clamp_min((yf * yf).mean((0, 2, 3)) - m * m,
+                                      0.0)
+        # the global batch's: Σy, Σy² summed over the data group
+        return cf.fold_stats(reduce_sum_(_sum_stats(y), group),
+                             yf.numel() // yf.shape[1] * group_size(group))
 
     y1 = conv(x, w1)
     m1, v1 = stats_of(y1)
@@ -138,8 +152,12 @@ def _forward_xla(x, p):
             (y1, y2, y3, dsr), (m1, v1, m2, v2, m3, v3, md, vd))
 
 
-def _bn_bwd(g_z, y, mean, var, scale, eps=1e-5):
-    """Train-mode BN backward; returns (g_y, g_scale, g_bias)."""
+def _bn_bwd(g_z, y, mean, var, scale, group=None, eps=1e-5):
+    """Train-mode BN backward; returns (g_y, g_scale, g_bias).  Under a
+    data ``group`` the statistics were the global batch's, so g_y takes
+    the global Σg, Σg·x̂ and count; g_scale and g_bias stay this rank's
+    sums, which the gradient all-reduce (parallel/mesh.py::
+    reduce_gradients) adds up once."""
     inv = torch.rsqrt(var + eps)
     a = scale * inv
     gf = g_z.to(torch.float32)
@@ -147,7 +165,11 @@ def _bn_bwd(g_z, y, mean, var, scale, eps=1e-5):
     s1 = gf.sum((0, 2, 3))
     s2 = (gf * xhat).sum((0, 2, 3))
     n = gf.numel() // gf.shape[1]
-    g_y = _chan(a / n) * (n * gf - _chan(s1) - xhat * _chan(s2))
+    t1, t2 = s1, s2
+    if group is not None:
+        t1, t2 = reduce_sum_(torch.stack([s1, s2]), group)
+        n *= group_size(group)
+    g_y = _chan(a / n) * (n * gf - _chan(t1) - xhat * _chan(t2))
     return g_y.to(g_z.dtype), s2, s1
 
 
@@ -169,10 +191,10 @@ def _conv_bwd(x, w, g_y, padding: int, need_dx: bool):
 class _FusedBlock(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, need_dx, backend, *params):
+    def forward(ctx, x, need_dx, backend, group, *params):
         fwd = _forward_pallas if backend == "pallas" else _forward_xla
-        pooled, idx, acts, stats = fwd(x, params)
-        ctx.need_dx = need_dx
+        pooled, idx, acts, stats = fwd(x, params, group)
+        ctx.need_dx, ctx.group = need_dx, group
         ctx.save_for_backward(x, *acts, idx, *stats, *params)
         ctx.mark_non_differentiable(*stats)
         return (pooled,) + tuple(stats)
@@ -182,7 +204,7 @@ class _FusedBlock(torch.autograd.Function):
         x, y1, y2, y3, dsr, idx, *rest = ctx.saved_tensors
         m1, v1, m2, v2, m3, v3, md, vd = rest[:8]
         w1, w2, w3, wd, g1, b1, g2, b2, g3, b3, gd, bd = rest[8:]
-        dt = y1.dtype
+        dt, group = y1.dtype, ctx.group
         # ---- tail: unpool + lrelu through the idx record -----------------
         g = g_out.to(dt)
         low = idx & 3
@@ -195,36 +217,41 @@ class _FusedBlock(torch.autograd.Function):
         for k, (r, c) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
             g_opre[:, :, r::2, c::2] = torch.where(low == k, gs, zero)
         # ---- bn3 / ds_bn ---------------------------------------------------
-        g_y3, gg3, gb3 = _bn_bwd(g_opre, y3, m3, v3, g3)
-        g_dsr, ggd, gbd = _bn_bwd(g_opre, dsr, md, vd, gd)
+        g_y3, gg3, gb3 = _bn_bwd(g_opre, y3, m3, v3, g3, group)
+        g_dsr, ggd, gbd = _bn_bwd(g_opre, dsr, md, vd, gd, group)
         # ---- conv3, bn2, conv2, bn1 ----------------------------------------
         x3 = _affine_act(y2, m2, v2, g2, b2)
         g_x3, gw3 = _conv_bwd(x3, w3.to(dt), g_y3, 1, True)
-        g_y2, gg2, gb2 = _bn_bwd(_lrelu_bwd(g_x3, x3), y2, m2, v2, g2)
+        g_y2, gg2, gb2 = _bn_bwd(_lrelu_bwd(g_x3, x3), y2, m2, v2, g2,
+                                 group)
         x2 = _affine_act(y1, m1, v1, g1, b1)
         g_x2, gw2 = _conv_bwd(x2, w2.to(dt), g_y2, 1, True)
-        g_y1, gg1, gb1 = _bn_bwd(_lrelu_bwd(g_x2, x2), y1, m1, v1, g1)
+        g_y1, gg1, gb1 = _bn_bwd(_lrelu_bwd(g_x2, x2), y1, m1, v1, g1,
+                                 group)
         # ---- conv1 and the downsample ---------------------------------------
         g_xc, gw1 = _conv_bwd(x, w1.to(dt), g_y1, 1, ctx.need_dx)
         g_xd, gwd = _conv_bwd(x, wd.to(dt), g_dsr, 0, ctx.need_dx)
         g_x = g_xc + g_xd if ctx.need_dx else None
         grads = (gw1, gw2, gw3, gwd, gg1, gb1, gg2, gb2, gg3, gb3, ggd, gbd)
         params = (w1, w2, w3, wd, g1, b1, g2, b2, g3, b3, gd, bd)
-        return (g_x, None, None) + tuple(
+        return (g_x, None, None, None) + tuple(
             gr.to(pr.dtype) for gr, pr in zip(grads, params))
 
 
 def fused_block_apply(x: torch.Tensor, block, need_dx: bool = True,
-                      backend: str = "pallas"
+                      backend: str = "pallas", group=None
                       ) -> Tuple[torch.Tensor, BlockStats]:
     """Apply the fused block (a BasicBlock with a downsample, stride 2) to
     x (B, Cin, H, W) in the working dtype.  Returns (pooled (B, Cout, H/2,
     W/2) channels_last, BlockStats).  ``backend``: ``"pallas"`` runs the
-    hand-written kernels K2/K3, ``"xla"`` the same program as torch ops."""
+    hand-written kernels K2/K3, ``"xla"`` the same program as torch ops.
+    ``group`` (a data-parallel process group, parallel/mesh.py) makes
+    every batch statistic the global batch's: the forward's Σy, Σy² and
+    the backward's Σg, Σg·x̂ are summed over its ranks."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
     out, *st = _FusedBlock.apply(x.contiguous(memory_format=CL), need_dx,
-                                 backend, *block_params(block))
+                                 backend, group, *block_params(block))
     return out, BlockStats((st[0], st[1]), (st[2], st[3]), (st[4], st[5]),
                            (st[6], st[7]))

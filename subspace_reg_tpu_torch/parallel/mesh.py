@@ -25,7 +25,7 @@ from __future__ import annotations
 import datetime
 import os
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -247,6 +247,57 @@ def mean_over_data(mesh: Mesh, values: torch.Tensor) -> torch.Tensor:
     values = values.clone()
     dist.all_reduce(values, group=mesh.data_group)
     return values / mesh.n_data
+
+
+def group_size(group) -> int:
+    """The ranks in ``group`` (1 for None, the process without a
+    mesh)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` in place (no autograd; no-op for
+    None)."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` stacked along the rows in rank
+    order (equal shapes on every rank), without autograd: an all-reduce
+    of zero-padded shards, exact because each element has one non-zero
+    term (gloo reduces CUDA tensors but does not gather them)."""
+    if group is None:
+        return x
+    n, r = x.shape[0], dist.get_rank(group)
+    full = x.new_zeros((n * dist.get_world_size(group),) + x.shape[1:])
+    full[r * n:(r + 1) * n] = x
+    dist.all_reduce(full, group=group)
+    return full
+
+
+def lane_devices(n_seeds: int, shard_over_devices: Union[bool, Sequence],
+                 device):
+    """(devices, seed -> device index): the layout of the seed axis that
+    both multi-seed engines (evaluation and pretraining) use.
+    ``shard_over_devices=True`` spreads the seeds over the visible CUDA
+    devices (for ``device`` a card; the CPU is one device), a sequence of
+    devices over those, in contiguous seed blocks over the largest
+    divisor of S that fits, as the JAX engines lay the seed axis out.
+    Each device holds its own copy of its seeds' state and data."""
+    device = torch.device(device)
+    if shard_over_devices is False or shard_over_devices is None:
+        return [device], [0] * n_seeds
+    if shard_over_devices is True:
+        devs = ([torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if device.type == "cuda" else [device])
+    else:
+        devs = [torch.device(d) for d in shard_over_devices]
+    n_dev = max(d for d in range(1, len(devs) + 1) if n_seeds % d == 0)
+    per = n_seeds // n_dev
+    return devs[:n_dev], [i // per for i in range(n_seeds)]
 
 
 def rows_of(generator, n_global: int, rows: slice):

@@ -38,7 +38,10 @@ memory banks of the training split's size, and its ``.ckpt`` carries the
 heads and banks, so ``--reload_path`` resumes them.  A contrastive run on
 a split above ``DEVICE_DATA_MAX_BYTES`` streams it through
 ``PrefetchLoader`` with each batch's items, the same run as on the device.
-Distillation on a mesh of more than one rank is refused.
+Under ``torchrun`` every rank loads the teacher and builds the embed
+heads, banks and negative table (rank 0's are broadcast), each steps on
+its rows of the global batch, and the contrastive step applies the global
+batch's bank update on every rank (engine/pretrain.py).
 """
 
 from __future__ import annotations
@@ -102,13 +105,6 @@ def load_splits(opt, lazy: bool = False):
     raise NotImplementedError(opt.dataset)
 
 
-def _refuse_unported(opt, mesh) -> None:
-    if opt.distill != "none" and mesh is not None and mesh.world_size > 1:
-        raise NotImplementedError(
-            f"--distill {opt.distill} on a mesh of {mesh.world_size} ranks "
-            "is not ported (JAX train_supervised.py:221-235)")
-
-
 def load_teacher(opt, n_cls: int, device):
     """The distillation teacher ``(module, head_w, head_b)`` of
     ``--teacher_path`` (JAX train_supervised.py:138-173): a bf16
@@ -151,7 +147,6 @@ def main(argv=None):
         device = mesh_lib.init_distributed(device.type)
         mesh = mesh_lib.create_mesh(device=device)
     try:
-        _refuse_unported(opt, mesh)
         if mesh is not None and mesh.rank != 0:
             # rank 0 alone prints
             with open(os.devnull, "w") as sink, \
@@ -246,6 +241,9 @@ def _train(opt, device, mesh):
         # every rank starts from rank 0's state
         mesh_lib.replicate_tree(mesh, state.backbone)
         mesh_lib.replicate_tree(mesh, state.head)
+        if contrastive:
+            mesh_lib.replicate_tree(mesh, [state.embed_s, state.embed_t,
+                                           *vars(nce_state).values()])
     eval_step = pt.make_eval_step(
         backbone, test_spec, with_bias=opt.linear_bias,
         truncate_classes=(200 if (opt.dataset == "tieredImageNet"
@@ -324,8 +322,8 @@ def _train(opt, device, mesh):
         def batches():
             for batch in loader.epoch():
                 if contrastive:
-                    yield len(batch[0]), nce_step, (step_nce, *batch,
-                                                    neg_table)
+                    yield len(batch[0]) * n_data, nce_step, (
+                        step_nce, *batch, neg_table)
                 else:
                     yield len(batch[0]) * n_data, step_host, batch
 

@@ -2,7 +2,8 @@
 subspace_reg_tpu_torch.train_supervised --distill kd|nce|crd``) on the CPU,
 on synthetic category-split miniImageNet (64 classes x 4 images, 16 px)
 with a seeded full-width resnet18 teacher ``.ckpt``: the JAX CLI's printed
-lines, the saved contrastive state, the KD class-count and mesh refusals,
+lines, the saved contrastive state, the KD class-count refusal (also
+under a two-rank torchrun, which replicates the contrastive state),
 2 epochs straight against 1 and a resumed second, and the host-streamed
 contrastive run (a split above ``DEVICE_DATA_MAX_BYTES``, through
 ``PrefetchLoader`` with each batch's items) against the
@@ -111,7 +112,12 @@ def test_cli_refuses_kd_class_mismatch_and_a_mesh(cli_root, monkeypatch):
                        "10, this run trains 64"):
         train_supervised.main(_argv(cli_root, "kd10", "kd",
                                     teacher="teacher10.ckpt"))
-    mesh = types.SimpleNamespace(world_size=2, rank=0)
+    # a (faked) two-rank torchrun no longer refuses distillation: KD meets
+    # the single process's class check, and a contrastive run replicates
+    # rank 0's backbone, head, embed heads and banks to every rank (the
+    # two-rank runs themselves: tests/test_torch_mesh_distill.py)
+    mesh = types.SimpleNamespace(world_size=2, rank=0, n_data=2, n_model=1,
+                                 data_index=0)
     monkeypatch.setattr(train_supervised.mesh_lib, "under_torchrun",
                         lambda: True)
     monkeypatch.setattr(train_supervised.mesh_lib, "init_distributed",
@@ -119,9 +125,33 @@ def test_cli_refuses_kd_class_mismatch_and_a_mesh(cli_root, monkeypatch):
     monkeypatch.setattr(train_supervised.mesh_lib, "create_mesh",
                         lambda **kw: mesh)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    for distill in ("kd", "nce"):
-        with pytest.raises(NotImplementedError, match="mesh of 2 ranks"):
-            train_supervised.main(_argv(cli_root, "mesh", distill))
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda: "gloo")
+
+    class Replicated(Exception):
+        pass
+
+    trees = []
+
+    def replicate(mesh_, tree):
+        trees.append(tree)
+        if len(trees) == 3:
+            raise Replicated
+        return tree
+
+    monkeypatch.setattr(train_supervised.mesh_lib, "replicate_tree",
+                        replicate)
+    with pytest.raises(ValueError, match="same classes: teacher head has "
+                       "10, this run trains 64"):
+        train_supervised.main(_argv(cli_root, "mesh", "kd",
+                                    teacher="teacher10.ckpt"))
+    with pytest.raises(Replicated):
+        train_supervised.main(_argv(cli_root, "mesh", "nce"))
+    from subspace_reg_tpu_torch.distill.embed import Embed
+    backbone, head, contrastive = trees
+    assert isinstance(backbone, torch.nn.Module) and set(head) == {"w"}
+    assert [type(t) for t in contrastive[:2]] == [Embed, Embed]
+    assert [tuple(t.shape) for t in contrastive[2:4]] == [(64 * 4, FEAT)] * 2
+    assert len(contrastive) == 7
 
 
 def test_cli_contrastive_resume_is_bit_identical(cli_root, nce_one_epoch,

@@ -38,6 +38,10 @@ def test_every_module_imports_without_jax():
                  "distill.embed", "distill.nce", "learn_mapping",
                  "export_pth"):
         assert f"subspace_reg_tpu_torch.{name}" in mods, name
+    # the parity gate and its fixture, the embedding tools
+    for name in ("parity_gate", "run_parity_gate_fixture",
+                 "utils.embed_tools", "inspect_embeds"):
+        assert f"subspace_reg_tpu_torch.{name}" in mods, name
     code = "\n".join(
         ["import sys, importlib"]
         + [f"sys.modules[{name!r}] = None" for name in BLOCKED]

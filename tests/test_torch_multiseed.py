@@ -10,7 +10,10 @@ subspace-reg + memory flags at 30 epochs at most, 8 sessions:
     injected (dropout masks included): epochs exact, accuracies within
     0.5, as tests/test_torch_engine.py holds the single-seed engines;
   * ``python -m subspace_reg_tpu_torch.run_seeds`` with the engine
-    stubbed: seed groups, the confidence interval, the refusals.
+    stubbed: seed groups, the confidence interval, the refusals;
+  * ``shard_over_devices=True`` on one device bit-identical to the
+    unsharded run, and the seed layout (``parallel.mesh.lane_devices``)
+    against a JAX ``NamedSharding`` of the seed axis under JAX's rule.
 
 The backbone's last stage is 80 wide (above the 60 base classes, so the
 subspace pull is not vacuous) and keeps the golden drop rate 0.1.  On the
@@ -112,14 +115,15 @@ def _inputs(load, sampler, opt):
                                 phase="train"))
 
 
-def _multi(env, draws=None):
+def _multi(env, draws=None, shard_over_devices=False):
     opts = [_opt(env["root"], s) for s in SEEDS]
     ins = [_inputs(load_mini_imagenet, EpisodeSampler, o) for o in opts]
     return few_shot_finetune_multiseed(
         [env["seeds"][s]["tbb"] for s in SEEDS],
         [env["seeds"][s]["thead"] for s in SEEDS], [{} for _ in SEEDS],
         opts, [i["meta"] for i in ins], [i["base_test"] for i in ins],
-        [i["support"] for i in ins], device="cpu", draws=draws)
+        [i["support"] for i in ins], device="cpu", draws=draws,
+        shard_over_devices=shard_over_devices)
 
 
 def _single(env, seed, draws=None):
@@ -151,10 +155,18 @@ def multi_jax_draws(env):
     return _multi(env, draws=_jax_draws(env))
 
 
-def test_multiseed_matches_single_seed_runs(env):
+@pytest.fixture(scope="module")
+def multi_plain(env):
+    """The unsharded run with the port's draws, and the K1 launches it
+    counted."""
     before = finetune_loop.launches
     ms = _multi(env)
-    assert finetune_loop.launches == before    # CPU: the plain loops
+    return ms, finetune_loop.launches - before
+
+
+def test_multiseed_matches_single_seed_runs(env, multi_plain):
+    ms, launched = multi_plain
+    assert launched == 0    # CPU: the plain loops
     assert ms.seeds == list(SEEDS)
     for seed, got in zip(SEEDS, ms.per_seed):
         want = _single(env, seed)
@@ -202,12 +214,11 @@ def test_multiseed_refusals(env):
     bbs = [env["seeds"][s]["tbb"] for s in SEEDS]
     heads = [env["seeds"][s]["thead"] for s in SEEDS]
     args = (bbs, heads, [{}, {}], opts, [None, None], [None, None])
-    with pytest.raises(NotImplementedError, match="one card"):
-        few_shot_finetune_multiseed(*args, shard_over_devices=True,
-                                    device="cpu")
     opts[1].learning_rate = 0.5
-    with pytest.raises(ValueError, match="learning_rate"):
-        few_shot_finetune_multiseed(*args, device="cpu")
+    for shard in (False, True):
+        with pytest.raises(ValueError, match="learning_rate"):
+            few_shot_finetune_multiseed(*args, device="cpu",
+                                        shard_over_devices=shard)
     # what the JAX multi-seed engine does not serve either: the tracked
     # modes and the general freeze
     for over, match in ((dict(track_weights=True), "track_weights"),
@@ -222,6 +233,48 @@ def test_multiseed_refusals(env):
             few_shot_finetune_multiseed(bbs, heads, [{}, {}], opts,
                                         [None] * 2, [None] * 2,
                                         device="cpu")
+
+
+RESULT_FIELDS = ("acc_novel_avg", "acc_base_avg", "weighted_avg_l",
+                 "acc_novel_list", "acc_base_list", "novel_session_traces",
+                 "epochs_per_session")
+
+
+def test_shard_over_devices_on_one_device_is_the_unsharded_run(
+        env, multi_plain):
+    """JAX lays the seeds over the largest divisor of S that fits the
+    visible devices: on the CPU (one device) that is one, and the sharded
+    run is the unsharded one, bit for bit."""
+    got = _multi(env, shard_over_devices=True)
+    assert got.seeds == multi_plain[0].seeds
+    for a, b in zip(got.per_seed, multi_plain[0].per_seed):
+        for name in RESULT_FIELDS:
+            assert getattr(a, name) == getattr(b, name), name
+
+
+@pytest.mark.parametrize("n_dev", range(1, 9))
+def test_seed_layout_matches_jax(n_dev):
+    """``lane_devices`` against the JAX engine's layout of the seed axis
+    (engine/multiseed.py:74-86): over the largest divisor of S that fits
+    ``n_dev`` devices, the seeds that a ``NamedSharding(Mesh(devices,
+    ("seed",)), P("seed"))`` places on each device, for S = 1..10."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from subspace_reg_tpu_torch.parallel.mesh import lane_devices
+    assert jax.device_count() >= n_dev
+    for s in range(1, 11):
+        n_used = max(d for d in range(1, n_dev + 1) if s % d == 0)
+        mesh = Mesh(np.asarray(jax.devices()[:n_used]), ("seed",))
+        arr = jax.device_put(jnp.arange(s), NamedSharding(mesh, P("seed")))
+        where = {d: i for i, d in enumerate(mesh.devices.tolist())}
+        want = [None] * s
+        for shard in arr.addressable_shards:
+            for seed in np.asarray(shard.data).tolist():
+                want[seed] = where[shard.device]
+        devs, slot = lane_devices(s, [f"cpu:{i}" for i in range(n_dev)],
+                                  "cpu")
+        assert len(devs) == n_used and slot == want, (s, n_dev)
+    # True lays the seeds over the visible devices: the CPU is one
+    assert lane_devices(6, True, "cpu") == ([torch.device("cpu")], [0] * 6)
 
 
 def _fake_result(seed):

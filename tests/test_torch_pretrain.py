@@ -274,20 +274,27 @@ def test_fused_forward_counts_and_refuses_unfusable():
     with pytest.raises(ValueError, match="bf16"):
         pt.make_train_step(bf32, None, spec, False, draws, fused=True)(
             ts32, torch.from_numpy(x), torch.from_numpy(y).long())
-    # distillation: a KD teacher of another class count raises, and the
-    # KD and contrastive steps under a mesh of two ranks are refused
+    # distillation: a KD teacher of another class count raises; the fused,
+    # KD and contrastive steps build under a data mesh of two ranks (their
+    # two-rank runs: tests/test_torch_mesh_{fused,distill}.py), and the
+    # contrastive step refuses a class split it does not serve
     teacher = (pretrain_backbone(widths=WIDTHS, seed=3).eval(),
                torch.zeros(N_CLS + 1, WIDTHS[-1]), None)
     with pytest.raises(ValueError, match="KD teacher has 13 classes"):
         pt.make_train_step(bb, None, spec, False, draws, teacher=teacher)(
             ts, torch.from_numpy(x), torch.from_numpy(y).long())
-    mesh = types.SimpleNamespace(world_size=2)
-    with pytest.raises(NotImplementedError, match="mesh of more than one"):
-        pt.make_train_step(bb, None, spec, False, draws, teacher=teacher,
-                           mesh=mesh)
-    with pytest.raises(NotImplementedError, match="mesh of more than one"):
+    mesh = types.SimpleNamespace(world_size=2, n_data=2, n_model=1,
+                                 data_group=None)
+    assert callable(pt.make_train_step(bb, None, spec, False, draws,
+                                       teacher=teacher, mesh=mesh,
+                                       fused=True, fused_backend="pallas"))
+    assert callable(pt.make_train_step_nce(
+        bb, None, spec, False, draws, teacher, None, None, 10, 4,
+        mesh=mesh).device_data)
+    with pytest.raises(ValueError, match="one model rank"):
         pt.make_train_step_nce(bb, None, spec, False, draws, teacher, None,
-                               None, 10, 4, mesh=mesh)
+                               None, 10, 4, mesh=types.SimpleNamespace(
+                                   world_size=2, n_data=1, n_model=2))
 
 
 @pytest.mark.parametrize("cosine", [False, True])

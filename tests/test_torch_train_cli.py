@@ -8,8 +8,8 @@ tests/test_train_cli.py holds the JAX CLI; resuming across the packages is
 ``slow``), the host-streamed path (a split above
 ``DEVICE_DATA_MAX_BYTES``: bit-identical to the device-data run), the
 other datasets (CIFAR-FS per-partition pickles at 32 px; tieredImageNet
-with ``train_b`` pooled), and the refusal of what is not ported
-(distillation on a mesh of more than one rank)."""
+with ``train_b`` pooled), and distillation under a (faked) two-rank
+``torchrun``, which is no longer refused."""
 
 import json
 import os
@@ -74,21 +74,26 @@ def test_one_epoch_prints_saves_and_logs(root, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--distill", "kd"], "distill"),
+    (["--distill", "kd"], "requires --teacher_path"),
 ])
 def test_unported_options_are_refused(root, extra, match, monkeypatch):
     """Distillation on a mesh of more than one rank (JAX
-    train_supervised.py:221-235) is not ported: under ``torchrun`` with two
-    ranks the CLI refuses it before it loads anything."""
+    train_supervised.py:221-235) is served now: under ``torchrun`` with
+    two ranks the CLI no longer refuses ``--distill kd`` for the mesh; it
+    prints the mesh, loads the data and stops only where a single process
+    stops too, at the missing ``--teacher_path``.  The two-rank runs:
+    tests/test_torch_mesh_distill.py."""
     monkeypatch.setattr(train_supervised.mesh_lib, "under_torchrun",
                         lambda: True)
     monkeypatch.setattr(train_supervised.mesh_lib, "init_distributed",
                         lambda dev: torch.device(dev))
     monkeypatch.setattr(train_supervised.mesh_lib, "create_mesh",
-                        lambda **kw: types.SimpleNamespace(world_size=2,
-                                                           rank=0))
+                        lambda **kw: types.SimpleNamespace(
+                            world_size=2, rank=0, n_data=2, n_model=1,
+                            data_index=0))
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    with pytest.raises(NotImplementedError, match=match):
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda: "gloo")
+    with pytest.raises(ValueError, match=match):
         train_supervised.main(_argv(root, *extra))
 
 
