@@ -171,6 +171,22 @@ Phases; any failure raises and the script exits non-zero:
               and seed-1 weights: PASSED, K1 8 launches a run; (d) the
               multi-seed evaluation with ``shard_over_devices=True``
               against ``False``, 3 seeds at phase 4's size: bit-identical.
+  18. orbax  orbax directory checkpoints and event files: (a) phase 5's
+              full-width resnet18 state (105 MB) from the card through
+              ``save_orbax``/``load_orbax`` and ``save_checkpoint``/
+              ``load_checkpoint``, without and with a head bias: every
+              leaf, the head, ``n_active``, ``has_bias`` and ``meta``
+              bit-identical; seconds, MB/s, both sizes on disk; and
+              the committed directory JAX ``save_orbax`` wrote
+              (tests/fixtures/orbax_resnet, zstd-compressed by orbax)
+              through ``load_orbax``, bit-identical to its ``.ckpt``
+              twin, its weights in a narrow resnet12 on the card; (b) the
+              8-session golden evaluation from the orbax-loaded weights
+              and from the ``.ckpt`` (cuDNN deterministic, the same
+              draws): K1 once a session, the printed traces identical;
+              (c) one ``MetricWriter``'s event file read back by a
+              TFRecord reader here: masked CRCs, file version, tags,
+              steps and f32 values.
 
 Each phase's seconds are printed before the JSON lines.
 
@@ -4032,6 +4048,273 @@ def phase_mesh(tmp, counters, small_root):
     return out
 
 
+# the reference's pretraining scalars (train_supervised.py:172-178)
+EVENT_SCALARS = ("train_acc", "train_loss", "test_acc", "test_acc_top5",
+                 "test_loss")
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _proto_fields(buf: bytes) -> dict:
+    """{field number: [values]} of a protobuf message: varints as ints,
+    fixed64 as doubles, fixed32 as floats, length-delimited as bytes."""
+    import struct
+    out, i = {}, 0
+
+    def varint():
+        nonlocal i
+        v = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            v |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return v
+            shift += 7
+    while i < len(buf):
+        key = varint()
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            v = varint()
+        elif wire == 1:
+            (v,) = struct.unpack_from("<d", buf, i)
+            i += 8
+        elif wire == 5:
+            (v,) = struct.unpack_from("<f", buf, i)
+            i += 4
+        elif wire == 2:
+            n = varint()
+            v = buf[i:i + n]
+            i += n
+        else:
+            raise ValueError(f"wire type {wire}")
+        out.setdefault(field, []).append(v)
+    return out
+
+
+def read_event_file(path: str):
+    """(file_version, [(tag, step, value)]) of a TensorBoard event file, each
+    TFRecord's masked CRC-32C checked."""
+    import struct
+    from subspace_reg_tpu_torch.utils.crc32c import masked
+    with open(path, "rb") as f:
+        buf = f.read()
+    records, i = [], 0
+    while i < len(buf):
+        head = buf[i:i + 8]
+        (n,) = struct.unpack("<Q", head)
+        data = buf[i + 12:i + 12 + n]
+        check(struct.unpack("<I", buf[i + 8:i + 12])[0] == masked(head)
+              and struct.unpack("<I", buf[i + 12 + n:i + 16 + n])[0]
+              == masked(data), f"{path}: bad masked CRC at byte {i}")
+        records.append(_proto_fields(data))
+        i += 16 + n
+    version = records[0][3][0].decode()
+    scalars = []
+    for ev in records[1:]:
+        for value in _proto_fields(ev[5][0])[1]:
+            v = _proto_fields(value)
+            step = ev.get(2, [0])[0]
+            scalars.append((v[1][0].decode(), step - (1 << 64)
+                            if step >> 63 else step, v[2][0]))
+    return version, scalars
+
+
+def orbax_round_trip(tmp, backbone, head):
+    """The state on the card through ``save_orbax``/``load_orbax`` and
+    ``save_checkpoint``/``load_checkpoint``: every leaf, the head,
+    ``n_active``, ``has_bias`` and ``meta`` bit-identical; seconds, MB/s and
+    on-disk sizes."""
+    from subspace_reg_tpu_torch.models.head import Head
+    from subspace_reg_tpu_torch.utils import checkpoint as ck
+    from subspace_reg_tpu_torch.utils import zstd
+    from subspace_reg_tpu_torch.weights import to_jax_variables
+    # the decoder's g++ build (first use) outside the timed loads
+    t0 = time.time()
+    zstd.get_lib()
+    print(f"[orbax] zstd decoder library ready in {time.time() - t0:.2f} s "
+          f"(g++ at first use)")
+    sd = {k: v.to("cuda") for k, v in backbone.state_dict().items()}
+    meta = {"epoch": 3, "training_classes": {4: 0, 9: 1}}
+    out = {}
+    r = np.random.RandomState(0)
+    for bias in (False, True):
+        b = (torch.from_numpy(r.randn(head.weight.shape[0]).astype(
+            np.float32)).cuda() if bias else None)
+        state = Head(weight=head.weight.to("cuda"), bias=b,
+                     n_active=head.n_active)
+        variables = to_jax_variables(sd)
+        n_bytes = sum(_as_numpy(v).nbytes for _, v in _tree_items(variables))
+        orbax, path = f"{tmp}/orbax/state_{bias}", f"{tmp}/orbax/{bias}.ckpt"
+        t0 = time.time()
+        ck.save_orbax(orbax, variables, state, meta)
+        t1 = time.time()
+        ck.save_checkpoint(path, variables, state, meta)
+        t2 = time.time()
+        ov, oh, om = ck.load_orbax(orbax)
+        t3 = time.time()
+        cv, chd, cm = ck.load_checkpoint(path)
+        t4 = time.time()
+        check(trees_bit_equal(ov, cv) and trees_bit_equal(ov, variables),
+              f"orbax (bias {bias}): leaves differ from the .ckpt's")
+        check(_as_numpy(oh.weight).tobytes() == _as_numpy(chd.weight)
+              .tobytes() and oh.n_active == chd.n_active == head.n_active
+              and type(oh.n_active) is int
+              and (oh.bias is None) is (chd.bias is None) is (not bias)
+              and (not bias or _as_numpy(oh.bias).tobytes()
+                   == _as_numpy(chd.bias).tobytes()),
+              f"orbax (bias {bias}): the head differs from the .ckpt's")
+        check(om == cm == meta, f"orbax (bias {bias}): meta differs")
+        mb = n_bytes / 1e6
+        print(f"[orbax] bias {bias}: {mb:.1f} MB of variables; save_orbax "
+              f"{t1 - t0:.2f} s ({mb / (t1 - t0):.0f} MB/s), load_orbax "
+              f"{t3 - t2:.2f} s ({mb / (t3 - t2):.0f} MB/s); save_checkpoint "
+              f"{t2 - t1:.2f} s, load_checkpoint {t4 - t3:.2f} s; on disk: "
+              f"orbax {_dir_bytes(orbax) / 1e6:.1f} MB, .ckpt "
+              f"{_dir_bytes(path) / 1e6:.1f} MB; bit-identical")
+        if not bias:
+            out = dict(orbax_dir=orbax, ckpt=path, save_s=t1 - t0,
+                       load_s=t3 - t2, mb=mb)
+    return out
+
+
+ORBAX_FIXTURE = "tests/fixtures/orbax_resnet"
+
+
+def orbax_fixture():
+    """The committed orbax directory that JAX ``save_orbax`` wrote (orbax
+    0.11.32: zstd-compressed chunks and b-tree nodes, so the decoder's
+    Huffman literals, FSE tables and repeat offsets) read with
+    ``load_orbax``: every leaf, the head, ``n_active``, ``has_bias`` and
+    ``meta`` bit-identical to its ``.ckpt`` twin's; the weights loaded
+    into a narrow resnet12 on the card give finite features."""
+    import os
+    from subspace_reg_tpu_torch.models.resnet import ResNetRFS
+    from subspace_reg_tpu_torch.utils import checkpoint as ck
+    from subspace_reg_tpu_torch.utils import ocdbt
+    from subspace_reg_tpu_torch.weights import from_jax_variables
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ORBAX_FIXTURE)
+    t0 = time.time()
+    ov, oh, om = ck.load_orbax(f"{root}/orbax")
+    t1 = time.time()
+    cv, chd, cm = ck.load_checkpoint(f"{root}/state.ckpt")
+    check(trees_bit_equal(ov, cv),
+          "fixture: load_orbax's leaves differ from the .ckpt's")
+    check(all(_as_numpy(x).tobytes() == _as_numpy(y).tobytes()
+              for x, y in ((oh.weight, chd.weight), (oh.bias, chd.bias)))
+          and type(oh.n_active) is int and oh.n_active == chd.n_active
+          and om == cm, "fixture: the head or meta differs from the .ckpt's")
+    chunks = {k: v for k, v in ocdbt.read_store(f"{root}/orbax").items()
+              if not k.endswith(b".zarray")}
+    n_bytes = sum(_as_numpy(v).nbytes for _, v in _tree_items(ov))
+    framed = sum(len(v) for v in chunks.values())
+    check(framed < n_bytes, "fixture: its chunks are not compressed")
+    widths = tuple(ov["params"][f"layer{i}_0"]["conv1"]["kernel"]
+                   .shape[-1] for i in range(1, 5))
+    model = ResNetRFS(n_blocks=(1, 1, 1, 1), drop_rate=0.0,
+                      no_dropblock=True, avg_pool=True, widths=widths)
+    model.load_state_dict(from_jax_variables(ov))
+    model = model.cuda().eval()
+    with torch.no_grad():
+        feat = model(torch.randn(4, 3, 84, 84, device="cuda",
+                                 generator=torch.Generator("cuda")
+                                 .manual_seed(0)))
+    check(bool(torch.isfinite(feat).all()), "fixture: features not finite")
+    print(f"[orbax] fixture {ORBAX_FIXTURE} (JAX save_orbax, orbax "
+          f"0.11.32): {len(chunks)} chunks, {framed} bytes of zstd frames "
+          f"for {n_bytes} bytes of leaves; load_orbax {t1 - t0:.3f} s; "
+          f"bit-identical to its .ckpt twin; resnet12 {widths} on the card: "
+          f"features {tuple(feat.shape)} finite")
+
+
+def orbax_eval(root, opt, template, trip, counters):
+    """The 8-session evaluation from the orbax-loaded weights and from the
+    ``.ckpt`` of the same state (loaded into copies of ``template``), cuDNN
+    deterministic, the same draws: K1 once a session from the orbax
+    weights, the printed traces identical."""
+    import copy
+    from subspace_reg_tpu_torch.models.head import Head
+    from subspace_reg_tpu_torch.utils import checkpoint as ck
+    from subspace_reg_tpu_torch.weights import from_jax_variables
+    runs = {}
+    for kind, load in (("orbax", lambda: ck.load_orbax(trip["orbax_dir"])),
+                       ("ckpt", lambda: ck.load_checkpoint(trip["ckpt"]))):
+        variables, h, _ = load()
+        backbone = copy.deepcopy(template)
+        backbone.load_state_dict(from_jax_variables(variables))
+        head = Head(weight=torch.from_numpy(np.array(h.weight)).cuda(),
+                    bias=None, n_active=h.n_active)
+        _reset(counters)
+        with deterministic_cudnn():
+            res, wall, out = _quiet(lambda: _run_engine(
+                root, opt, backbone.cuda(), head, "cuda"))
+        runs[kind] = (res, wall, out, _launches(counters))
+    (res, wall, out, launches), (ref, ref_wall, ref_out, _) = (
+        runs["orbax"], runs["ckpt"])
+    print(f"[orbax] 8-session run from orbax weights {wall:.2f} s "
+          f"(from the .ckpt {ref_wall:.2f} s); launches {launches}; epochs "
+          f"{res.epochs_per_session}; novel {res.acc_novel_list}")
+    check(launches["finetune_loop"] == N_SESSIONS,
+          f"orbax: K1 launched {launches['finetune_loop']} times, expected "
+          f"{N_SESSIONS}")
+    check(all(n == 0 for k, n in launches.items() if k != "finetune_loop"),
+          f"orbax: the evaluation launched a pretraining kernel: {launches}")
+    check(out.count("Fine-tuning epochs:") == N_SESSIONS and out == ref_out,
+          "orbax: the printed trace differs from the .ckpt run's")
+    check(res.epochs_per_session == ref.epochs_per_session
+          and res.acc_novel_list == ref.acc_novel_list
+          and res.acc_base_list == ref.acc_base_list,
+          "orbax: the run differs from the .ckpt run")
+    return launches["finetune_loop"]
+
+
+def orbax_events(tmp):
+    """One ``MetricWriter`` with the reference's scalars over 4 steps, its
+    event file read back: file version, masked CRCs, tags, steps, f32
+    values; ``metrics.jsonl`` beside it."""
+    import glob
+    import json
+    from subspace_reg_tpu_torch.utils.logging import MetricWriter
+    r = np.random.RandomState(0)
+    want = [(name, float(100 * r.rand()), step) for step in range(4)
+            for name in EVENT_SCALARS]
+    d = f"{tmp}/orbax/tb"
+    w = MetricWriter(d)
+    for name, value, step in want:
+        w.log_value(name, value, step)
+    w.close()
+    (path,) = glob.glob(f"{d}/events.out.tfevents.*")
+    version, got = read_event_file(path)
+    check(version == "brain.Event:2", f"event file version {version!r}")
+    check(got == [(n, s, float(np.float32(v))) for n, v, s in want],
+          f"event file scalars differ: {got[:3]} ...")
+    with open(f"{d}/metrics.jsonl") as f:
+        rows = [(x["name"], x["value"], x["step"]) for x in map(json.loads, f)]
+    check(rows == want, "metrics.jsonl differs")
+    print(f"[orbax] event file {path.rsplit('/', 1)[-1]}: {len(got)} "
+          f"scalars, {_dir_bytes(path)} bytes, CRCs and values checked")
+
+
+def phase_orbax(tmp, counters, run):
+    """Phase 18: orbax directory checkpoints and event files."""
+    root, opt, backbone, head = run
+    trip = timed("18a orbax round trip", orbax_round_trip, tmp, backbone,
+                 head)
+    timed("18a orbax fixture", orbax_fixture)
+    launches = timed("18b orbax eval", orbax_eval, root, opt, backbone, trip,
+                     counters)
+    timed("18c event files", orbax_events, tmp)
+    return dict(orbax_launches=launches, orbax_save_s=trip["save_s"],
+                orbax_load_s=trip["load_s"], orbax_mb=trip["mb"])
+
+
 def sass_count(lib: str, opcode: str) -> int:
     """Instructions of ``opcode`` in a built library's SASS, read with the
     toolkit's ``cuobjdump -sass``."""
@@ -4208,6 +4491,9 @@ def main(argv=None) -> int:
         for kname, n in mesh["mesh_fused_launches"].items():
             rows[kname]["mesh_launches_per_rank"] = n
         k1["parity_launches"] = mesh["parity_launches"]
+        # phase 18: orbax directory checkpoints and event files
+        orbax = phase_orbax(tmp, counters, eval_run)
+        k1["orbax_launches"] = orbax["orbax_launches"]
 
     print_times()
     print(smi)

@@ -1,10 +1,11 @@
 """Build and load the port's native code: its hand-written CUDA kernels
-and its host staging library.
+and its host libraries.
 
 Each ``csrc/*.cu`` source has a plain ``extern "C"`` launcher and is built
 with ``nvcc`` into a shared library under ``subspace_reg_tpu_torch/_build/``
 (listed in ``.gitignore``) at first use, then loaded with ``ctypes``.  The
-host library ``csrc/staging.cpp`` (the streamed loader's batch gather) is
+host libraries ``csrc/staging.cpp`` (the streamed loader's batch gather)
+and ``csrc/zstd_decode.cpp`` (the zstd decoder of orbax checkpoints) are
 built the same way with ``g++``.  The library name carries a hash of the
 source, the headers under ``csrc/`` and the flags, so an edited source or
 header is rebuilt.  Nothing here runs at import time, and a failed build
@@ -31,7 +32,8 @@ SOURCES = {"finetune_loop": "finetune_loop.cu",
            "conv3x3_fused": "conv3x3_fused.cu",
            "block_tail": "block_tail.cu"}
 # host libraries (g++, no CUDA) -> source file under csrc/
-HOST_SOURCES = {"staging": "staging.cpp"}
+HOST_SOURCES = {"staging": "staging.cpp",
+                "zstd_decode": "zstd_decode.cpp"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,9 +57,8 @@ def gxx_path() -> str:
     found = shutil.which("g++")
     if found:
         return found
-    raise RuntimeError("g++ not found: the host staging library is built "
-                       "from csrc/staging.cpp at first use and needs a C++ "
-                       "compiler")
+    raise RuntimeError("g++ not found: the host libraries are built from "
+                       "csrc/*.cpp at first use and need a C++ compiler")
 
 
 def _source(name: str) -> Path:

@@ -1,7 +1,8 @@
 """The port stands alone: every module of subspace_reg_tpu_torch, and
-chip_smoke.py, imports with JAX, flax, optax, msgpack, PIL and pandas (the
-card's machine has none of them) and the JAX package blocked, and no
-source of the port names one of them in an import."""
+chip_smoke.py, imports with JAX, flax, optax, msgpack, PIL, pandas, orbax,
+tensorstore, zstandard, TensorBoard and protobuf (the card's machine has
+none of them) and the JAX package blocked, and no source of the port names
+one of them in an import."""
 
 import ast
 import os
@@ -14,7 +15,12 @@ import subspace_reg_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(subspace_reg_tpu_torch.__file__)
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "pandas",
-           "subspace_reg_tpu")
+           "orbax", "tensorstore", "zstandard", "tensorboard",
+           "google.protobuf", "subspace_reg_tpu")
+
+
+def _blocked(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
 
 
 def _modules():
@@ -42,13 +48,17 @@ def test_every_module_imports_without_jax():
     for name in ("parity_gate", "run_parity_gate_fixture",
                  "utils.embed_tools", "inspect_embeds"):
         assert f"subspace_reg_tpu_torch.{name}" in mods, name
+    # orbax directory checkpoints without orbax, the event files
+    for name in ("utils.crc32c", "utils.zstd", "utils.ocdbt", "utils.zarr2",
+                 "utils.checkpoint", "utils.logging"):
+        assert f"subspace_reg_tpu_torch.{name}" in mods, name
     code = "\n".join(
         ["import sys, importlib"]
         + [f"sys.modules[{name!r}] = None" for name in BLOCKED]
         + [f"importlib.import_module({m!r})" for m in mods]
         + ["import chip_smoke",
-           "leaked = [m for m in sys.modules if m.split('.')[0] in "
-           f"{BLOCKED!r} and sys.modules[m] is not None]",
+           "leaked = [m for m in sys.modules if sys.modules[m] is not None"
+           f" and any(m == b or m.startswith(b + '.') for b in {BLOCKED!r})]",
            "assert not leaked, leaked",
            "print('ok', len(sys.modules))"])
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -74,6 +84,5 @@ def test_no_source_imports_the_jax_package():
                 names = [node.module or ""]
             else:
                 continue
-            bad += [f"{path}: {n}" for n in names
-                    if n.split(".")[0] in BLOCKED]
+            bad += [f"{path}: {n}" for n in names if _blocked(n)]
     assert len(sources) > 20 and not bad, bad
