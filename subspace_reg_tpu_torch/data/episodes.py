@@ -31,6 +31,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..utils.spans import span
 from .mini_imagenet import SplitData
 
 
@@ -83,22 +84,24 @@ class EpisodeSampler:
         self.n_base_support_samples = getattr(opt, "n_base_support_samples", 0)
         self.label2human = base.label2human
 
-        # group images by label, preserving insertion order over the array
-        # (mini_imagenet.py:266-271); global indices recorded in parallel so
-        # episodes can be realized as device-side gathers
-        self.data: Dict[int, List[np.ndarray]] = {}
-        self.index: Dict[int, List[int]] = {}
-        for idx in range(base.imgs.shape[0]):
-            self.data.setdefault(base.labels[idx], []).append(base.imgs[idx])
-            self.index.setdefault(base.labels[idx], []).append(idx)
-        self.classes = list(self.data.keys())
+        with span("srt.data.sampler"):
+            # group images by label, preserving insertion order over the
+            # array (mini_imagenet.py:266-271); global indices recorded in
+            # parallel so episodes can be realized as device-side gathers
+            self.data: Dict[int, List[np.ndarray]] = {}
+            self.index: Dict[int, List[int]] = {}
+            for idx in range(base.imgs.shape[0]):
+                self.data.setdefault(base.labels[idx], []).append(
+                    base.imgs[idx])
+                self.index.setdefault(base.labels[idx], []).append(idx)
+            self.classes = list(self.data.keys())
 
-        if self.use_episodes:
-            self._parse_episode_file()
+            if self.use_episodes:
+                self._parse_episode_file()
 
-        if self.fix_seed and not self.ref_meta_style:
-            np.random.seed(opt.set_seed)
-            np.random.shuffle(self.classes)
+            if self.fix_seed and not self.ref_meta_style:
+                np.random.seed(opt.set_seed)
+                np.random.shuffle(self.classes)
 
     # -- XtarNet exact-episode replay ------------------------------------
     def _parse_episode_file(self):

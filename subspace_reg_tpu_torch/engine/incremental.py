@@ -38,6 +38,13 @@ The host loop keeps the reference's global ``np.random`` stream contract
 the stream).  The engine's other random numbers come from a draw provider
 (engine/draws.py).
 
+Under ``torch.profiler`` a run shows its layers as ranges (utils/spans.py):
+``srt.eval.setup`` (``SeedRun.__init__``, with ``srt.eval.upload``) and per
+session ``srt.eval.session`` around ``srt.eval.begin``, ``.epoch1``,
+``.caches``, ``.k1``, ``.evaluate`` and ``.finish``.
+``SessionProgram.rows_forwarded`` and ``.rows_padded`` count the backbone's
+rows, the padded replay rows among them.
+
 The pull is the subspace projection (``distance2subspace``) or the
 semantic / mapping attractors, which the host computes per session in
 float64 (models/lang_puller.py) and K1 takes as a target.  The multi-seed
@@ -66,6 +73,7 @@ from ..ops.finetune import LoopConfig, finetune_loop, pack_scalars
 from ..utils import artifacts
 from ..utils.device import resolve_device
 from ..utils.optim import adam_torch, get_optim, sgd_torch
+from ..utils.spans import span
 from .draws import TorchDraws
 
 
@@ -281,7 +289,15 @@ class SessionProgram:
     default path, in three steps around K1: ``prepare`` (epoch 1 and the
     feature caches), ``loop_operands`` (K1's operands) and ``complete``
     (the evaluation).  Mutates ``backbone``'s BN running statistics and
-    block counters, as the reference does."""
+    block counters, as the reference does.
+
+    ``rows_forwarded`` counts the rows that epoch 1's train-mode forwards,
+    the caches and ``eval_base`` put through the backbone, every instance
+    together; ``rows_padded`` the replay rows among them that lie past
+    ``memory_count``."""
+
+    rows_forwarded = 0
+    rows_padded = 0
 
     def __init__(self, backbone, opt, geo: SessionGeometry, with_bias: bool):
         self.backbone = backbone
@@ -305,11 +321,13 @@ class SessionProgram:
         nor the counters (incremental.py:902)."""
         bb = self.backbone.train()
         f_sup = bb(s.support_x, generator=s.generator)
+        _count_rows(s.support_x.shape[0])
         f_mem = torch.zeros((s.memory_x.shape[0], self.geo.feat_dim),
                             device=f_sup.device)
         if self.memory_on and s.memory_count > 0:
             mask = self._memory_mask(s)
             f_mem = bb(s.memory_x, sample_mask=mask, generator=s.generator)
+            _count_rows(s.memory_x.shape[0], s.memory_count)
         return f_sup, f_mem
 
     def _memory_mask(self, s: SessionInputs) -> torch.Tensor:
@@ -363,9 +381,11 @@ class SessionProgram:
     def prepare(self, s: SessionInputs) -> Prepared:
         """Epoch 1 (train-mode forwards, one step) and the eval-mode
         feature caches, constant for epochs 2..N."""
-        f_sup_tr, f_mem_tr = self.epoch1_forwards(s)
-        params, mom, nu, l1, a1, a5 = self.epoch1_step(s, f_sup_tr, f_mem_tr)
-        stable, stop = self._stop_epoch1(l1)
+        with span("srt.eval.epoch1"):
+            f_sup_tr, f_mem_tr = self.epoch1_forwards(s)
+            params, mom, nu, l1, a1, a5 = self.epoch1_step(s, f_sup_tr,
+                                                           f_mem_tr)
+            stable, stop = self._stop_epoch1(l1)
         f_sup, f_mem, f_query, f_base = self.caches(s)
         return Prepared(
             params=params, mom=mom, nu=nu, l1=l1, a1=a1, a5=a5,
@@ -496,11 +516,17 @@ class SessionProgram:
     def caches(self, s: SessionInputs):
         """Eval-mode features of support, memory, queries and base batch
         (JAX ``cache_feats_fn``, incremental.py:1063-1068)."""
-        f_mem = (self.features(s.memory_x) if self.memory_on else
-                 torch.zeros((s.memory_x.shape[0], self.geo.feat_dim),
-                             device=s.memory_x.device))
-        return (self.features(s.support_x), f_mem,
-                self.features(s.query_x), self.features(s.base_x))
+        with span("srt.eval.caches"):
+            if self.memory_on:
+                f_mem = self.features(s.memory_x)
+                _count_rows(s.memory_x.shape[0], s.memory_count)
+            else:
+                f_mem = torch.zeros((s.memory_x.shape[0], self.geo.feat_dim),
+                                    device=s.memory_x.device)
+            _count_rows(s.support_x.shape[0] + s.query_x.shape[0]
+                        + s.base_x.shape[0])
+            return (self.features(s.support_x), f_mem,
+                    self.features(s.query_x), self.features(s.base_x))
 
     # -- epochs 2..N -------------------------------------------------------
     def loop_operands(self, s: SessionInputs, p: Prepared):
@@ -599,15 +625,16 @@ class SessionProgram:
     def complete(self, s: SessionInputs, p: Prepared, loop_out):
         """The head after K1's ``loop_out`` (w, stats, trace) and the
         session's metrics."""
-        w_out, stats, trace = loop_out
-        feat = self.geo.feat_dim
-        params = {"w": w_out[:, :feat]}
-        if self.with_bias:
-            params["b"] = w_out[:, feat]
-        trace[1] = torch.stack([p.l1, p.a1, p.a5])
-        metrics = self.metrics(params, s, p.f_query, p.f_base, stats[1])
-        metrics["epoch_trace"] = trace
-        return params, metrics
+        with span("srt.eval.evaluate"):
+            w_out, stats, trace = loop_out
+            feat = self.geo.feat_dim
+            params = {"w": w_out[:, :feat]}
+            if self.with_bias:
+                params["b"] = w_out[:, feat]
+            trace[1] = torch.stack([p.l1, p.a1, p.a5])
+            metrics = self.metrics(params, s, p.f_query, p.f_base, stats[1])
+            metrics["epoch_trace"] = trace
+            return params, metrics
 
     def metrics(self, params, s: SessionInputs, f_query, f_base, epochs):
         chunk_accs, base_acc, q_preds, b_preds = self.evaluate(
@@ -618,8 +645,18 @@ class SessionProgram:
 
     def __call__(self, s: SessionInputs):
         p = self.prepare(s)
-        ops, cfg = self.loop_operands(s, p)
-        return self.complete(s, p, finetune_loop(**ops, cfg=cfg))
+        with span("srt.eval.k1"):
+            ops, cfg = self.loop_operands(s, p)
+            out = finetune_loop(**ops, cfg=cfg)
+        return self.complete(s, p, out)
+
+
+def _count_rows(n: int, filled: Optional[int] = None) -> None:
+    """``n`` rows forwarded through the backbone; with ``filled``, replay
+    rows of which those past ``filled`` are padding."""
+    SessionProgram.rows_forwarded += n
+    if filled is not None:
+        SessionProgram.rows_padded += n - filled
 
 
 @torch.no_grad()
@@ -627,6 +664,7 @@ def eval_base(backbone, head_w, head_b, n_active: int, base_x, base_y):
     """Standalone base-batch accuracy (reference eval_base,
     language_eval.py:46-69) for the initial pre-session measurement."""
     feats = backbone.eval()(base_x)
+    _count_rows(base_x.shape[0])
     params = {"w": head_w} if head_b is None else {"w": head_w, "b": head_b}
     acc1, _ = losses.accuracy_topk(head_logits(params, feats, n_active),
                                    base_y)
@@ -645,6 +683,8 @@ class IncrementalResult:
     acc_base_list: List[float]
     novel_session_traces: List[List[float]]
     epochs_per_session: List[int]
+    # each session's wall time, from its start to the device-to-host pull
+    # of its metrics
     session_seconds: List[float] = field(default_factory=list)
 
     @property
@@ -722,115 +762,121 @@ class SeedRun:
                  base_support_sampler: Optional[EpisodeSampler],
                  base_split_for_vocab, dev: torch.device, draws, prt,
                  vis: bool = False):
-        self.opt, self.meta, self.dev, self.prt = opt, meta, dev, prt
-        self.meta_sampler = meta_sampler
-        self.base_test_split = base_test_split
-        self.base_split_for_vocab = base_split_for_vocab
-        self.with_bias = head0.bias is not None
-        np.random.seed(opt.set_seed)
-        self.draws = (draws if draws is not None
-                      else TorchDraws(opt.set_seed, dev))
-        self.train_spec, test_spec = transforms_test_options[opt.transform]
-        img_size = base_test_split.imgs.shape[1]
-        base_eval_n = opt.test_base_batch_size // 2
-        geo = build_geometry(opt, n_base=int(head0.n_active),
-                             img_size=img_size, base_eval_n=base_eval_n,
-                             feat_dim=int(head0.in_dim),
-                             has_base_support=base_support_sampler
-                             is not None)
-        self.geo = geo
-        self.program = SessionProgram(copy.deepcopy(backbone).to(dev), opt,
-                                      geo, self.with_bias)
+        with span("srt.eval.setup"):
+            self.opt, self.meta, self.dev, self.prt = opt, meta, dev, prt
+            self.meta_sampler = meta_sampler
+            self.base_test_split = base_test_split
+            self.base_split_for_vocab = base_split_for_vocab
+            self.with_bias = head0.bias is not None
+            np.random.seed(opt.set_seed)
+            self.draws = (draws if draws is not None
+                          else TorchDraws(opt.set_seed, dev))
+            self.train_spec, test_spec = transforms_test_options[
+                opt.transform]
+            img_size = base_test_split.imgs.shape[1]
+            base_eval_n = opt.test_base_batch_size // 2
+            geo = build_geometry(opt, n_base=int(head0.n_active),
+                                 img_size=img_size, base_eval_n=base_eval_n,
+                                 feat_dim=int(head0.in_dim),
+                                 has_base_support=base_support_sampler
+                                 is not None)
+            self.geo = geo
+            self.program = SessionProgram(copy.deepcopy(backbone).to(dev),
+                                          opt, geo, self.with_bias)
 
-        # fixed base evaluation batch: the first test_base_batch_size//2
-        # samples of the base-test split (eval_incremental.py:53-57)
-        min_lbl = min(base_test_split.labels)
-        self.base_x = _nchw(aug_ops.normalize_batch(
-            self._upload(base_test_split.imgs[:base_eval_n]), test_spec))
-        self.base_y_host = np.asarray(
-            [l - min_lbl for l in base_test_split.labels[:base_eval_n]],
-            np.int64)
-        self.base_y = self._upload(self.base_y_host)
-        self.test_spec = test_spec
+            # fixed base evaluation batch: the first test_base_batch_size//2
+            # samples of the base-test split (eval_incremental.py:53-57);
+            # the novel split's images live on the device once, episodes
+            # are row gathers
+            with span("srt.eval.upload"):
+                base_u8 = self._upload(base_test_split.imgs[:base_eval_n])
+                self.novel_imgs = self._upload(meta_sampler.base.imgs)
+            min_lbl = min(base_test_split.labels)
+            self.base_x = _nchw(aug_ops.normalize_batch(base_u8, test_spec))
+            self.base_y_host = np.asarray(
+                [l - min_lbl for l in base_test_split.labels[:base_eval_n]],
+                np.int64)
+            self.base_y = self._upload(self.base_y_host)
+            self.test_spec = test_spec
 
-        # fixed base-class exemplars kept in every session's support
-        # (language_eval.py:112-117)
-        self.base_sup_x = self.base_sup_y = None
-        if base_support_sampler is not None:
-            ep = base_support_sampler.get(0)
-            self.base_sup_x = _nchw(aug_ops.augment_batch(
-                self._upload(ep.support_x), self.train_spec,
-                self.draws.base_augment(len(ep.support_x),
-                                        self.train_spec).to(dev)))
-            self.base_sup_y = ep.support_y.astype(np.int64)
+            # fixed base-class exemplars kept in every session's support
+            # (language_eval.py:112-117)
+            self.base_sup_x = self.base_sup_y = None
+            if base_support_sampler is not None:
+                ep = base_support_sampler.get(0)
+                self.base_sup_x = _nchw(aug_ops.augment_batch(
+                    self._upload(ep.support_x), self.train_spec,
+                    self.draws.base_augment(len(ep.support_x),
+                                            self.train_spec).to(dev)))
+                self.base_sup_y = ep.support_y.astype(np.int64)
 
-        head_w = head0.weight.to(dev, torch.float32)
-        if head_w.shape[0] != geo.max_classes:
-            raise ValueError(f"head must be padded to {geo.max_classes} "
-                             f"rows, got {head_w.shape[0]}")
-        self.head_w = head_w
-        self.head_b = (head0.bias.to(dev, torch.float32) if self.with_bias
-                       else None)
-        self.n_active = int(head0.n_active)
-        self.w0, self.b0 = self.head_w, self.head_b
-        # the subspace pull's basis: w0 stays the session-0 head, so one QR
-        # serves every session and epoch
-        self.base_basis = None
-        if self.program.label_pull is not None and not self.program.semantic:
-            self.base_basis = lp.subspace_basis(self.w0[:geo.orig_base])
-        self.reserved = torch.zeros((geo.max_novel, geo.feat_dim),
-                                    device=dev)
-        self.n_reserved = 0
-        self.memory_x = torch.zeros((geo.max_memory, 3, img_size, img_size),
-                                    device=dev)
-        self.memory_y = torch.zeros((geo.max_memory,), dtype=torch.int64,
-                                    device=dev)
-        self.memory_count = 0
-        self.query_x = torch.zeros((geo.max_queries, 3, img_size, img_size),
-                                   device=dev)
-        self.query_y = torch.zeros((geo.max_queries,), dtype=torch.int64,
-                                   device=dev)
-        self.query_y_host = np.zeros((geo.max_queries,), np.int64)
-        # the novel split's images live on the device once; episodes are
-        # row gathers
-        self.novel_imgs = self._upload(meta_sampler.base.imgs)
-        self.lang_state = None
+            head_w = head0.weight.to(dev, torch.float32)
+            if head_w.shape[0] != geo.max_classes:
+                raise ValueError(f"head must be padded to "
+                                 f"{geo.max_classes} rows, got "
+                                 f"{head_w.shape[0]}")
+            self.head_w = head_w
+            self.head_b = (head0.bias.to(dev, torch.float32)
+                           if self.with_bias else None)
+            self.n_active = int(head0.n_active)
+            self.w0, self.b0 = self.head_w, self.head_b
+            # the subspace pull's basis: w0 stays the session-0 head, so one
+            # QR serves every session and epoch
+            self.base_basis = None
+            if (self.program.label_pull is not None
+                    and not self.program.semantic):
+                self.base_basis = lp.subspace_basis(self.w0[:geo.orig_base])
+            self.reserved = torch.zeros((geo.max_novel, geo.feat_dim),
+                                        device=dev)
+            self.n_reserved = 0
+            self.memory_x = torch.zeros(
+                (geo.max_memory, 3, img_size, img_size), device=dev)
+            self.memory_y = torch.zeros((geo.max_memory,), dtype=torch.int64,
+                                        device=dev)
+            self.memory_count = 0
+            self.query_x = torch.zeros(
+                (geo.max_queries, 3, img_size, img_size), device=dev)
+            self.query_y = torch.zeros((geo.max_queries,), dtype=torch.int64,
+                                       device=dev)
+            self.query_y_host = np.zeros((geo.max_queries,), np.int64)
+            self.lang_state = None
 
-        self.acc_novel, self.acc_base = _Meter(), _Meter()
-        self.weighted_avg_l: List[float] = []
-        self.acc_novel_list: List[float] = []
-        self.acc_base_list: List[float] = []
-        self.traces: List[List[float]] = []
-        self.epochs_l: List[int] = []
-        self.secs: List[float] = []
-        self.vocab_base = self.vocab_novel = None
+            self.acc_novel, self.acc_base = _Meter(), _Meter()
+            self.weighted_avg_l: List[float] = []
+            self.acc_novel_list: List[float] = []
+            self.acc_base_list: List[float] = []
+            self.traces: List[List[float]] = []
+            self.epochs_l: List[int] = []
+            self.secs: List[float] = []
+            self.vocab_base = self.vocab_novel = None
 
-        # the tracked path runs the head epochs one at a time for
-        # per-epoch artifacts (incremental.py:1361-1363); it and the
-        # general freeze print each session's header before its epochs
-        # (:1395)
-        self.live = (getattr(opt, "track_weights", False)
-                     or getattr(opt, "track_label_inspired_weights", False)
-                     or vis or opt.freeze_backbone_at != 1)
-        # prediction dumps (language_eval.py:407-438)
-        self.save_preds = bool(getattr(opt, "save_preds_0", False))
-        self.preds_rows = artifacts.new_prediction_rows()
-        self.id2orig: Dict[int, int] = {}
-        self.basec_map_rev = {}
-        if opt.continual and meta.get("training_classes"):
-            self.basec_map_rev = {
-                v: k for k, v in meta["training_classes"].items()}
-        # per-epoch artifacts (language_eval.py:328-349)
-        self.track_weight_rows: List = []
-        self.track_inspired_rows: List = []
-        self.vis_rows = {c: [] for c in VIS_COLUMNS} if vis else None
-        # this seed's np.random stream, which the episodes and the replay
-        # index draws continue
-        self.stream = np.random.get_state()
-        # initial base accuracy (language_eval.py:128-129)
-        self.weighted_avg_l.append(float(eval_base(
-            self.program.backbone, self.head_w, self.head_b, self.n_active,
-            self.base_x, self.base_y)))
+            # the tracked path runs the head epochs one at a time for
+            # per-epoch artifacts (incremental.py:1361-1363); it and the
+            # general freeze print each session's header before its epochs
+            # (:1395)
+            self.live = (getattr(opt, "track_weights", False)
+                         or getattr(opt, "track_label_inspired_weights",
+                                    False)
+                         or vis or opt.freeze_backbone_at != 1)
+            # prediction dumps (language_eval.py:407-438)
+            self.save_preds = bool(getattr(opt, "save_preds_0", False))
+            self.preds_rows = artifacts.new_prediction_rows()
+            self.id2orig: Dict[int, int] = {}
+            self.basec_map_rev = {}
+            if opt.continual and meta.get("training_classes"):
+                self.basec_map_rev = {
+                    v: k for k, v in meta["training_classes"].items()}
+            # per-epoch artifacts (language_eval.py:328-349)
+            self.track_weight_rows: List = []
+            self.track_inspired_rows: List = []
+            self.vis_rows = {c: [] for c in VIS_COLUMNS} if vis else None
+            # this seed's np.random stream, which the episodes and the
+            # replay index draws continue
+            self.stream = np.random.get_state()
+            # initial base accuracy (language_eval.py:128-129)
+            self.weighted_avg_l.append(float(eval_base(
+                self.program.backbone, self.head_w, self.head_b,
+                self.n_active, self.base_x, self.base_y)))
 
     def _upload(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
@@ -840,106 +886,111 @@ class SeedRun:
         this seed's ``np.random`` stream, the replay-memory index draw;
         vocabularies, reserved rows, augmentation, the grown query
         collection, head growth and the attractors."""
-        geo, opt, dev = self.geo, self.opt, self.dev
-        np.random.set_state(self.stream)
-        ep = self.meta_sampler.get(idx)
-        self.mem_inds = None
-        if opt.memory_replay:
-            if (geo.n_ways, geo.n_shots, geo.n_aug) != (5, 5, 5):
-                raise ValueError(
-                    "memory_replay requires the 5-way/5-shot/5-aug support "
-                    "layout: the reference's replay index math is hardcoded "
-                    "to it (eval/language_eval.py:354-358); got "
-                    f"{geo.n_ways}-way/{geo.n_shots}-shot/{geo.n_aug}-aug")
-            # language_eval.py:352-359
-            inds = np.random.choice(opt.n_shots, opt.memory_replay)
-            margin = 5 * np.arange(5)
-            offset = np.arange(0, 125, 25)
-            inds = np.tile(margin + inds, (5, 1)) + (np.tile(offset, (5, 1))).T
-            self.mem_inds = inds.flatten()
-        self.stream = np.random.get_state()
+        with span("srt.eval.begin"):
+            geo, opt, dev = self.geo, self.opt, self.dev
+            np.random.set_state(self.stream)
+            ep = self.meta_sampler.get(idx)
+            self.mem_inds = None
+            if opt.memory_replay:
+                if (geo.n_ways, geo.n_shots, geo.n_aug) != (5, 5, 5):
+                    raise ValueError(
+                        "memory_replay requires the 5-way/5-shot/5-aug "
+                        "support layout: the reference's replay index math "
+                        "is hardcoded to it (eval/language_eval.py:354-358); "
+                        "got "
+                        f"{geo.n_ways}-way/{geo.n_shots}-shot/{geo.n_aug}-aug")
+                # language_eval.py:352-359
+                inds = np.random.choice(opt.n_shots, opt.memory_replay)
+                margin = 5 * np.arange(5)
+                offset = np.arange(0, 125, 25)
+                inds = (np.tile(margin + inds, (5, 1))
+                        + (np.tile(offset, (5, 1))).T)
+                self.mem_inds = inds.flatten()
+            self.stream = np.random.get_state()
 
-        # vocab bookkeeping (language_eval.py:155-167)
-        prev_vocab_base, prev_vocab_novel = self.vocab_base, self.vocab_novel
-        vb, vocab_all, vocab_novel, orig2id = get_vocabs(
-            self.base_split_for_vocab or self.base_test_split,
-            self.meta_sampler.base, ep.query_y)
-        self.vocab_base = (vb if idx == 0
-                           else prev_vocab_base + prev_vocab_novel)
-        self.vocab_novel = vocab_novel
+            # vocab bookkeeping (language_eval.py:155-167)
+            prev_vocab_base = self.vocab_base
+            prev_vocab_novel = self.vocab_novel
+            vb, vocab_all, vocab_novel, orig2id = get_vocabs(
+                self.base_split_for_vocab or self.base_test_split,
+                self.meta_sampler.base, ep.query_y)
+            self.vocab_base = (vb if idx == 0
+                               else prev_vocab_base + prev_vocab_novel)
+            self.vocab_novel = vocab_novel
 
-        # reserve the previous session's novel rows
-        # (language_eval.py:169-186)
-        if idx >= 1:
-            lo = geo.orig_base + geo.n_ways * (idx - 1)
-            self.reserved[geo.n_ways * (idx - 1):geo.n_ways * idx] = \
-                self.head_w[lo:lo + geo.n_ways]
-            self.n_reserved = geo.n_ways * idx
+            # reserve the previous session's novel rows
+            # (language_eval.py:169-186)
+            if idx >= 1:
+                lo = geo.orig_base + geo.n_ways * (idx - 1)
+                self.reserved[geo.n_ways * (idx - 1):geo.n_ways * idx] = \
+                    self.head_w[lo:lo + geo.n_ways]
+                self.n_reserved = geo.n_ways * idx
 
-        self.novel_labels = np.sort(np.unique(ep.query_y))
-        for k in list(orig2id.keys()):
-            orig2id[k] = orig2id[k] + idx * opt.n_ways
-        self.orig2id = orig2id
-        query_ys_id = np.asarray([orig2id[int(y)] for y in ep.query_y],
-                                 np.int64)
-        support_ys_id = np.asarray([orig2id[int(y)] for y in ep.support_y],
-                                   np.int64)
+            self.novel_labels = np.sort(np.unique(ep.query_y))
+            for k in list(orig2id.keys()):
+                orig2id[k] = orig2id[k] + idx * opt.n_ways
+            self.orig2id = orig2id
+            query_ys_id = np.asarray([orig2id[int(y)] for y in ep.query_y],
+                                     np.int64)
+            support_ys_id = np.asarray([orig2id[int(y)] for y in ep.support_y],
+                                       np.int64)
 
-        # episode realization + augmentation on the device
-        if ep.support_idx is not None:
-            sup_u8 = self.novel_imgs[self._upload(
-                ep.support_idx.astype(np.int64))]
-            qry_u8 = self.novel_imgs[self._upload(
-                ep.query_idx.astype(np.int64))]
-        else:
-            sup_u8, qry_u8 = self._upload(ep.support_x), self._upload(
-                ep.query_x)
-        support_x = _nchw(aug_ops.augment_batch(
-            sup_u8, self.train_spec,
-            self.draws.support_augment(idx, sup_u8.shape[0],
-                                       self.train_spec).to(dev)))
-        # grow the query collection (language_eval.py:198-204)
-        nq = geo.n_query_per_session
-        self.query_x[idx * nq:(idx + 1) * nq] = _nchw(
-            aug_ops.normalize_batch(qry_u8, self.test_spec))
-        self.query_y[idx * nq:(idx + 1) * nq] = self._upload(query_ys_id)
-        self.query_y_host[idx * nq:(idx + 1) * nq] = query_ys_id
-        if self.vis_rows is not None and idx == 0:
-            # the frames show the RAW uint8 queries: the reference hands
-            # image_formatter its normalized tensors, whose max-scale and
-            # uint8 cast wrap them (incremental.py:1558-1562)
-            self.vis_imgs = [artifacts.image_formatter(im)
-                             for im in qry_u8.cpu().numpy()]
-            self.vocab_all = vocab_all
+            # episode realization + augmentation on the device
+            if ep.support_idx is not None:
+                sup_u8 = self.novel_imgs[self._upload(
+                    ep.support_idx.astype(np.int64))]
+                qry_u8 = self.novel_imgs[self._upload(
+                    ep.query_idx.astype(np.int64))]
+            else:
+                sup_u8, qry_u8 = self._upload(ep.support_x), self._upload(
+                    ep.query_x)
+            support_x = _nchw(aug_ops.augment_batch(
+                sup_u8, self.train_spec,
+                self.draws.support_augment(idx, sup_u8.shape[0],
+                                           self.train_spec).to(dev)))
+            # grow the query collection (language_eval.py:198-204)
+            nq = geo.n_query_per_session
+            self.query_x[idx * nq:(idx + 1) * nq] = _nchw(
+                aug_ops.normalize_batch(qry_u8, self.test_spec))
+            self.query_y[idx * nq:(idx + 1) * nq] = self._upload(query_ys_id)
+            self.query_y_host[idx * nq:(idx + 1) * nq] = query_ys_id
+            if self.vis_rows is not None and idx == 0:
+                # the frames show the RAW uint8 queries: the reference hands
+                # image_formatter its normalized tensors, whose max-scale and
+                # uint8 cast wrap them (incremental.py:1558-1562)
+                self.vis_imgs = [artifacts.image_formatter(im)
+                                 for im in qry_u8.cpu().numpy()]
+                self.vocab_all = vocab_all
 
-        if self.base_sup_x is not None:
-            support_x = torch.cat([support_x, self.base_sup_x], 0)
-            support_ys_id = np.concatenate([support_ys_id, self.base_sup_y])
-        self.support_x, self.support_ys_id = support_x, support_ys_id
+            if self.base_sup_x is not None:
+                support_x = torch.cat([support_x, self.base_sup_x], 0)
+                support_ys_id = np.concatenate([support_ys_id,
+                                                self.base_sup_y])
+            self.support_x, self.support_ys_id = support_x, support_ys_id
 
-        # classifier growth (language_eval.py:214): a fresh init block,
-        # rolled so that its row j lands at n_active + j
-        new_w, new_b = self.draws.head_growth(idx, geo.max_classes,
-                                              geo.feat_dim, self.with_bias)
-        grown = head_lib.augment(
-            head_lib.Head(weight=self.head_w, bias=self.head_b,
-                          n_active=self.n_active),
-            new_w.to(dev), None if new_b is None else new_b.to(dev),
-            len(self.novel_labels))
-        self.head_w, self.head_b = grown.weight, grown.bias
-        self.n_active = grown.n_active
+            # classifier growth (language_eval.py:214): a fresh init block,
+            # rolled so that its row j lands at n_active + j
+            new_w, new_b = self.draws.head_growth(idx, geo.max_classes,
+                                                  geo.feat_dim, self.with_bias)
+            grown = head_lib.augment(
+                head_lib.Head(weight=self.head_w, bias=self.head_b,
+                              n_active=self.n_active),
+                new_w.to(dev), None if new_b is None else new_b.to(dev),
+                len(self.novel_labels))
+            self.head_w, self.head_b = grown.weight, grown.bias
+            self.n_active = grown.n_active
 
-        return SessionInputs(
-            head_w=self.head_w, head_b=self.head_b, n_active=self.n_active,
-            w0=self.w0, b0=self.b0, reserved=self.reserved,
-            n_reserved=self.n_reserved, support_x=support_x,
-            support_y=self._upload(support_ys_id), memory_x=self.memory_x,
-            memory_y=self.memory_y, memory_count=self.memory_count,
-            query_x=self.query_x[:(idx + 1) * nq],
-            query_y=self.query_y[:(idx + 1) * nq], base_x=self.base_x,
-            base_y=self.base_y, generator=self.draws.dropout(idx),
-            sem_pullers=self._attractors(idx, vocab_novel),
-            base_basis=self.base_basis)
+            return SessionInputs(
+                head_w=self.head_w, head_b=self.head_b, n_active=self.n_active,
+                w0=self.w0, b0=self.b0, reserved=self.reserved,
+                n_reserved=self.n_reserved, support_x=support_x,
+                support_y=self._upload(support_ys_id), memory_x=self.memory_x,
+                memory_y=self.memory_y, memory_count=self.memory_count,
+                query_x=self.query_x[:(idx + 1) * nq],
+                query_y=self.query_y[:(idx + 1) * nq], base_x=self.base_x,
+                base_y=self.base_y, generator=self.draws.dropout(idx),
+                sem_pullers=self._attractors(idx, vocab_novel),
+                base_basis=self.base_basis)
 
     def _attractors(self, idx: int, vocab_novel) -> Optional[torch.Tensor]:
         """The semantic / mapping attractors (language_eval.py:216-228),
@@ -966,21 +1017,22 @@ class SeedRun:
     # -- the live paths: tracked and general freeze ------------------------
     def run_session(self, idx: int) -> None:
         """Session ``idx`` of the single-seed engine on its mode's path."""
-        if self.live:
-            self.prt(f"\n**** Iteration {idx + 1}/{self.geo.max_sessions} "
-                     "****\n")
-        t0 = time.time()
-        s = self.begin(idx)
-        if self.opt.freeze_backbone_at != 1:
-            params, metrics = self._general_freeze(idx, s)
-        elif self.live:
-            params, metrics = self._tracked(idx, s)
-        else:
-            params, metrics = self.program(s)
-        # the novel weight of the weighted average: the classes seen less
-        # the reference's constant 60 (incremental.py:1469)
-        self.finish(idx, params, metrics, time.time() - t0,
-                    len(self.vocab_base) + len(self.vocab_novel) - 60)
+        with span("srt.eval.session"):
+            if self.live:
+                self.prt(f"\n**** Iteration {idx + 1}/"
+                         f"{self.geo.max_sessions} ****\n")
+            t0 = time.time()
+            s = self.begin(idx)
+            if self.opt.freeze_backbone_at != 1:
+                params, metrics = self._general_freeze(idx, s)
+            elif self.live:
+                params, metrics = self._tracked(idx, s)
+            else:
+                params, metrics = self.program(s)
+            # the novel weight of the weighted average: the classes seen
+            # less the reference's constant 60 (incremental.py:1469)
+            self.finish(idx, params, metrics, t0,
+                        len(self.vocab_base) + len(self.vocab_novel) - 60)
 
     def _tracked(self, idx: int, s: SessionInputs):
         """Epoch 1 and the caches, then one head epoch at a time, recorded
@@ -1130,74 +1182,78 @@ class SeedRun:
                     w.writerow([fmt(v) for v in row])
             self.prt("saved", path)
 
-    def finish(self, idx: int, params, metrics, seconds: float,
+    def finish(self, idx: int, params, metrics, t0: float,
                novel_weight: float) -> None:
         """Take the session's head, update the replay memory
         (language_eval.py:352-359) and record and print the session's
         metrics (language_eval.py:370-404); ``novel_weight`` is the
         weighted average's novel weight, which the caller's engine
-        defines.  The predictions leave the device only for
+        defines.  The session's seconds run from ``t0`` (``time.time()``
+        at its start) to the pull of its metrics, which waits for the
+        device.  The predictions leave the device only for
         ``--save_preds_0``."""
-        geo, opt, prt = self.geo, self.opt, self.prt
-        self.head_w = params["w"]
-        if self.with_bias:
-            self.head_b = params["b"]
-        if self.mem_inds is not None:
-            inds = self.mem_inds
-            n_new = len(inds)
-            lo = self.memory_count
-            self.memory_x[lo:lo + n_new] = self.support_x[self._upload(inds)]
-            self.memory_y[lo:lo + n_new] = self._upload(
-                self.support_ys_id[inds])
-            self.memory_count += n_new
+        with span("srt.eval.finish"):
+            geo, opt, prt = self.geo, self.opt, self.prt
+            self.head_w = params["w"]
+            if self.with_bias:
+                self.head_b = params["b"]
+            if self.mem_inds is not None:
+                inds = self.mem_inds
+                n_new = len(inds)
+                lo = self.memory_count
+                self.memory_x[lo:lo + n_new] = self.support_x[
+                    self._upload(inds)]
+                self.memory_y[lo:lo + n_new] = self._upload(
+                    self.support_ys_id[inds])
+                self.memory_count += n_new
 
-        keys = ["chunk_accs", "base_acc", "epochs"]
-        if not self.live and getattr(opt, "verbose", False):
-            keys.append("epoch_trace")
-        if self.save_preds:
-            keys += ["query_preds", "base_preds"]
-        host = {k: metrics[k].cpu().numpy() for k in keys}
-        self.secs.append(seconds)
-        epochs_run = int(host["epochs"])
-        if not self.live:
-            prt(f"\n**** Iteration {idx + 1}/{geo.max_sessions} ****\n")
-            if getattr(opt, "verbose", False):
-                tr = host["epoch_trace"]
-                for e in range(10, epochs_run + 1, 10):
-                    _print_epoch_line(prt, e, tr[e, 0], tr[e, 1], tr[e, 2])
-        # the reference reports the mean of per-session accs ROUNDED to two
-        # decimals (language_eval.py:370-374)
-        session_trace = [round(float(a), 2) for a in host["chunk_accs"]]
-        prt("Novel session accuracies: ", session_trace)
-        test_acc = float(np.array(session_trace).mean())
-        acc_base_ = float(host["base_acc"])
-        self.acc_base.update(acc_base_)
-        self.acc_novel.update(test_acc)
-        # reference: 60 for mini, 200 for tiered (language_eval.py:383)
-        w1 = 200 if opt.dataset == "tieredImageNet" else 60
-        w2 = novel_weight
-        weighted_avg = (w1 * acc_base_ + w2 * test_acc) / (w1 + w2)
-        self.weighted_avg_l.append(round(weighted_avg, 2))
-        self.acc_novel_list.append(round(test_acc, 2))
-        self.acc_base_list.append(round(acc_base_, 2))
-        self.traces.append(session_trace)
-        self.epochs_l.append(epochs_run)
-        acc_base, acc_novel = self.acc_base, self.acc_novel
-        prt(f"***Running weighted avg: {weighted_avg}")
-        if self.save_preds:
-            self._dump_predictions(idx, host["query_preds"],
-                                   host["base_preds"])
-        prt(f"{'Classes:':25} {self.novel_labels}\n"
-            f"{'Labels:':25} {self.vocab_novel}\n"
-            f"{'Fine-tuning epochs:':25} {epochs_run}\n"
-            f"{'Novel acc:':25} {test_acc:.4f}\n"
-            f"{'Base acc:':25} {acc_base_:.4f}\n"
-            f"{'Average:':25} {(test_acc + acc_base_) / 2:.4f}\n"
-            f"{'Runnning Base Avg:':25} {acc_base.avg:.4f}\n"
-            f"{'Running Novel Avg:':25} {acc_novel.avg:.4f}\n"
-            f"{'Running Average:':25} "
-            f"{(acc_base.avg + acc_novel.avg) / 2:.4f}\n",
-            flush=True)
+            keys = ["chunk_accs", "base_acc", "epochs"]
+            if not self.live and getattr(opt, "verbose", False):
+                keys.append("epoch_trace")
+            if self.save_preds:
+                keys += ["query_preds", "base_preds"]
+            host = {k: metrics[k].cpu().numpy() for k in keys}
+            self.secs.append(time.time() - t0)
+            epochs_run = int(host["epochs"])
+            if not self.live:
+                prt(f"\n**** Iteration {idx + 1}/{geo.max_sessions} ****\n")
+                if getattr(opt, "verbose", False):
+                    tr = host["epoch_trace"]
+                    for e in range(10, epochs_run + 1, 10):
+                        _print_epoch_line(prt, e, tr[e, 0], tr[e, 1], tr[e, 2])
+            # the reference reports the mean of per-session accs ROUNDED to two
+            # decimals (language_eval.py:370-374)
+            session_trace = [round(float(a), 2) for a in host["chunk_accs"]]
+            prt("Novel session accuracies: ", session_trace)
+            test_acc = float(np.array(session_trace).mean())
+            acc_base_ = float(host["base_acc"])
+            self.acc_base.update(acc_base_)
+            self.acc_novel.update(test_acc)
+            # reference: 60 for mini, 200 for tiered (language_eval.py:383)
+            w1 = 200 if opt.dataset == "tieredImageNet" else 60
+            w2 = novel_weight
+            weighted_avg = (w1 * acc_base_ + w2 * test_acc) / (w1 + w2)
+            self.weighted_avg_l.append(round(weighted_avg, 2))
+            self.acc_novel_list.append(round(test_acc, 2))
+            self.acc_base_list.append(round(acc_base_, 2))
+            self.traces.append(session_trace)
+            self.epochs_l.append(epochs_run)
+            acc_base, acc_novel = self.acc_base, self.acc_novel
+            prt(f"***Running weighted avg: {weighted_avg}")
+            if self.save_preds:
+                self._dump_predictions(idx, host["query_preds"],
+                                       host["base_preds"])
+            prt(f"{'Classes:':25} {self.novel_labels}\n"
+                f"{'Labels:':25} {self.vocab_novel}\n"
+                f"{'Fine-tuning epochs:':25} {epochs_run}\n"
+                f"{'Novel acc:':25} {test_acc:.4f}\n"
+                f"{'Base acc:':25} {acc_base_:.4f}\n"
+                f"{'Average:':25} {(test_acc + acc_base_) / 2:.4f}\n"
+                f"{'Runnning Base Avg:':25} {acc_base.avg:.4f}\n"
+                f"{'Running Novel Avg:':25} {acc_novel.avg:.4f}\n"
+                f"{'Running Average:':25} "
+                f"{(acc_base.avg + acc_novel.avg) / 2:.4f}\n",
+                flush=True)
 
     def _dump_predictions(self, idx: int, q_preds, b_preds) -> None:
         """Session ``idx``'s rows of the prediction dump (the session-0

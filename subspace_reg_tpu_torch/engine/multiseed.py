@@ -42,6 +42,7 @@ import torch
 from ..ops.finetune import finetune_loop_seeds
 from ..parallel.mesh import lane_devices
 from ..utils.device import resolve_device
+from ..utils.spans import span
 from .draws import TorchDraws, per_seed
 from .incremental import IncrementalResult, SeedRun, check_options
 
@@ -137,35 +138,37 @@ def few_shot_finetune_multiseed(
         raise ValueError("the seeds' session geometries differ")
 
     for idx in range(runs[0].geo.max_sessions):
-        t0 = time.time()
-        inputs, prepared = [], []
-        for run in runs:
-            s = run.begin(idx)
-            inputs.append(s)
-            prepared.append(run.program.prepare(s))
-        loops = [run.program.loop_operands(s, p)
-                 for run, s, p in zip(runs, inputs, prepared)]
-        cfg = loops[0][1]
-        if any(c != cfg for _, c in loops):
-            raise ValueError("the seeds' K1 configurations differ")
-        outs = [None] * n
-        for group in groups:
-            # one seed-batched K1 launch for the device's seeds
-            stacked = {k: None if t is None else torch.stack(
-                [loops[i][0][k] for i in group])
-                for k, t in loops[0][0].items()}
-            w, stats, trace = finetune_loop_seeds(**stacked, cfg=cfg)
-            for j, i in enumerate(group):
-                outs[i] = (w[j], stats[j], trace[j])
-        done = [run.program.complete(s, p, outs[i])
-                for i, (run, s, p) in enumerate(zip(runs, inputs,
-                                                    prepared))]
+        with span("srt.eval.session"):
+            t0 = time.time()
+            inputs, prepared = [], []
+            for run in runs:
+                s = run.begin(idx)
+                inputs.append(s)
+                prepared.append(run.program.prepare(s))
+            with span("srt.eval.k1"):
+                loops = [run.program.loop_operands(s, p)
+                         for run, s, p in zip(runs, inputs, prepared)]
+                cfg = loops[0][1]
+                if any(c != cfg for _, c in loops):
+                    raise ValueError("the seeds' K1 configurations differ")
+                outs = [None] * n
+                for group in groups:
+                    # one seed-batched K1 launch for the device's seeds
+                    stacked = {k: None if t is None else torch.stack(
+                        [loops[i][0][k] for i in group])
+                        for k, t in loops[0][0].items()}
+                    w, stats, trace = finetune_loop_seeds(**stacked, cfg=cfg)
+                    for j, i in enumerate(group):
+                        outs[i] = (w[j], stats[j], trace[j])
+            done = [run.program.complete(s, p, outs[i])
+                    for i, (run, s, p) in enumerate(zip(runs, inputs,
+                                                        prepared))]
+            for run, (params, metrics) in zip(runs, done):
+                # the novel weight of the weighted average: the classes
+                # added so far (JAX multiseed.py:477-480)
+                run.finish(idx, params, metrics, t0,
+                           run.geo.n_ways * (idx + 1))
         dt = time.time() - t0
-        for run, (params, metrics) in zip(runs, done):
-            # the novel weight of the weighted average: the classes added
-            # so far (JAX multiseed.py:477-480)
-            run.finish(idx, params, metrics, dt / n,
-                       run.geo.n_ways * (idx + 1))
         prt(f"session {idx}: novel {[r.acc_novel_list[-1] for r in runs]} "
             f"base {[r.acc_base_list[-1] for r in runs]} epochs "
             f"{[r.epochs_l[-1] for r in runs]} [{dt:.2f}s]", flush=True)

@@ -5,7 +5,9 @@ augmentation on the device, the bf16 train-mode forward (the module path,
 or with ``fused=True`` the fused stages 1-2 of models/fused_forward.py),
 cross-entropy plus the optional label-pull penalty, backward, and a
 ``torch.optim`` SGD/Adam update whose learning rate follows the per-step
-schedule.
+schedule.  Under ``torch.profiler`` these phases are the ranges
+``srt.pretrain.augment``, ``.forward``, ``.backward`` and ``.optimizer``,
+after ``srt.pretrain.gather`` in the device-data step (utils/spans.py).
 
 Where JAX and PyTorch differ in form:
 
@@ -73,6 +75,7 @@ from ..ops.augment import AugmentDraws
 from ..parallel import mesh as mesh_lib
 from ..utils import optim
 from ..utils.optim import Schedule, set_lr
+from ..utils.spans import span
 from ..weights import (from_jax_variables, optimizer_from_jax,
                        optimizer_to_jax, to_jax_variables)
 
@@ -291,66 +294,70 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
     def train_step(state: PretrainState, x_u8: torch.Tensor,
                    y: torch.Tensor) -> Metrics:
         s = state.step
-        if schedule is not None:
-            set_lr(state.optimizer, schedule(s))
-        # the global batch's draws, this rank's rows
-        aug, gen = _global_draws(
-            mesh, s, x_u8.shape[0],
-            lambda s, n: (draws.pretrain_augment(s, n, spec),
-                          draws.pretrain_dropout(s)))
-        x = aug_ops.augment_batch(x_u8, spec, aug)
-        # NHWC in memory is an NCHW tensor in channels_last
-        x = x.permute(0, 3, 1, 2)
-        backbone.train()
-        if fused and not can_fuse(backbone, x.shape[2], True):
-            raise ValueError("fused=True needs a bf16 backbone with "
-                             "single-block stages 1/2, no SE and a size "
-                             "divisible by 4")
-        with cross_replica(backbone, sync):
-            feats = (fused_forward(backbone, x, gen, backend=fused_backend,
-                                   group=sync) if fused
-                     else backbone(x, generator=gen))
-        n_model = 1 if mesh is None else mesh.n_model
-        if n_model == 1:
-            logits = _logits(state, feats, with_bias)
-        else:
-            n_cls = state.head["w"].shape[0]
-            cls = mesh_lib.head_sharding(mesh, n_cls)
-            local = feats @ state.head["w"][cls].T
-            if with_bias:
-                local = local + state.head["b"][cls]
-            logits = mesh_lib.gather_classes(mesh, local, n_cls)
-        ce = losses.cross_entropy(logits, y)
-        loss = ce
-        if teacher is not None:
-            _, t_w, t_b = teacher
-            t_logits = teacher_features(teacher, x) @ t_w.T
-            if t_b is not None:
-                t_logits = t_logits + t_b
-            if t_logits.shape[1] != logits.shape[1]:
-                raise ValueError(
-                    f"the KD teacher has {t_logits.shape[1]} classes, the "
-                    f"student {logits.shape[1]}")
-            loss = kd_alpha * ce + kd_beta * DistillKL(logits, t_logits,
-                                                       kd_temperature)
-        data_loss, penalty = loss, None
-        if label_pull is not None:
-            # pretraining pull penalty (train_supervised.py:231-235):
-            # attractors computed from the classifier itself
-            w = state.head["w"]
-            scores = pull_embeds @ pull_embeds.T
-            probs = torch.softmax(scores / temperature, dim=1)
-            penalty = label_pull * torch.sum(torch.square(probs @ w - w))
-            # every model rank adds it; the reduced gradient counts it once
-            loss = loss + (penalty if n_model == 1 else penalty / n_model)
-        acc1, acc5 = losses.accuracy_topk(logits.detach(), y)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            mesh_lib.reduce_gradients(
-                mesh, [p for g in state.optimizer.param_groups
-                       for p in g["params"]])
-        state.optimizer.step()
+        with span("srt.pretrain.augment"):
+            if schedule is not None:
+                set_lr(state.optimizer, schedule(s))
+            # the global batch's draws, this rank's rows
+            aug, gen = _global_draws(
+                mesh, s, x_u8.shape[0],
+                lambda s, n: (draws.pretrain_augment(s, n, spec),
+                              draws.pretrain_dropout(s)))
+            x = aug_ops.augment_batch(x_u8, spec, aug)
+            # NHWC in memory is an NCHW tensor in channels_last
+            x = x.permute(0, 3, 1, 2)
+        with span("srt.pretrain.forward"):
+            backbone.train()
+            if fused and not can_fuse(backbone, x.shape[2], True):
+                raise ValueError("fused=True needs a bf16 backbone with "
+                                 "single-block stages 1/2, no SE and a size "
+                                 "divisible by 4")
+            with cross_replica(backbone, sync):
+                feats = (fused_forward(backbone, x, gen, backend=fused_backend,
+                                       group=sync) if fused
+                         else backbone(x, generator=gen))
+            n_model = 1 if mesh is None else mesh.n_model
+            if n_model == 1:
+                logits = _logits(state, feats, with_bias)
+            else:
+                n_cls = state.head["w"].shape[0]
+                cls = mesh_lib.head_sharding(mesh, n_cls)
+                local = feats @ state.head["w"][cls].T
+                if with_bias:
+                    local = local + state.head["b"][cls]
+                logits = mesh_lib.gather_classes(mesh, local, n_cls)
+            ce = losses.cross_entropy(logits, y)
+            loss = ce
+            if teacher is not None:
+                _, t_w, t_b = teacher
+                t_logits = teacher_features(teacher, x) @ t_w.T
+                if t_b is not None:
+                    t_logits = t_logits + t_b
+                if t_logits.shape[1] != logits.shape[1]:
+                    raise ValueError(
+                        f"the KD teacher has {t_logits.shape[1]} classes, the "
+                        f"student {logits.shape[1]}")
+                loss = kd_alpha * ce + kd_beta * DistillKL(logits, t_logits,
+                                                           kd_temperature)
+            data_loss, penalty = loss, None
+            if label_pull is not None:
+                # pretraining pull penalty (train_supervised.py:231-235):
+                # attractors computed from the classifier itself
+                w = state.head["w"]
+                scores = pull_embeds @ pull_embeds.T
+                probs = torch.softmax(scores / temperature, dim=1)
+                penalty = label_pull * torch.sum(torch.square(probs @ w - w))
+                # every model rank adds it; the reduced gradient counts it once
+                loss = loss + (penalty if n_model == 1 else penalty / n_model)
+            acc1, acc5 = losses.accuracy_topk(logits.detach(), y)
+        with span("srt.pretrain.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if mesh is not None:
+                mesh_lib.reduce_gradients(
+                    mesh, [p for g in state.optimizer.param_groups
+                           for p in g["params"]])
+        with span("srt.pretrain.optimizer"):
+            state.optimizer.step()
         state.step += 1
         if mesh is not None and n_data > 1:
             data_loss, acc1, acc5 = mesh_lib.mean_over_data(
@@ -375,9 +382,11 @@ def make_train_step_device_data(backbone: ResNetRFS,
 
     def train_step(state: PretrainState, data_u8: torch.Tensor,
                    labels: torch.Tensor, idxs: torch.Tensor) -> Metrics:
-        if mesh is not None:
-            idxs = mesh_lib.shard_batch(mesh, idxs)
-        return base(state, data_u8[idxs], labels[idxs])
+        with span("srt.pretrain.gather"):
+            if mesh is not None:
+                idxs = mesh_lib.shard_batch(mesh, idxs)
+            x_u8, y = data_u8[idxs], labels[idxs]
+        return base(state, x_u8, y)
 
     return train_step
 
