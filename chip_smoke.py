@@ -48,7 +48,8 @@ Phases; any failure raises and the script exits non-zero:
               miniImageNet made from a seed, random weights from a seed.
               Every kernel launch counter is set to 0 just before and read
               just after each run; K1 must have launched once per session,
-              K2/K3 never.
+              K2/K3 never, K4 22 times in each of the run's 48 backbone
+              forwards (``K4_EVAL_LAUNCHES``).
   6. profile  the same run again under torch.profiler: device time of K1,
               of the convolutions and of the rest per 8-session run, and
               the busy share.
@@ -202,6 +203,13 @@ the last is one JSON object with each kernel's launches on its path, its
 error against the plain version, its time, the plain version's time, its
 roofline bound and the library call's time; the last line is
 ``{"ok": true, "device": ...}``.
+
+Phase 3 then holds K4 (the f32 convolution of the evaluation's forwards)
+against an f64 convolution at its edge shapes and at each of the
+forward's 22 convolutions at each of the evaluation's batch sizes
+(``K4_SHAPES`` x ``K4_ROWS``), against its plain version and on rerun,
+and times it beside its bound and beside ``F.conv2d`` f32 with TF32 off
+on the NCHW input (the yardstick, with the cuDNN kernels it ran).
 
 ``--only-kernels`` stops after phase 3 for quick iteration on a kernel: it
 prints the kernels line (launches null) and no ok line.
@@ -411,6 +419,44 @@ K3_EDGE_SHAPES = (("2x2 b1 c3", 3, 2, 2, 1),
 # instead exceed the profiler's by up to the gap between two graph nodes
 K3_PROFILER_SHARE = 0.05
 K3_LAUNCH_GAP_MS = 0.001
+# K4: the 22 convolutions of resnet18's forward at 84 px, as (name, Cin,
+# Cout, H = W, R, convolutions of that shape in one forward); 18 are 3x3
+# and 4 the downsample's 1x1
+K4_SHAPES = (("s1 3->64", 3, 64, 84, 3, 1), ("s1 64->64", 64, 64, 84, 3, 2),
+             ("s1 ds 3->64", 3, 64, 84, 1, 1),
+             ("s2 64->160", 64, 160, 42, 3, 1),
+             ("s2 160->160", 160, 160, 42, 3, 2),
+             ("s2 ds 64->160", 64, 160, 42, 1, 1),
+             ("s3a 160->320", 160, 320, 21, 3, 1),
+             ("s3a 320->320", 320, 320, 21, 3, 2),
+             ("s3a ds 160->320", 160, 320, 21, 1, 1),
+             ("s3b 320->320", 320, 320, 10, 3, 3),
+             ("s4a 320->640", 320, 640, 10, 3, 1),
+             ("s4a 640->640", 640, 640, 10, 3, 2),
+             ("s4a ds 320->640", 320, 640, 10, 1, 1),
+             ("s4b 640->640", 640, 640, 5, 3, 3))
+# the evaluation's batch sizes: queries (125 a session), the support (185
+# on miniImageNet, 476 on tieredImageNet), the replay buffer (200) and the
+# base batch (1000)
+K4_ROWS = (125, 185, 200, 476, 1000)
+# (name, Cin, Cout, H, W, R, batch): a one-pixel image, non-square maps,
+# the k tile of 4 (Cin not a multiple of 16, with and without padding to
+# 4), output widths that leave a tile's columns partly empty, ragged rows
+K4_EDGE_SHAPES = (("1x1 b1 64->64", 64, 64, 1, 1, 3, 1),
+                  ("7x9 b3 8->12", 8, 12, 7, 9, 3, 3),
+                  ("13x13 b2 3->64", 3, 64, 13, 13, 3, 2),
+                  ("5x11 b3 24->40 1x1", 24, 40, 5, 11, 1, 3),
+                  ("6x6 b5 160->96", 160, 96, 6, 6, 3, 5),
+                  ("3x17 b7 5->4", 5, 4, 3, 17, 3, 7),
+                  ("9x9 b33 48->200", 48, 200, 9, 9, 3, 33))
+# K4's launches in a golden 8-session run: resnet18's 22 convolutions in
+# each of 48 backbone forwards (eval_base, and per session the epoch-1
+# support forward, the four cached forwards and, in sessions 2-8, the
+# epoch-1 replay forward)
+K4_EVAL_LAUNCHES = 22 * (1 + 5 * N_SESSIONS + N_SESSIONS - 1)
+# K4 against an f64 convolution: the largest |y - y64| over max |y64| (f32
+# sums of up to 5,760 products in another order; TF32 reads ~1e-3)
+K4_TOL = 1e-5
 
 
 def k2_case(cin: int, cout: int, hw: int, prologue: bool, device,
@@ -966,6 +1012,137 @@ def phase_k2(shapes=K2_SHAPES, edges: bool = True):
                 launches=None, **k2)
 
 
+def k4_case(cin: int, cout: int, h: int, w: int, r: int, batch: int,
+            device, seed: int = 0):
+    """K4's operands: x (batch, Cin, H, W) f32, channels_last as the
+    forward hands it on (NCHW-contiguous at 3 input channels, as the
+    engine's images arrive), and a (Cout, Cin, R, R) weight at the
+    backbone's initial scale (N(0, 2 / fan_out))."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((batch, cin, h, w), generator=g).to(device)
+    if cin != 3:
+        x = x.contiguous(memory_format=torch.channels_last)
+    wt = torch.randn((cout, cin, r, r), generator=g) * math.sqrt(
+        2.0 / (cout * r * r))
+    return x, wt.to(device)
+
+
+def k4_error(x, w, y, images=None) -> float:
+    """max |y - y64| / max |y64| over ``images`` (default: the first, a
+    middle and the last one), y64 the f64 convolution."""
+    F = torch.nn.functional
+    b = x.shape[0]
+    idx = sorted({0, b // 2, b - 1}) if images is None else images
+    ref = F.conv2d(x[idx].double(), w.double(), padding=w.shape[-1] // 2)
+    return float((y[idx].double() - ref).abs().max() / ref.abs().max())
+
+
+def k4_flops(batch: int, cin: int, cout: int, hw: int, r: int) -> float:
+    return 2.0 * batch * hw * hw * cout * cin * r * r
+
+
+def phase_k4(dev, rows=K4_ROWS, edges: bool = True):
+    """K4 against an f64 convolution at the edge shapes and at every
+    convolution of the evaluation's forward at each of its batch sizes,
+    against its plain version at the smallest, rerun bit-identical; CUDA
+    -event times of the kernel, its bound (operations at the f32 peak),
+    the plain version (at 1000 rows) and the yardstick ``F.conv2d`` f32
+    with TF32 off on the NCHW input the evaluation used to hand it, with
+    the kernels cuDNN ran for it (torch.profiler); per forward, the sums
+    over its 22 convolutions."""
+    from subspace_reg_tpu_torch.ops import conv_f32 as k4
+    F = torch.nn.functional
+    launches0 = k4.conv_f32.launches
+    err_max = 0.0
+    for name, cin, cout, h, w, r, batch in K4_EDGE_SHAPES if edges else ():
+        x, wt = k4_case(cin, cout, h, w, r, batch, dev)
+        y = k4.conv_f32(x, wt)
+        err = k4_error(x, wt, y, list(range(batch)))
+        print(f"[kernels] K4 edge {name}: rel err {err:.2e}")
+        check(err <= K4_TOL, f"K4 edge {name}: rel err {err}")
+        err_max = max(err_max, err)
+    per_rows = {}
+    shapes = []
+    plain_ms = 0.0
+    for batch in rows:
+        tot = dict(ms=0.0, bound_ms=0.0, library_ms=0.0)
+        for name, cin, cout, hw, r, count in K4_SHAPES:
+            x, wt = k4_case(cin, cout, hw, hw, r, batch, dev)
+            y = k4.conv_f32(x, wt)
+            err = k4_error(x, wt, y)
+            check(err <= K4_TOL, f"K4 {name} at {batch} rows: rel err {err}")
+            err_max = max(err_max, err)
+            plan = k4.conv_f32_plan(batch * hw * hw, cout, -(-cin // 4) * 4,
+                                    k4._sm_count(dev), k4._occupancy(dev))
+            if batch == min(rows):
+                plain = k4.conv_f32_plain(x, wt)
+                perr = float((y - plain).abs().max() / plain.abs().max())
+                again = k4.conv_f32(x, wt)
+                same = torch.equal(y, again)
+                check(perr <= K4_TOL and same, f"K4 {name}: against the "
+                      f"plain version {perr}, rerun bit-identical {same}")
+            reps = max(3, min(50, int(2e10 / k4_flops(batch, cin, cout,
+                                                       hw, r))))
+            ms = cuda_ms(lambda: k4.conv_f32(x, wt), reps)
+            xn = x.contiguous()
+            lib_ms = cuda_ms(lambda: F.conv2d(xn, wt, padding=r // 2), reps)
+            bound = 1e3 * k4_flops(batch, cin, cout, hw, r) / FP32_PEAK_FLOPS
+            row = dict(rows=batch, shape=name, ms=ms, bound_ms=bound,
+                       library_ms=lib_ms, err=err, tile=(plan.bm, plan.bn),
+                       grid=plan.grid, tiles=plan.tiles)
+            if batch == max(rows):
+                row["plain_ms"] = cuda_ms(lambda: k4.conv_f32_plain(x, wt),
+                                          2)
+                plain_ms += count * row["plain_ms"]
+                row["library_kernels"] = library_kernels(
+                    lambda: F.conv2d(xn, wt, padding=r // 2))
+            shapes.append(row)
+            print(f"[kernels] K4 {name} x{count} at {batch} rows: kernel "
+                  f"{ms:.4f} ms ({100 * bound / ms:.1f}% of the bound "
+                  f"{bound:.4f}), F.conv2d {lib_ms:.4f} ms "
+                  f"({lib_ms / ms:.2f}x), tile {plan.bm}x{plan.bn}, grid "
+                  f"{plan.grid} over {plan.tiles} tiles, rel err {err:.2e}"
+                  + (f", plain {row['plain_ms']:.3f} ms, cuDNN ran "
+                     f"{row['library_kernels']}" if "plain_ms" in row
+                     else ""))
+            for key in tot:
+                tot[key] += count * row[key]
+            del x, y
+        per_rows[batch] = tot
+        print(f"[kernels] K4 forward at {batch} rows: kernels "
+              f"{tot['ms']:.3f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}%"
+              f" of the bound {tot['bound_ms']:.3f}), F.conv2d "
+              f"{tot['library_ms']:.3f} ms ({tot['library_ms'] / tot['ms']:.2f}x)")
+    launches = k4.conv_f32.launches - launches0
+    print(f"[kernels] K4 launches in this phase: {launches}")
+    big = per_rows[max(rows)]
+    return dict(name="conv_f32", route="cuda",
+                source="subspace_reg_tpu_torch/csrc/conv_f32.cu",
+                replaces=None, launches=None, max_abs_err=err_max,
+                ms=big["ms"], plain_ms=plain_ms,
+                bound_ms=big["bound_ms"], bound_by="operations",
+                library_ms=big["library_ms"], rows=max(rows),
+                per_rows=per_rows, shapes=shapes)
+
+
+def library_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs (torch.profiler),
+    cut to 60 characters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name[:60] not in names:
+            names.append(e.name[:60])
+    return names
+
+
 def k3_bytes(y3) -> int:
     """K3's bytes: y3 and r read once, the four f32 affines, the bf16 pooled
     map and the int8 record written once."""
@@ -1231,6 +1408,7 @@ def phase_main(tmp, counters):
                      generator=torch.Generator().manual_seed(1))
     print(f"[main] set-up (synthetic data, seeded weights) "
           f"{time.time() - t0:.1f} s")
+    from subspace_reg_tpu_torch.ops.conv_f32 import conv_f32
     out_launches = None
     for config in CONFIGS:
         opt = _golden_opt(root, config=config)
@@ -1238,6 +1416,7 @@ def phase_main(tmp, counters):
         old = sys.stdout
         for c in counters:
             c.launches = 0
+        conv_f32.launches = 0
         sys.stdout = tee
         try:
             t0 = time.time()
@@ -1251,7 +1430,11 @@ def phase_main(tmp, counters):
         out = tee.buf.getvalue()
         print(f"[main] {config}: 8-session run {wall:.2f} s; per-session "
               f"seconds {[round(s, 4) for s in res.session_seconds]}; "
-              f"epochs {res.epochs_per_session}; launches {launches}")
+              f"epochs {res.epochs_per_session}; launches {launches}, "
+              f"conv_f32 {conv_f32.launches}")
+        check(conv_f32.launches == K4_EVAL_LAUNCHES,
+              f"{config}: K4 launched {conv_f32.launches} times, expected "
+              f"{K4_EVAL_LAUNCHES}")
         check(launches["finetune_loop"] == N_SESSIONS,
               f"{config}: K1 launched {launches['finetune_loop']} times, "
               f"expected {N_SESSIONS}")
@@ -1276,7 +1459,7 @@ def phase_main(tmp, counters):
         check(out.count("Fine-tuning epochs:") == N_SESSIONS,
               "one session block per session")
         if config == "subspace":
-            out_launches = launches
+            out_launches = dict(launches, conv_f32=conv_f32.launches)
             run = (root, opt, backbone, head)
             golden = dict(res=res, wall=wall)
     return out_launches, run, golden
@@ -4418,6 +4601,7 @@ def main(argv=None) -> int:
     k1["max_abs_err"] = max(k1["max_abs_err"], err, seeds_err, tiered_err)
     rows["conv3x3_fused"] = timed("3 kernels K2", phase_k2)
     rows["block_tail"] = timed("3 kernels K3", phase_k3, dev)
+    rows["conv_f32"] = timed("3 kernels K4", phase_k4, dev)
     # K2 and K3 at CIFAR's 32 px step (resnet12): their rows keep the
     # 84 px step's numbers and carry these beside them
     cifar = {"conv3x3_fused": timed("3 kernels K2 32px", phase_k2,
@@ -4447,6 +4631,7 @@ def main(argv=None) -> int:
         launches, eval_run, golden = timed("5 main", phase_main, tmp,
                                            counters)
         k1["launches"] = launches["finetune_loop"]
+        rows["conv_f32"]["launches"] = launches["conv_f32"]
         # phase 6: where the evaluation path's device time goes
         timed("6 profile", phase_profile, eval_run)
         # phase 7: the fused pretraining step agrees with the module step

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv_f32
 from .layers import (SELayer, TorchBatchNorm, dropblock, dropout,
                      kaiming_normal_fan_out_, leaky_relu, max_pool_torch)
 
@@ -94,8 +95,13 @@ class BasicBlock(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        """``conv(x)`` with both operands in the compute dtype."""
+        """``conv(x)`` with both operands in the compute dtype: K4
+        (``ops/conv_f32.py``, channels_last out) where f32 needs no
+        gradient, ``F.conv2d`` otherwise."""
         if self.dtype is None:
+            if conv_f32.wanted(x, conv.weight):
+                return conv_f32.conv_f32(x, conv.weight, conv.stride,
+                                         conv.padding)
             return conv(x)
         return F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype), None,
                         1, conv.padding)

@@ -30,7 +30,11 @@ BUILD_DIR = PKG_DIR / "_build"
 # kernel name -> source file under csrc/
 SOURCES = {"finetune_loop": "finetune_loop.cu",
            "conv3x3_fused": "conv3x3_fused.cu",
-           "block_tail": "block_tail.cu"}
+           "block_tail": "block_tail.cu",
+           "conv_f32": "conv_f32.cu"}
+# kernels that one path runs together, built together: the evaluation's
+# K1 and K4
+BUILT_WITH = {"finetune_loop": ("conv_f32",), "conv_f32": ("finetune_loop",)}
 # host libraries (g++, no CUDA) -> source file under csrc/
 HOST_SOURCES = {"staging": "staging.cpp",
                 "zstd_decode": "zstd_decode.cpp"}
@@ -124,8 +128,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The named library, built first if needed."""
+    """The named library, built first if needed, together with the
+    libraries its path also runs (``BUILT_WITH``)."""
     if name not in _LIBS:
-        path = build_all([name])[name]["path"]
+        path = build_all([name, *BUILT_WITH.get(name, ())])[name]["path"]
         _LIBS[name] = ctypes.CDLL(path)
     return _LIBS[name]

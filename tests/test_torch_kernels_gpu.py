@@ -6,7 +6,11 @@ seeds (each seed bit-identical to a single-seed launch on its group's
 blocks); K2 and K3 at the fused
 pretraining step's shapes (``k2_case``, ``k3_case``) and at edge shapes
 (``K2_EDGE_SHAPES``, ``K3_EDGE_SHAPES``; K3 also at each vector width its
-pointers' alignment forces).  Marked
+pointers' alignment forces); K4 against an f64 convolution at each of
+the 22 convolutions of the evaluation's resnet18 forward at each of its
+batch sizes (``K4_SHAPES`` x ``K4_ROWS``) and at edge shapes
+(``K4_EDGE_SHAPES``), and the evaluation's forward through K4 against the
+same forward through cuDNN.  Marked
 ``gpu``: it skips where no card is present and runs on the card with
 
     python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py
@@ -23,9 +27,11 @@ import torch
 
 from chip_smoke import (K2_CIFAR_SHAPES, K2_EDGE_SHAPES, K2_SHAPES,
                         K3_CIFAR_SHAPES, K3_EDGE_SHAPES, K3_SHAPES,
+                        K4_EDGE_SHAPES, K4_ROWS, K4_SHAPES, K4_TOL,
                         TIERED_BASE, bf16_ulp_diff, k1_case, k1_seed_case,
                         k2_agreement, k2_case, k2_term_scale, k3_agreement,
-                        k3_case)
+                        k3_case, k4_case, k4_error)
+from subspace_reg_tpu_torch.ops import conv_f32 as k4
 from subspace_reg_tpu_torch.ops import conv_fused as cf
 from subspace_reg_tpu_torch.ops import finetune as ft
 from subspace_reg_tpu_torch.utils.device import resolve_device
@@ -371,3 +377,78 @@ def test_k1_no_fallback_when_the_library_fails_to_load(cuda, monkeypatch):
     with pytest.raises(OSError, match="finetune_loop"):
         ft.finetune_loop(**per[0], cfg=cfg)
     assert ft.finetune_loop.launches == before
+
+
+@pytest.mark.parametrize("rows", K4_ROWS)
+@pytest.mark.parametrize("case", range(len(K4_SHAPES)),
+                         ids=[s[0] for s in K4_SHAPES])
+def test_k4_matches_f64_at_eval_shapes(cuda, case, rows):
+    """Each convolution of the evaluation's forward at each of its batch
+    sizes: max |y - y64| / max |y64| over the first, a middle and the last
+    image within ``K4_TOL`` (f32 sums of up to 5,760 products in another
+    order; TF32 reads ~1e-3); channels_last out."""
+    _, cin, cout, hw, r, _ = K4_SHAPES[case]
+    x, w = k4_case(cin, cout, hw, hw, r, rows, cuda)
+    y = k4.conv_f32(x, w)
+    assert y.shape == (rows, cout, hw, hw)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert k4_error(x, w, y) <= K4_TOL
+
+
+@pytest.mark.parametrize("case", range(len(K4_EDGE_SHAPES)),
+                         ids=[s[0] for s in K4_EDGE_SHAPES])
+def test_k4_edge_shapes_match_f64(cuda, case):
+    """Ragged rows and columns, one-pixel and non-square images, the k
+    tile of 4: every image within ``K4_TOL``."""
+    _, cin, cout, h, w, r, batch = K4_EDGE_SHAPES[case]
+    x, wt = k4_case(cin, cout, h, w, r, batch, cuda)
+    y = k4.conv_f32(x, wt)
+    assert k4_error(x, wt, y, list(range(batch))) <= K4_TOL
+
+
+def test_k4_is_deterministic_and_matches_plain(cuda):
+    x, w = k4_case(160, 160, 42, 42, 3, 37, cuda)
+    y = k4.conv_f32(x, w)
+    assert torch.equal(y, k4.conv_f32(x, w))
+    plain = k4.conv_f32_plain(x, w)
+    assert float((y - plain).abs().max() / plain.abs().max()) <= K4_TOL
+
+
+def test_k4_counts_launches_and_refuses_bad_operands(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(k4, "conv_f32_plain", boom)
+    x, w = k4_case(64, 64, 9, 9, 3, 2, cuda)
+    before = k4.conv_f32.launches
+    k4.conv_f32(x, w)
+    k4.conv_f32(x.contiguous(), w)
+    assert k4.conv_f32.launches == before + 2
+    with pytest.raises(ValueError, match="multiple of 4"):
+        k4.conv_f32(x, torch.randn((6, 64, 3, 3), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        k4.conv_f32(x.double(), w.double())
+    with pytest.raises(ValueError, match="stride"):
+        k4.conv_f32(x, w, stride=2)
+    with pytest.raises(ValueError, match="channels_last"):
+        k4.conv_f32(x[:, :, :, :4], w)
+    assert k4.conv_f32.launches == before + 2
+
+
+def test_k4_eval_forward_matches_cudnn(cuda, monkeypatch):
+    """resnet18 at full width and 84 px, 200 rows, eval mode: the features
+    through K4 against the same forward through cuDNN (f32, TF32 off)
+    within 1e-5 of their largest (the benchmark's feature limit is 5e-5);
+    22 launches a forward."""
+    from subspace_reg_tpu_torch.models.resnet import model_dict
+    torch.manual_seed(0)
+    m = model_dict["resnet18"](avg_pool=True).to(cuda).eval()
+    x = torch.randn((200, 84, 84, 3), device=cuda).permute(0, 3, 1, 2)
+    before = k4.conv_f32.launches
+    with torch.no_grad():
+        f = m(x.contiguous())
+        assert k4.conv_f32.launches == before + 22
+        monkeypatch.setattr(k4, "wanted", lambda x, w: False)
+        ref = m(x.contiguous())
+    assert k4.conv_f32.launches == before + 22
+    assert float((f - ref).abs().max() / ref.abs().max()) <= 1e-5
