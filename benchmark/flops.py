@@ -1,19 +1,23 @@
 """The benchmark's own counts of operations and bytes, from the
 configuration's shapes alone.
 
-A convolution of a (Cin, H, W) map to Cout channels with a k x k kernel,
+A backbone's forward is counted by its reference file
+(``reference/backbone.py``: ``forward_flops``, ``feature_dim``), found by
+the name its configuration gives, from the primitives here.  A
+convolution of a (Cin, H, W) map to Cout channels with a k x k kernel,
 stride 1 and same padding is 2 * Cin * Cout * k^2 * H * W operations (a
-multiply and an add per weight per output pixel).  An RFS block at H x W
-runs three 3x3 convolutions (Cin -> Cout, Cout -> Cout twice) and, where
-the width changes, a 1x1 shortcut (Cin -> Cout), then a max-pool of its
-stride; the next block runs on the pooled map.  BatchNorm, LeakyReLU,
-pooling and the element-wise work are not counted: the peaks they are
-compared with are the matrix units'.
+multiply and an add per weight per output pixel).  A residual block of
+three 3x3 convolutions at H x W (Cin -> Cout, Cout -> Cout twice) adds,
+where the width changes, a 1x1 shortcut (Cin -> Cout).  Normalization,
+activations, pooling and the element-wise work are not counted: the
+peaks they are compared with are the matrix units'.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Sequence
+
+from benchmark.reference import backbone
 
 
 def conv_flops(cin: int, cout: int, k: int, h: int, w: int) -> int:
@@ -30,27 +34,19 @@ def block_flops(cin: int, cout: int, h: int, w: int,
 
 
 def blocks(config: dict) -> List[Dict[str, int]]:
-    """(cin, cout, h, w, shortcut, stride) of every block in order, for
-    the configuration's ``widths``, ``n_blocks``, ``img_size``: the first
-    block of a stage pools by 2 at its end, the others run at the pooled
-    size (the RFS ``_make_layer``)."""
-    h = w = int(config["img_size"])
-    cin = int(config.get("in_channels", 3))
-    out = []
-    for planes, n in zip(config["widths"], config["n_blocks"]):
-        for i in range(n):
-            out.append(dict(cin=cin, cout=planes, h=h, w=w,
-                            shortcut=(i == 0), stride=2 if i == 0 else 1))
-            if i == 0:
-                h, w = h // 2, w // 2
-            cin = planes
-    return out
+    """The backbone's blocks with their sizes, as its reference lists
+    them."""
+    return backbone.of(config).blocks(config)
 
 
 def forward_flops(config: dict) -> int:
     """Operations of one image's backbone forward."""
-    return sum(block_flops(b["cin"], b["cout"], b["h"], b["w"],
-                           b["shortcut"]) for b in blocks(config))
+    return backbone.of(config).forward_flops(config)
+
+
+def feature_dim(config: dict) -> int:
+    """The width of the backbone's features."""
+    return backbone.of(config).feature_dim(config)
 
 
 def head_flops(rows: int, classes: int, dim: int) -> int:
@@ -61,7 +57,7 @@ def train_step_flops(config: dict, batch: int, n_cls: int) -> int:
     """A training step: the forward, and a backward counted as twice the
     forward (the gradients of the inputs and of the weights), of the
     backbone and the head."""
-    dim = int(config["widths"][-1])
+    dim = feature_dim(config)
     return 3 * batch * (forward_flops(config) + head_flops(1, n_cls, dim))
 
 
@@ -116,7 +112,7 @@ def eval_run_flops(config: dict, sessions: Sequence[dict],
     the eval-mode forwards of the support, the filled replay rows, the
     queries so far and the base batch, the head's logits, and K1."""
     fwd = forward_flops(config)
-    dim = int(config["widths"][-1])
+    dim = feature_dim(config)
     tot = base_eval_n * fwd
     for s in sessions:
         rows_train = s["n_sup"] + s["mem_count"]

@@ -5,7 +5,11 @@ Everything that belongs to one configuration, one workload (traffic mix)
 or one per-layer metric lives in a file of its own, found by the name
 ``BENCHMARK.json`` gives it:
 
-  benchmark/configs/<config>.json     sizes of one model configuration
+  benchmark/configs/<config>.json     sizes of one model configuration,
+                                      and under ``reference`` the file
+                                      of its backbone's plain forward,
+                                      operation count and feature width
+                                      (``reference/backbone.py``)
   benchmark/workloads/<cell>.json     one cell: its job kind, parameters
                                       and the limits of its output checks
   benchmark/jobs/<job>.py             one driver per job kind: ``run(ctx)``
@@ -80,7 +84,8 @@ class Cell:
     """One cell of ``BENCHMARK.json`` with everything found by its names."""
     name: str
     entry: dict              # the ``workloads`` entry
-    config: dict             # the configuration file's contents
+    config: dict             # the configuration file's contents, its
+                             # ``reference`` file's path made absolute
     workload: dict           # benchmark/workloads/<name>.json
     end_to_end: List[dict]   # end-to-end metrics this cell reports
     per_layer: List[dict]    # per-layer metrics this cell reports
@@ -102,6 +107,8 @@ def find_cell(spec: dict, name: str, root: Path = ROOT) -> Cell:
     entry = entries[name]
     configs = {c["name"]: c for c in spec["configs"]}
     config = load_json(root / configs[entry["config"]]["file"])
+    # the backbone reference lies in the checkout the cell was found in
+    config["reference"] = str(root / config["reference"])
     workload = load_json(root / "benchmark" / "workloads" / f"{name}.json")
     e2e = [m for m in spec["end_to_end"]
            if "workloads" not in m or name in m["workloads"]]
@@ -390,6 +397,8 @@ class Context:
     device: str
     torch: Any
     setup_done: Callable[[], float]   # call when set-up ends: returns s
+    # the CPU tests': "config", "workload", "sizes" (the model builder's
+    # tiny sizes), "control"
     overrides: Dict[str, Any] = field(default_factory=dict)
 
 

@@ -29,7 +29,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from benchmark import compare, synth
+from benchmark import compare, flops, synth
 from benchmark.draws import ProgramDraws
 from benchmark.harness import Check, Outcome, span, traced
 from benchmark.program import build_backbone
@@ -143,7 +143,7 @@ def session_geometry(cfg: dict, epochs: List[int]) -> List[dict]:
     n_sup = ways * int(e["n_shots"]) * int(e["n_aug"]) + n_base
     nq = ways * int(e["n_queries"])
     sessions = int(e["sessions"])
-    dim = int(cfg["widths"][-1])
+    dim = flops.feature_dim(cfg)
     trace_rows = ((int(e["max_novel_epochs"]) + 2 + 7) // 8) * 8
     return [dict(n_sup=n_sup, mem_count=25 * s, n_mem_rows=25 * sessions,
                  n_active=n_base + ways * (s + 1),
@@ -172,7 +172,8 @@ def run(ctx) -> Outcome:
 
     # ---- inputs and weights from the seed ------------------------------
     base_test, base_train, novel = make_splits(cfg, seed, dev)
-    backbone = build_backbone(cfg, opt0).to(dev)
+    backbone = build_backbone(cfg, opt0,
+                              sizes=ctx.overrides.get("sizes")).to(dev)
     synth.init_backbone(backbone, seed)
     dim = backbone.feature_dim
     head0 = Head(weight=synth.head_weight(seed, n_base, dim, max_classes,

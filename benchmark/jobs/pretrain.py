@@ -100,7 +100,8 @@ def run(ctx) -> Outcome:
 
     # ---- the model, as the CLI builds it -------------------------------
     train_spec, _ = transforms_options[opt.transform]
-    backbone = build_backbone(cfg, opt, dtype=torch.bfloat16)
+    backbone = build_backbone(cfg, opt, dtype=torch.bfloat16,
+                              sizes=ctx.overrides.get("sizes"))
     sched = pt.make_schedule(opt, steps_per_epoch)
     state = pt.init_pretrain_state(backbone, n_cls, pt.make_tx(opt),
                                    with_bias=opt.linear_bias, device=dev)

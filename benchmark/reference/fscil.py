@@ -7,15 +7,17 @@ memory of one shot a class.
 
 It takes the same inputs as the program (the splits, the backbone's
 weights, the head, the seed's draws and the ``np.random`` protocol of the
-published samplers) and works every stage out again in plain PyTorch:
+published samplers) and works every stage out again in plain PyTorch,
+through the backbone reference that the configuration names
+(``backbone.py``):
 
   session   the episode (5 classes, 5 shots x 5 augmented copies, 25
             queries a class) and the replay rows' draw; the previous
             session's new rows reserved; 5 fresh head rows;
   epoch 1   train-mode forwards of the support (with the 60 or 351 base
-            exemplars) and of the filled replay rows (BatchNorm over the
-            valid rows only), the session loss, its gradient, one SGD
-            step;
+            exemplars) and of the filled replay rows (batch statistics
+            over the valid rows only), the session loss, its gradient,
+            one SGD step;
   epochs 2+ on eval-mode features, the same loss and step until the loss
             has moved less than ``convergence_epsilon`` for
             ``stable_epochs`` epochs, or ``max_novel_epochs``;
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from .. import draws as D
-from . import augment, resnet_rfs
+from . import augment, backbone
 
 NEG = -1e9
 
@@ -214,12 +216,13 @@ def _evaluate(cfg, opt, weights, head0, n_base, base_test, base_train,
              min_epochs=opt["min_novel_epochs"],
              target_loss=opt["target_train_loss"])
 
+    forward = backbone.of(cfg).forward
+
     def feats(x, train=False, gen=None, mask=None):
         if train:
-            return resnet_rfs.forward(params, buf, x, cfg, True, gen, mask)
-        return resnet_rfs.in_blocks(
-            lambda xb: resnet_rfs.forward(params, buf, xb, cfg, False), x,
-            block_rows)
+            return forward(params, buf, x, cfg, True, gen, mask)
+        return backbone.in_chunks(
+            lambda xb: forward(params, buf, xb, cfg, False), x, block_rows)
 
     # the samplers' class lists, each shuffled from the seed
     bt_imgs, bt_labels = base_test

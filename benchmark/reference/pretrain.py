@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import draws as D
-from . import augment, resnet_rfs
+from . import augment, backbone
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -53,6 +53,7 @@ def run_steps(config: dict, params: Tensors, buffers: Tensors,
     p = config["pretrain"]
     dtype = torch.bfloat16 if p["precision"] == "bf16" else None
     spec = p["augment"]
+    forward = backbone.of(config).forward
     params = {k: v.detach().clone() for k, v in params.items()}
     buffers = {k: v.detach().clone() for k, v in buffers.items()}
     mom: Tensors = {}
@@ -66,9 +67,8 @@ def run_steps(config: dict, params: Tensors, buffers: Tensors,
                                     spec["color_jitter"])
         gen = D.generator(seed, D.PRETRAIN_DROPOUT, t, dev)
         leaves = {k: v.requires_grad_(True) for k, v in params.items()}
-        feats = resnet_rfs.forward(leaves, buffers, x, config, train=True,
-                                   gen=gen, dtype=dtype,
-                                   operand_round=operand_round)
+        feats = forward(leaves, buffers, x, config, train=True, gen=gen,
+                        dtype=dtype, operand_round=operand_round)
         loss = cross_entropy(feats @ leaves["head.w"].T, y.long())
         names = list(leaves)
         grads = torch.autograd.grad(loss, [leaves[k] for k in names])

@@ -23,7 +23,10 @@ DropBlock's mask in f32, features pooled in f32.  ``dtype=None`` is f32
 throughout.  ``operand_round`` (the control) rounds every convolution's
 operands to a lower precision before the convolution.
 
-The reference imports nothing of the program.
+As every backbone reference (``backbone.py``), it also counts one image's
+forward (``forward_flops``), gives the feature width (``feature_dim``)
+and the CPU tests' tiny sizes (``TINY``).  The reference imports nothing
+of the program.
 """
 
 from __future__ import annotations
@@ -33,7 +36,12 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from benchmark import flops
+
 Tensors = Dict[str, torch.Tensor]
+
+# widths 8-16-24-80 at 16 px: every stage keeps a map to pool
+TINY = {"widths": [8, 16, 24, 80], "img_size": 16}
 
 
 def block_names(n_blocks) -> List[str]:
@@ -189,7 +197,29 @@ def forward(p: Tensors, buf: Tensors, x: torch.Tensor, config: dict,
     return x.to(torch.float32).mean((2, 3))
 
 
-def in_blocks(fn, x: torch.Tensor, rows: int) -> torch.Tensor:
-    """``fn`` over ``x`` in blocks of ``rows`` rows (eval mode only: a
-    train-mode forward takes its batch's statistics and runs whole)."""
-    return torch.cat([fn(x[i:i + rows]) for i in range(0, x.shape[0], rows)])
+def blocks(config: dict) -> List[Dict[str, int]]:
+    """(cin, cout, h, w, shortcut, stride) of every block in order, for
+    the configuration's ``widths``, ``n_blocks``, ``img_size``: the first
+    block of a stage pools by 2 at its end, the others run at the pooled
+    size (the RFS ``_make_layer``)."""
+    h = w = int(config["img_size"])
+    cin = int(config.get("in_channels", 3))
+    out = []
+    for planes, n in zip(config["widths"], config["n_blocks"]):
+        for i in range(n):
+            out.append(dict(cin=cin, cout=planes, h=h, w=w,
+                            shortcut=(i == 0), stride=2 if i == 0 else 1))
+            if i == 0:
+                h, w = h // 2, w // 2
+            cin = planes
+    return out
+
+
+def forward_flops(config: dict) -> int:
+    """Operations of one image's forward: its blocks' convolutions."""
+    return sum(flops.block_flops(b["cin"], b["cout"], b["h"], b["w"],
+                                 b["shortcut"]) for b in blocks(config))
+
+
+def feature_dim(config: dict) -> int:
+    return int(config["widths"][-1])

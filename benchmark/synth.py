@@ -7,6 +7,7 @@ weights.  Nothing is written to disk.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -61,25 +62,27 @@ def balanced_labels(n_classes: int, n: int, seed: int,
 
 def init_backbone(backbone: torch.nn.Module, seed: int) -> None:
     """Fresh weights for ``backbone`` (on its device) from the seed: every
-    convolution N(0, 2 / fan_out) (kaiming_normal, fan_out, as the RFS
-    ResNet initializes them) from one draw on the device; BatchNorm at
-    weight 1, bias 0, running mean 0, running variance 1; counters 0."""
-    convs = [p for n, p in backbone.named_parameters()
-             if p.dim() == 4]
-    dev = convs[0].device
+    parameter of two or more dimensions (convolutions, linear layers,
+    embeddings) N(0, 2 / fan_out) (kaiming_normal, fan_out as torch
+    counts it: dimension 0 times the receptive field; so the RFS ResNet
+    initializes its convolutions) from one draw on the device; a
+    normalization's weight 1, biases 0, running mean 0, running variance
+    1; counters 0."""
+    mats = [p for n, p in backbone.named_parameters() if p.dim() >= 2]
+    dev = mats[0].device
     g = D.generator(seed, WEIGHTS, 0, dev)
-    flat = torch.randn(sum(p.numel() for p in convs), generator=g,
+    flat = torch.randn(sum(p.numel() for p in mats), generator=g,
                        device=dev)
     with torch.no_grad():
         lo = 0
-        for p in convs:
-            fan_out = p.shape[0] * p.shape[2] * p.shape[3]
+        for p in mats:
+            fan_out = p.shape[0] * math.prod(p.shape[2:])
             p.copy_(flat[lo:lo + p.numel()].view_as(p)
                     * (2.0 / fan_out) ** 0.5)
             lo += p.numel()
         for name, t in list(backbone.named_parameters()) + list(
                 backbone.named_buffers()):
-            if t.dim() == 4:
+            if t.dim() >= 2:
                 continue
             if name.endswith("running_var") or (
                     name.endswith("weight") and t.dim() == 1):

@@ -1,5 +1,6 @@
 """Tiny sizes of the cells for the CPU tests: the same jobs, references
-and checks, at widths 8-16-24-80 and 16 px."""
+and checks, at the sizes the configuration's backbone reference gives
+(``TINY``; the resnet: widths 8-16-24-80 at 16 px)."""
 
 import contextlib
 import io
@@ -12,8 +13,8 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmark import harness  # noqa: E402
+from benchmark.reference import backbone  # noqa: E402
 
-SMALL = dict(widths=[8, 16, 24, 80], img_size=16)
 EVAL_ARGS = ["--n_queries", "4", "--test_base_batch_size", "200",
              "--max_novel_epochs", "30", "--min_novel_epochs", "5",
              "--stable_epochs", "3", "--convergence_epsilon", "1e-2",
@@ -24,17 +25,18 @@ def overrides(cell: str, root: Path = ROOT, spec=None) -> dict:
     spec = spec or harness.load_spec(root / "BENCHMARK.json")
     c = harness.find_cell(spec, cell, root)
     cfg = c.config
+    tiny = backbone.of(cfg).TINY
     if c.workload["job"] == "eval":
         ev = dict(cfg["eval"], base_test_n=400, base_train_per_class=3,
                   novel_per_class=40, n_novel_classes=40, n_queries=4,
                   max_novel_epochs=30)
         if ev["n_base"] > 60:
             ev["n_base"] = 60
-        return {"config": dict(SMALL, eval=ev),
+        return {"config": dict(tiny, eval=ev), "sizes": tiny,
                 "workload": {"argv": c.workload["argv"] + EVAL_ARGS}}
     pre = dict(cfg["pretrain"], n_train=640, batch_size=16,
                n_cls=min(cfg["pretrain"]["n_cls"], 60))
-    return {"config": dict(SMALL, pretrain=pre)}
+    return {"config": dict(tiny, pretrain=pre), "sizes": tiny}
 
 
 def run(cell: str, seed: int = 7, seconds: float = 0.3, trace=False,

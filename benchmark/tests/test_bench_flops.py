@@ -5,7 +5,9 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from bench_tiny import ROOT
 from benchmark import flops, harness
-from benchmark.reference import resnet_rfs
+from benchmark.reference import backbone, resnet_rfs
+
+STANDIN = ROOT / "benchmark/tests/standin_reference.py"
 
 
 def test_one_rfs_block_by_hand():
@@ -62,3 +64,47 @@ def test_k1_epoch_at_100_classes():
     # the last golden session: 185 support rows, 175 replay rows
     assert abs(flops.k1_epoch_flops(185, 175, 100, 640, 5) / 96.3e6 - 1) \
         < 1e-3
+
+
+def test_the_resnet_found_by_name_is_the_resnet():
+    """The forward that the configuration's ``reference`` names is
+    ``resnet_rfs.forward`` bit for bit, in both modes, at the tiny sizes;
+    so are its count and feature width."""
+    cfg = harness.load_json(ROOT / "benchmark/configs/resnet18-mini84.json")
+    found = backbone.of(cfg)
+    cfg.update(found.TINY)
+    p = _params(cfg, torch.Generator().manual_seed(3))
+    x = torch.randn(6, 3, 16, 16, generator=torch.Generator().manual_seed(4))
+    mask = (torch.arange(6) < 4).float()
+    for train in (False, True):
+        outs = []
+        for fwd in (found.forward, resnet_rfs.forward):
+            buf = {k: v.clone() for k, v in p.items()}
+            gen = torch.Generator().manual_seed(5)
+            outs.append((fwd(p, buf, x, cfg, train, gen, mask), buf))
+        (a, buf_a), (b, buf_b) = outs
+        assert torch.equal(a, b)
+        assert all(torch.equal(buf_a[k], buf_b[k]) for k in buf_b)
+    assert found.forward_flops(cfg) == flops.forward_flops(cfg)
+    assert flops.feature_dim(cfg) == 80
+
+
+def test_a_reference_counts_its_own_forward():
+    """Another architecture's count, found through its configuration,
+    against torch's own counter over its forward."""
+    cfg = {"reference": str(STANDIN), "width": 16, "patch": 4, "heads": 2,
+           "mlp": 24, "img_size": 16}
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"patch_embed.weight": (16, 3, 4, 4), "patch_embed.bias": (16,),
+              "cls_token": (1, 1, 16), "pos_embed": (1, 17, 16),
+              "attn.in_proj_weight": (48, 16), "attn.in_proj_bias": (48,),
+              "attn.out_proj.weight": (16, 16), "attn.out_proj.bias": (16,),
+              "fc1.weight": (24, 16), "fc1.bias": (24,),
+              "fc2.weight": (16, 24), "fc2.bias": (16,)}
+    p = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    for n in ("norm1.", "norm2.", "norm."):
+        p[n + "weight"], p[n + "bias"] = torch.ones(16), torch.zeros(16)
+    with FlopCounterMode(display=False) as counter:
+        backbone.of(cfg).forward(p, {}, torch.randn(3, 3, 16, 16), cfg,
+                                 train=False)
+    assert counter.get_total_flops() == 3 * flops.forward_flops(cfg)

@@ -1,14 +1,16 @@
 """BENCHMARK.json against the benchmark's contract, and every file it
 names found by name; a new cell is a new file and a new entry."""
 
+import functools
 import json
 import re
 import shutil
+from pathlib import Path
 
 import pytest
 
 from bench_tiny import ROOT, run
-from benchmark import harness
+from benchmark import flops, harness
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -138,6 +140,59 @@ def test_a_new_cell_is_a_file_and_an_entry(tmp_path, spec):
     assert out["correct"]
     assert set(out["metrics"]) == {"pretrain_images_per_s",
                                    "pretrain_step_p95_ms", "setup_s"}
+
+
+@pytest.mark.parametrize("eps,correct", [(1e-6, True), (1e-3, False)])
+def test_a_new_architecture_is_files_and_entries(tmp_path, spec, monkeypatch,
+                                                 eps, correct):
+    """A throwaway backbone of another architecture (``standin.py``: a
+    patch embedding, LayerNorm, one attention block), registered in the
+    port's ``model_dict`` for the test alone, enters a copy of the
+    benchmark as its reference file, a configuration file, an eval
+    workload and their entries, with no file already in the copy edited.
+    A sound run reads correct; one whose program forward takes
+    LayerNorm's eps at 1e-3, the reference's at 1e-6, does not."""
+    import standin
+    from subspace_reg_tpu_torch.models.factory import model_dict
+    bench = tmp_path / "benchmark"
+    shutil.copytree(ROOT / "benchmark", bench,
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    before = {f: f.read_bytes() for f in bench.rglob("*") if f.is_file()}
+    shutil.copy(Path(__file__).with_name("standin_reference.py"),
+                bench / "reference/standin.py")
+    cfg = harness.load_json(ROOT / "benchmark/configs/resnet18-mini84.json")
+    for k in ("widths", "n_blocks", "drop_rate", "dropblock_size",
+              "no_dropblock"):
+        del cfg[k]
+    cfg.update(name="standin-mini32", model="standin",
+               reference="benchmark/reference/standin.py", width=32,
+               patch=4, heads=2, mlp=64, img_size=32)
+    (bench / "configs/standin-mini32.json").write_text(json.dumps(cfg))
+    shutil.copy(bench / "workloads/eval-mini84.json",
+                bench / "workloads/eval-standin.json")
+    new = json.loads(json.dumps(spec))
+    new["configs"].append({"name": "standin-mini32",
+                           "source": "https://arxiv.org/abs/2010.11929",
+                           "file": "benchmark/configs/standin-mini32.json",
+                           "reduced": [], "why": "throwaway"})
+    new["workloads"].append({"name": "eval-standin",
+                             "config": "standin-mini32",
+                             "traffic": "eval-standin", "chips": 1,
+                             "why": "throwaway"})
+    for m in new["end_to_end"] + new["per_layer"]:
+        if "eval-mini84" in m.get("workloads", []):
+            m["workloads"].append("eval-standin")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(new))
+    monkeypatch.setitem(model_dict, "standin",
+                        functools.partial(standin.build, eps=eps))
+    out = run("eval-standin", root=tmp_path)
+    assert out["correct"] == correct, out["checks"]
+    assert all(f.read_bytes() == b for f, b in before.items())
+    cell = harness.find_cell(new, "eval-standin", tmp_path)
+    assert flops.feature_dim(cell.config) == 32
+    assert flops.forward_flops(cell.config) == (
+        2 * 3 * 32 * 16 * 64 + 2 * 65 * 32 * 128 + 4 * 65 * 65 * 32
+        + 4 * 65 * 32 * 64)
 
 
 def test_a_metric_without_workloads_follows_its_end_to_end_metric(spec):
