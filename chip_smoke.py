@@ -258,10 +258,11 @@ def check(cond, msg: str):
 # --------------------------------------------------------------------------
 def k1_case(kind: str, device, max_epochs: int = 100, seed: int = 0,
             session: int = N_SESSIONS, stable_target: int = 10,
-            orig_base: int = 60):
+            orig_base: int = 60, feat: int = 640):
     """Operands of session ``session`` (1..8, default the last) of the
     golden run over ``orig_base`` base classes (60: miniImageNet and
-    CIFAR; 351: tieredImageNet): orig_base + 5*session active classes of
+    CIFAR; 351: tieredImageNet) at ``feat`` features (640: the resnets;
+    768: ViT-B/16): orig_base + 5*session active classes of
     orig_base + 40, 125 novel support rows + one exemplar per base class,
     25*(session-1) of 200 replay rows, 5*(session-1) reserved rows.
     ``kind``: 'sgd' (subspace pull + memory), 'adam', 'bias' (the [W | b]
@@ -272,7 +273,7 @@ def k1_case(kind: str, device, max_epochs: int = 100, seed: int = 0,
     from subspace_reg_tpu_torch.ops.finetune import LoopConfig, pack_scalars
     r = np.random.RandomState(seed)
     n_ways = 5
-    cp, feat, ns, nm = orig_base + 8 * n_ways, 640, 125 + orig_base, 200
+    cp, ns, nm = orig_base + 8 * n_ways, 125 + orig_base, 200
     n_active, mem_count = orig_base + 5 * session, 25 * (session - 1)
     bias, adam = kind == "bias", kind == "adam"
     memory_on = kind != "plain"

@@ -7,7 +7,9 @@ a separate padded buffer (models/head.py), loaded from a checkpoint by
 
 from __future__ import annotations
 
-from .resnet import ResNetRFS, model_dict
+from torch import nn
+
+from .resnet import model_dict
 
 # DropBlock's block size per dataset (reference models/util.py:16-18,27):
 # 5 on the 84 px datasets, 2 on CIFAR's 32 px images
@@ -16,9 +18,10 @@ DROPBLOCK_SIZE = {"miniImageNet": 5, "tieredImageNet": 5, "CIFAR-FS": 2,
 
 
 def create_model(name: str, opt, dataset: str = "miniImageNet",
-                 dtype=None) -> ResNetRFS:
+                 dtype=None) -> nn.Module:
     """avg_pool=True, drop_rate=0.1 and the dataset's DropBlock size.
-    ``dtype=torch.bfloat16`` is the pretraining compute path."""
+    ``dtype=torch.bfloat16`` is the resnets' pretraining compute path
+    (``vit_b16`` runs in f32 only)."""
     if dataset not in DROPBLOCK_SIZE:
         raise NotImplementedError(f"dataset not supported: {dataset}")
     if name not in model_dict:

@@ -36,6 +36,7 @@ from torch import nn
 from ..ops import conv_f32
 from .layers import (SELayer, TorchBatchNorm, dropblock, dropout,
                      kaiming_normal_fan_out_, leaky_relu, max_pool_torch)
+from .vit import vit_b16
 
 WIDTHS = (64, 160, 320, 640)
 
@@ -238,4 +239,6 @@ model_dict = {
     "seresnet24": _factory((2, 2, 2, 2), use_se=True),
     "seresnet50": _factory((3, 4, 6, 3), use_se=True),
     "seresnet101": _factory((3, 4, 23, 3), use_se=True),
+    # the one transformer backbone (models/vit.py)
+    "vit_b16": vit_b16,
 }

@@ -95,6 +95,17 @@ def from_jax_variables(variables: Mapping[str, Any],
     return out
 
 
+# the roots of a backbone's state-dict keys: the resnets' stages
+# (``layer1.0.conv1.weight``) and the ViT's modules, named as timm names
+# them (models/vit.py); everything else in a reference ``.pth`` is the
+# classifier or a remnant of the vocabulary
+_VIT_ROOTS = {"patch_embed", "cls_token", "pos_embed", "blocks", "norm"}
+
+
+def _backbone_key(key: str) -> bool:
+    return key.startswith("layer") or key.split(".", 1)[0] in _VIT_ROOTS
+
+
 def load_checkpoint(path: str, max_classes: Optional[int] = None):
     """A reference ``.pth`` or a JAX ``.ckpt`` -> (backbone state dict,
     Head padded to ``max_classes`` rows, meta)."""
@@ -108,9 +119,9 @@ def load_pth(path: str, max_classes: Optional[int] = None):
     # weights, so it needs the full unpickler
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt["model"]
-    # the backbone's layer* stages; vocabulary remnants are ignored, as the
-    # JAX importer ignores them
-    backbone = {k: v for k, v in sd.items() if k.startswith("layer")}
+    # the backbone's keys; the classifier and vocabulary remnants are
+    # dropped, as the JAX importer drops them
+    backbone = {k: v for k, v in sd.items() if _backbone_key(k)}
     w = sd["classifier.weight"].detach().to(torch.float32)
     b = sd.get("classifier.bias")
     n_cls, in_dim = w.shape

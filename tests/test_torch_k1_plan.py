@@ -230,6 +230,24 @@ def test_k1_plan_at_the_last_tiered_session_on_the_card():
     assert not any(w["resident"][1] for w in work)
 
 
+@pytest.mark.parametrize("blocks", [1, 7, 132])
+@pytest.mark.parametrize("d", [768, 769])
+@pytest.mark.parametrize("rows,n_active,c_pad", [
+    (N_SUP, 65, C_PAD), (N_SUP + 175, 100, C_PAD),
+    (T_SUP + 175, T_PAD, T_PAD)])
+def test_k1_plan_at_the_vit_width(rows, n_active, c_pad, d, blocks):
+    """ViT-B/16's 768 features (769 with a bias column): the first and
+    last miniImageNet sessions and tiered's last; every row, pull column
+    and update element owned once within the card's shared memory.  At
+    360 rows and 100 classes a block needs 132,224 bytes of the 232,448."""
+    plan = ft.k1_plan(rows, n_active, c_pad, d, N_WAYS, blocks)
+    assert plan.d_pad == (768 if d == 768 else 772)
+    assert plan.smem <= ft.K1_SMEM_MAX
+    _check_plan(plan, d)
+    if (rows, c_pad, d) == (N_SUP + 175, C_PAD, 768):
+        assert plan.smem == 132224 and ft.K1_SMEM_MAX == 232448
+
+
 @pytest.mark.parametrize("seeds", [2, 10])
 def test_k1_plan_seed_groups_at_the_tiered_shapes(seeds):
     """The seed-batched launch at tiered's last session: at S = 10 each

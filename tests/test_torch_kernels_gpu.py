@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain torch versions on the card: K1 at
 the evaluation path's shapes (chip_smoke.py's ``k1_case``) in every
-configuration the engine uses, at each golden session's shapes, and on
+configuration the engine uses, at each golden session's shapes, at
+ViT-B/16's 768 features, and on
 grids of 1, 3, 17 blocks and one block per SM, and seed-batched over S
 seeds (each seed bit-identical to a single-seed launch on its group's
 blocks); K2 and K3 at the fused
@@ -161,6 +162,21 @@ def test_kernel_matches_twin_at_tiered_shapes(cuda, kind):
     476 support rows, 175 replay rows; 60 epochs."""
     ops, cfg = k1_case(kind, cuda, max_epochs=60, orig_base=TIERED_BASE)
     assert cfg.n_active == ops["w"].shape[0] == 391
+    _assert_matches_twin(ops, cfg, ft.finetune_loop(**ops, cfg=cfg))
+
+
+@pytest.mark.parametrize("kind", ["sgd", "bias"])
+@pytest.mark.parametrize("orig_base,rows,classes", [(60, 360, 100),
+                                                    (TIERED_BASE, 651, 391)])
+def test_k1_matches_twin_at_the_vit_width(cuda, kind, orig_base, rows,
+                                          classes):
+    """D = 768, ViT-B/16's features (769 with the bias column): the last
+    miniImageNet session (360 rows, 100 classes) and the last tiered one
+    (651 rows, 391 classes); 60 epochs."""
+    ops, cfg = k1_case(kind, cuda, max_epochs=60, orig_base=orig_base,
+                       feat=768)
+    assert cfg.n_sup + cfg.mem_count == rows and cfg.n_active == classes
+    assert ops["w"].shape[1] == (769 if kind == "bias" else 768)
     _assert_matches_twin(ops, cfg, ft.finetune_loop(**ops, cfg=cfg))
 
 
