@@ -62,7 +62,10 @@ Phases; any failure raises and the script exits non-zero:
               module path, fused "xla" and fused "pallas" (two rounds),
               with every launch counter set to 0 just before each run and
               read just after (K2 6 and K3 2 launches per fused-"pallas"
-              step, none elsewhere); ms/step, images/s, peak memory.
+              step, none elsewhere), and K5's counter with them (2 + 2
+              launches per BatchNorm that runs as a module: 88 a module
+              step of resnet18's 22, 56 a fused step, whose stages 3-4
+              keep the modules); ms/step, images/s, peak memory.
   9. pretrain-profile  fused-"pallas" steps under torch.profiler: device
               time of K2, K3, the library convolutions and the rest.
   10. cli     ``python -m subspace_reg_tpu_torch.train_supervised`` for one
@@ -210,6 +213,14 @@ forward's 22 convolutions at each of the evaluation's batch sizes
 (``K4_SHAPES`` x ``K4_ROWS``), against its plain version and on rerun,
 and times it beside its bound and beside ``F.conv2d`` f32 with TF32 off
 on the NCHW input (the yardstick, with the cuDNN kernels it ran).
+
+Phase 3 then holds K5 (the pretraining step's train-mode BatchNorm +
+LeakyReLU) bit-identical to autograd through its plain chain at the step's
+22 BatchNorm shapes (``K5_SHAPES``) and on rerun, times it (a CUDA graph
+of its launches and torch's reductions between them, and through its
+wrapper) beside its bound (bytes), its plain twins and ``F.batch_norm`` +
+``F.leaky_relu``, and counts the module step's launches per phase and its
+device kernels with every BatchNorm on TorchBatchNorm's ops and with K5.
 
 ``--only-kernels`` stops after phase 3 for quick iteration on a kernel: it
 prints the kernels line (launches null) and no ok line.
@@ -458,6 +469,13 @@ K4_EVAL_LAUNCHES = 22 * (1 + 5 * N_SESSIONS + N_SESSIONS - 1)
 # K4 against an f64 convolution: the largest |y - y64| over max |y64| (f32
 # sums of up to 5,760 products in another order; TF32 reads ~1e-3)
 K4_TOL = 1e-5
+# K5: resnet18's 22 train-mode BatchNorms at 84 px, as (name, C, H = W,
+# BatchNorms followed by the LeakyReLU (bn1, bn2), without it (bn3 and the
+# downsample's), the layout the module step hands them in: the first
+# stage's maps channels_last from the input, every later one NCHW from the
+# dropout mask before it)
+K5_SHAPES = (("s1", 64, 84, 2, 2, "cl"), ("s2", 160, 42, 2, 2, "nchw"),
+             ("s3", 320, 21, 4, 3, "nchw"), ("s4", 640, 10, 4, 3, "nchw"))
 
 
 def k2_case(cin: int, cout: int, hw: int, prologue: bool, device,
@@ -1124,6 +1142,316 @@ def phase_k4(dev, rows=K4_ROWS, edges: bool = True):
                 bound_ms=big["bound_ms"], bound_by="operations",
                 library_ms=big["library_ms"], rows=max(rows),
                 per_rows=per_rows, shapes=shapes)
+
+
+def k5_case(c: int, hw: int, batch: int, layout: str, device,
+            seed: int = 0):
+    """K5's operands at one BatchNorm: x (batch, C, H, W) bf16 in
+    ``layout`` ("cl" or "nchw") with a per-channel offset and scale as a
+    convolution's output has, weight near 1 and bias near 0 (f32), the
+    running statistics, and a bf16 dy."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shift = torch.randn((1, c, 1, 1), generator=g)
+    scale = torch.rand((1, c, 1, 1), generator=g) * 2 + 0.1
+    x = (torch.randn((batch, c, hw, hw), generator=g) * scale + shift)
+    fmt = (torch.channels_last if layout == "cl" else
+           torch.contiguous_format)
+    x = x.to(torch.bfloat16).to(device).contiguous(memory_format=fmt)
+    w = (1 + 0.2 * torch.randn(c, generator=g)).to(device)
+    b = (0.2 * torch.randn(c, generator=g)).to(device)
+    rm = (0.1 * torch.randn(c, generator=g)).to(device)
+    rv = (1 + torch.rand(c, generator=g)).to(device)
+    dy = (torch.randn((batch, c, hw, hw), generator=g) * 1e-3).to(
+        torch.bfloat16).to(device).contiguous(memory_format=fmt)
+    return x, w, b, rm, rv, dy
+
+
+def k5_module(w, b, rm, rv):
+    """A train-mode ``TorchBatchNorm`` holding copies of ``w`` and ``b`` as
+    its parameters and ``rm``, ``rv`` themselves as its running
+    statistics (updated in place)."""
+    from subspace_reg_tpu_torch.models.layers import TorchBatchNorm
+    bn = TorchBatchNorm(w.shape[0]).to(w.device).train()
+    with torch.no_grad():
+        bn.weight.copy_(w)
+        bn.bias.copy_(b)
+    bn.running_mean, bn.running_var = rm, rv
+    return bn
+
+
+def k5_chain(bn, x, leaky: bool):
+    """K5's plain twin: the layer's own ops, ``TorchBatchNorm._normalize``
+    then ``leaky_relu`` if ``leaky``."""
+    from subspace_reg_tpu_torch.models.layers import leaky_relu
+    out = bn._normalize(x, None)
+    return leaky_relu(out) if leaky else out
+
+
+def k5_agreement(x, w, b, rm, rv, dy, leaky: bool) -> dict:
+    """K5 through its wrapper ``bn_train`` under autograd, forward and
+    backward, against autograd through its plain twin (the layer's chain)
+    and against the plain backward twin, on the card from the same
+    operands: the elements of each output that differ (all 0: the sums
+    are torch's own reductions on the same tensors, the rest rounds where
+    the chain rounds), the largest absolute difference, and whether y and
+    dx keep x's layout."""
+    from subspace_reg_tpu_torch.ops import bn_train as k5
+    rm_k, rv_k, rm_p, rv_p = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    xk = x.detach().requires_grad_()
+    wk, bk = w.clone().requires_grad_(), b.clone().requires_grad_()
+    y = k5.bn_train(xk, wk, bk, rm_k, rv_k, 0.1, 1e-5, leaky)
+    mean, e2 = y.grad_fn.saved_tensors[3:5]
+    y.backward(dy)
+    dx, dw, db = xk.grad, wk.grad, bk.grad
+    xg = x.detach().requires_grad_()
+    bn = k5_module(w, b, rm_p, rv_p)
+    yp = k5_chain(bn, xg, leaky)
+    yp.backward(dy)
+    xs = x.float()
+    mean_p, e2_p = xs.mean((0, 2, 3)), (xs * xs).mean((0, 2, 3))
+    dx_t, dw_t, db_t = k5.bn_train_backward_plain(x, dy, mean_p, e2_p, w, b,
+                                                  1e-5, leaky)
+    torch.cuda.synchronize()
+    groups = dict(
+        stats=((mean, mean_p), (e2, e2_p)), y=((y, yp),),
+        running=((rm_k, rm_p), (rv_k, rv_p)), dx=((dx, xg.grad),),
+        dweight=((dw, bn.weight.grad),), dbias=((db, bn.bias.grad),),
+        twin=((dx, dx_t), (dw, dw_t), (db, db_t)))
+    out = {k: sum(int((p != q).sum()) for p, q in pairs)
+           for k, pairs in groups.items()}
+    out["max_abs_err"] = max(
+        float((p.detach().float() - q.detach().float()).abs().max())
+        for pairs in groups.values() for p, q in pairs)
+    out["layout_kept"] = (y.stride() == x.stride()
+                          and dx.stride() == x.stride())
+    return out
+
+
+def k5_agreement_ok(r: dict) -> bool:
+    return r["layout_kept"] and not any(v for k, v in r.items()
+                                        if k != "layout_kept")
+
+
+def k5_bytes(numel: int) -> float:
+    """K5's bytes at the bound for one BatchNorm, forward and backward: x
+    read and y written, then x and dy read and dx written, bf16."""
+    return 2.0 * numel * (2 + 3)
+
+
+@contextlib.contextmanager
+def k5_off():
+    """Inside the block every BatchNorm keeps TorchBatchNorm's own ops (the
+    path before K5), for the module step's before-and-after counts."""
+    from subspace_reg_tpu_torch.ops import bn_train as k5
+    wanted = k5.wanted
+    k5.wanted = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        k5.wanted = wanted
+
+
+def step_launches(step, args_of, steps: int = 5) -> dict:
+    """Host kernel launches per step in each of the step's ranges
+    (``srt.pretrain.gather`` + ``.augment``, ``.forward``, ``.backward``,
+    ``.optimizer``; by start time, from any thread) and the device kernels
+    per step, over ``steps`` profiled steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            step(*args_of(i))
+        torch.cuda.synchronize()
+    phases = {"augment": ("srt.pretrain.gather", "srt.pretrain.augment"),
+              "forward": ("srt.pretrain.forward",),
+              "backward": ("srt.pretrain.backward",),
+              "optimizer": ("srt.pretrain.optimizer",)}
+    events = list(prof.events())
+    launches = sorted(e.time_range.start for e in events
+                      if e.name.startswith(("cudaLaunch", "cuLaunch")))
+    import bisect
+    out = {}
+    for label, names in phases.items():
+        n = 0
+        for e in events:
+            # the host's range (kineto also files a device-side copy)
+            if e.name in names and e.device_type == DeviceType.CPU:
+                n += (bisect.bisect_left(launches, e.time_range.end)
+                      - bisect.bisect_left(launches, e.time_range.start))
+        out[label] = n / steps
+    out["kernels"] = sum(1 for e in events if e.device_type ==
+                         DeviceType.CUDA and e.name not in _TRACER_OVERHEAD
+                         ) / steps
+    return out
+
+
+def phase_k5(dev, reps: int = 20, steps: int = 10):
+    """K5 against its plain twins at the pretraining step's 22 BatchNorm
+    shapes (batch 64, 84 px, each with and without the LeakyReLU, in the
+    layout the step hands it), through the wrapper ``bn_train`` under
+    autograd, rerun bit-identical; per shape the device time of its four
+    launches with torch's four reductions between them (a CUDA graph of
+    the bare calls), the same through the wrapper under autograd, the
+    plain twin's (the layer's chain under autograd, the step's ops before
+    K5) and the library's (``F.batch_norm`` + ``F.leaky_relu`` under
+    autograd), forward and backward, and the bound (bytes); the sums over
+    the step's 22.  Then the module step at full
+    width before K5 (every BatchNorm on TorchBatchNorm's ops) and with it:
+    launches per phase and device kernels per step, ms per step, and the
+    BatchNorm layouts K5 saw (x, and dy before any copy)."""
+    from subspace_reg_tpu_torch.models.layers import TorchBatchNorm
+    from subspace_reg_tpu_torch.ops import bn_train as k5
+    F = torch.nn.functional
+    launches0 = k5.bn_train.launches
+    tot = dict(ms=0.0, wrapper_ms=0.0, bound_ms=0.0, plain_ms=0.0,
+               library_ms=0.0)
+    worst = {}
+    shapes = []
+    for name, c, hw, n_leaky, n_plain, layout in K5_SHAPES:
+        for leaky, count in ((True, n_leaky), (False, n_plain)):
+            x, w, b, rm, rv, dy = k5_case(c, hw, BATCH, layout, dev)
+            r = k5_agreement(x, w, b, rm, rv, dy, leaky)
+            print(f"[kernels] K5 {name} C {c} {hw}x{hw} {layout} leaky "
+                  f"{int(leaky)}: elements that differ {r}")
+            check(k5_agreement_ok(r), f"K5 {name} leaky {leaky}: {r}")
+            for key, v in r.items():
+                if key != "layout_kept":
+                    worst[key] = max(worst.get(key, 0), v)
+            xg = x.detach().requires_grad_()
+            wg, bg = w.clone().requires_grad_(), b.clone().requires_grad_()
+
+            def bare():
+                # the kernels and torch's reductions between them, without
+                # the autograd function (a CUDA graph of them)
+                y, mean, e2 = k5._k5_forward(x, w, b, rm, rv, 0.1, 1e-5,
+                                             leaky)
+                k5._k5_backward(x, dy, mean, e2, w, b, 1e-5, leaky)
+
+            def fwd_bwd():
+                y = k5.bn_train(xg, wg, bg, rm, rv, 0.1, 1e-5, leaky)
+                torch.autograd.grad(y, (xg, wg, bg), dy)
+
+            outs = []
+            for _ in range(2):
+                rm1, rv1 = rm.clone(), rv.clone()
+                xr = x.detach().requires_grad_()
+                wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+                y = k5.bn_train(xr, wr, br, rm1, rv1, 0.1, 1e-5, leaky)
+                y.backward(dy)
+                outs.append((y, xr.grad, wr.grad, br.grad, rm1, rv1))
+            check(all(torch.equal(p, q) for p, q in zip(*outs)),
+                  f"K5 {name} leaky {leaky}: a rerun differs")
+            ms = graph_ms(bare)
+            wrapper_ms = cuda_ms(fwd_bwd, reps)
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fwd_bwd()
+                torch.cuda.synchronize()
+            _, _, by_name = kernel_breakdown(prof, [])
+            print(f"[kernels] K5 {name} leaky {int(leaky)} device us a "
+                  "BatchNorm by kernel: " + ", ".join(
+                      f"{n[:60]} {us / 5:.1f}" for n, us in sorted(
+                          by_name.items(), key=lambda kv: -kv[1])))
+            same = torch.equal(x.float().mean((0, 2, 3)),
+                               x.mean((0, 2, 3), dtype=torch.float32))
+            print(f"[kernels] K5 {name}: mean(x, dtype=f32) bit-identical "
+                  f"to mean(f32(x)): {same}")
+
+            bn = k5_module(w, b, rm, rv)
+
+            def plain():
+                # the twin: the layer's chain under autograd, the step's
+                # ops before K5
+                torch.autograd.grad(k5_chain(bn, xg, leaky),
+                                    (xg, bn.weight, bn.bias), dy)
+
+            plain_ms = cuda_ms(plain, reps)
+
+            def library():
+                y = F.batch_norm(xg, rm, rv, wg, bg, True, 0.1, 1e-5)
+                if leaky:
+                    y = F.leaky_relu(y, 0.1)
+                torch.autograd.grad(y, (xg, wg, bg), dy)
+
+            library_ms = cuda_ms(library, reps)
+            bound = 1e3 * k5_bytes(x.numel()) / HBM_BYTES_PER_S
+            row = dict(shape=name, c=c, hw=hw, layout=layout, leaky=leaky,
+                       count=count, ms=ms, wrapper_ms=wrapper_ms,
+                       bound_ms=bound, plain_ms=plain_ms,
+                       library_ms=library_ms)
+            shapes.append(row)
+            print(f"[kernels] K5 {name} leaky {int(leaky)} x{count}: "
+                  f"kernels {ms:.4f} ms ({100 * bound / ms:.1f}% of the "
+                  f"bound {bound:.4f}), through the wrapper "
+                  f"{wrapper_ms:.4f}, plain {plain_ms:.4f}, F.batch_norm "
+                  f"{library_ms:.4f}")
+            for key in tot:
+                tot[key] += count * row[key]
+            del x, dy, xg, bn
+    print(f"[kernels] K5 the step's 22 BatchNorms, forward and backward: "
+          f"kernels {tot['ms']:.3f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}"
+          f"% of the bound {tot['bound_ms']:.3f}), through the wrapper "
+          f"{tot['wrapper_ms']:.3f}, plain {tot['plain_ms']:.3f}, "
+          f"F.batch_norm {tot['library_ms']:.3f}; worst {worst}")
+    # the module step before and with K5
+    data, labels = pretrain_data(dev)
+    bb = pretrain_backbone()
+    r = np.random.RandomState(5)
+    batches = [torch.from_numpy(r.randint(0, len(labels), BATCH)).to(dev)
+               for _ in range(steps)]
+    seen = []
+    backward = k5._k5_backward
+
+    def recording(x, dy, *rest):
+        seen.append((k5._is_cl(x), dy.is_contiguous(
+            memory_format=torch.channels_last), dy.is_contiguous()))
+        return backward(x, dy, *rest)
+
+    step_row = {}
+    for label in ("before", "with K5", "before", "with K5"):
+        off = label == "before"
+        st = pretrain_state(bb, dev)
+        step = pretrain_step(st, dev, False)
+        ctx = k5_off() if off else contextlib.nullcontext()
+        with ctx:
+            for i in range(3):
+                step(st, data, labels, batches[i])
+            torch.cuda.synchronize()
+            k0, t0 = TorchBatchNorm.kernel_forwards, time.time()
+            for i in range(steps):
+                m = step(st, data, labels, batches[i])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.time() - t0) / steps
+            kf = TorchBatchNorm.kernel_forwards - k0
+            k5._k5_backward = recording
+            try:
+                counts = step_launches(
+                    lambda *a: step(*a),
+                    lambda i: (st, data, labels, batches[i]), 5)
+            finally:
+                k5._k5_backward = backward
+        check(math.isfinite(float(m["loss"])), f"module step {label}: loss")
+        check(kf == (0 if off else 22 * steps),
+              f"module step {label}: {kf} K5 forwards in {steps} steps")
+        step_row.setdefault(label, []).append(dict(ms=ms, **counts))
+        print(f"[kernels] K5 module step {label}: {ms:.3f} ms/step, "
+              f"launches per step {counts}")
+    kinds = sorted(set(seen))
+    print(f"[kernels] K5 backward layouts (x channels_last, dy "
+          f"channels_last, dy NCHW): {kinds}")
+    launches = k5.bn_train.launches - launches0
+    return dict(name="bn_train", route="cuda",
+                source="subspace_reg_tpu_torch/csrc/bn_train.cu",
+                replaces=None, launches=None, launches_in_phase=launches,
+                max_abs_err=worst["max_abs_err"], worst=worst,
+                ms=tot["ms"], wrapper_ms=tot["wrapper_ms"],
+                plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                bound_by="bytes", library_ms=tot["library_ms"],
+                shapes=shapes, module_step=step_row,
+                dy_layouts=[list(k) for k in kinds])
 
 
 def library_kernels(fn) -> list:
@@ -1882,9 +2210,21 @@ def phase_pretrain_main(dev, counters, steps: int = 20):
     warm-up steps; host clock around work ending in a synchronise.  Every
     launch counter is set to 0 just before each timed run and read just
     after: fused "pallas" must launch K2 6 times and K3 twice per step, the
-    others neither."""
+    others neither; K5's with them (``bn_train``, read here as K4's is in
+    phase 5): every BatchNorm that runs as a ``TorchBatchNorm`` goes to
+    K5, 2 + 2 launches a step: all of the module path's (88 for
+    resnet18's 22), and the fused paths' stages 3-4 (56), their stages 1-2
+    bypassing ``TorchBatchNorm``.  The returned launches are fused
+    "pallas"'s, with the module path's K5 count under "bn_train"."""
+    from subspace_reg_tpu_torch.models.layers import TorchBatchNorm
+    from subspace_reg_tpu_torch.ops.bn_train import bn_train
     data, labels = pretrain_data(dev)
     bb = pretrain_backbone()
+    # BatchNorm modules a stage; fused_forward runs stages 1-2 outside them
+    per_stage = [sum(isinstance(m, TorchBatchNorm) for m in getattr(
+        bb, f"layer{i + 1}").modules()) for i in range(bb.n_stages)]
+    n_bn = {"module": sum(per_stage), "fused xla": sum(per_stage[2:]),
+            "fused pallas": sum(per_stage[2:])}
     r = np.random.RandomState(3)
     batches = [torch.from_numpy(r.randint(0, len(labels), BATCH)).to(dev)
                for _ in range(steps + 3)]
@@ -1895,7 +2235,7 @@ def phase_pretrain_main(dev, counters, steps: int = 20):
         st = pretrain_state(bb, dev)
         runs[label] = (st, pretrain_step(st, dev, fused, backend))
     timings = {label: [] for label, _, _ in paths}
-    main_launches = None
+    main_launches, k5_launches = None, None
     for order in (paths, paths[::-1]):
         for label, fused, backend in order:
             st, step = runs[label]
@@ -1905,29 +2245,38 @@ def phase_pretrain_main(dev, counters, steps: int = 20):
             torch.cuda.reset_peak_memory_stats()
             for c in counters:
                 c.launches = 0
+            bn_train.launches = 0
+            k0 = TorchBatchNorm.kernel_forwards
             t0 = time.time()
             for i in range(steps):
                 m = step(st, data, labels, batches[3 + i])
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = {c.__name__: c.launches for c in counters}
+            launches["bn_train"] = bn_train.launches
+            kf = TorchBatchNorm.kernel_forwards - k0
             check(math.isfinite(float(m["loss"])), f"{label}: loss not "
                   "finite")
             want = ({"conv3x3_fused": 6 * steps, "block_tail": 2 * steps}
                     if label == "fused pallas" else {})
-            for c in counters:
-                check(launches[c.__name__] == want.get(c.__name__, 0),
-                      f"{label}: {c.__name__} launched "
-                      f"{launches[c.__name__]} times in {steps} steps")
+            want["bn_train"] = 4 * n_bn[label] * steps
+            for kname, n in launches.items():
+                check(n == want.get(kname, 0), f"{label}: {kname} launched "
+                      f"{n} times in {steps} steps")
+            check(kf == n_bn[label] * steps, f"{label}: {kf} BatchNorm "
+                  f"forwards took K5 in {steps} steps")
             if label == "fused pallas" and main_launches is None:
                 main_launches = launches
+            if label == "module" and k5_launches is None:
+                k5_launches = launches["bn_train"]
             ms = 1e3 * wall / steps
             timings[label].append(ms)
             print(f"[pretrain] {label}: {ms:.3f} ms/step, "
                   f"{BATCH * steps / wall:.1f} images/s, peak "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
                   f"final loss {float(m['loss']):.4f}; launches {launches}")
-    return main_launches, runs["fused pallas"], (data, labels, batches)
+    return (dict(main_launches, bn_train=k5_launches), runs["fused pallas"],
+            (data, labels, batches))
 
 
 def phase_pretrain_profile(run, data_batches, steps: int = 5):
@@ -4603,6 +4952,7 @@ def main(argv=None) -> int:
     rows["conv3x3_fused"] = timed("3 kernels K2", phase_k2)
     rows["block_tail"] = timed("3 kernels K3", phase_k3, dev)
     rows["conv_f32"] = timed("3 kernels K4", phase_k4, dev)
+    rows["bn_train"] = timed("3 kernels K5", phase_k5, dev)
     # K2 and K3 at CIFAR's 32 px step (resnet12): their rows keep the
     # 84 px step's numbers and carry these beside them
     cifar = {"conv3x3_fused": timed("3 kernels K2 32px", phase_k2,
@@ -4640,7 +4990,7 @@ def main(argv=None) -> int:
         # phase 8: the pretraining path, with the launch counters
         launches, run, data = timed("8 pretrain", phase_pretrain_main, dev,
                                     counters)
-        for kname in ("conv3x3_fused", "block_tail"):
+        for kname in ("conv3x3_fused", "block_tail", "bn_train"):
             rows[kname]["launches"] = launches[kname]
         # phase 9: where the fused step's device time goes
         timed("9 pretrain-profile", phase_pretrain_profile, run, data)

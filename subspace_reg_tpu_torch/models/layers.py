@@ -23,6 +23,15 @@ bf16 scale and shift (JAX layers.py:118-125); LeakyReLU multiplies by
 bf16(0.1) and dropout divides by bf16(keep), as jnp does with its weakly
 typed constants.  Every bf16 operation rounds once, as in the JAX package.
 The f32 path is unchanged.
+
+K5: a train-mode bf16 BatchNorm on the card without a mask or a group,
+with the LeakyReLU that follows it when the caller passes ``leaky=True``,
+runs as the hand-written kernels of ``ops/bn_train.py``: the same function
+bit for bit (its sums are torch's own reductions), in 4 + 4 device kernels
+for ~70.  Every other call keeps the ops below
+(``TorchBatchNorm._normalize``, then ``leaky_relu``), which are K5's plain
+twin.  ``TorchBatchNorm.train_forwards`` counts the train-mode forwards of
+every instance, ``.kernel_forwards`` those K5 ran.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import bn_train as k5
 
 
 def kaiming_normal_fan_out_(w: torch.Tensor) -> torch.Tensor:
@@ -51,6 +62,10 @@ class TorchBatchNorm(nn.Module):
     own ``num_batches_tracked`` is read by nothing at a fixed momentum; a
     checkpoint's copy is dropped on load, as the JAX importer drops it."""
 
+    # train-mode forwards of every instance, and those K5 ran
+    train_forwards = 0
+    kernel_forwards = 0
+
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
         super().__init__()
@@ -68,7 +83,21 @@ class TorchBatchNorm(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor,
-                sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                sample_mask: Optional[torch.Tensor] = None,
+                leaky: bool = False) -> torch.Tensor:
+        """The normalized ``x``, through ``leaky_relu`` if ``leaky``."""
+        if self.training:
+            TorchBatchNorm.train_forwards += 1
+            if k5.wanted(x, sample_mask, self.sync_group):
+                TorchBatchNorm.kernel_forwards += 1
+                return k5.bn_train(x, self.weight, self.bias,
+                                   self.running_mean, self.running_var,
+                                   self.momentum, self.eps, leaky)
+        out = self._normalize(x, sample_mask)
+        return leaky_relu(out) if leaky else out
+
+    def _normalize(self, x: torch.Tensor,
+                   sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
         in_dtype = x.dtype
         # statistics always in f32
         xs = x if in_dtype == torch.float32 else x.to(torch.float32)

@@ -112,8 +112,8 @@ class BasicBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.training:
             self.num_batches_tracked += 1
-        out = leaky_relu(self.bn1(self.conv(self.conv1, x), sample_mask))
-        out = leaky_relu(self.bn2(self.conv(self.conv2, out), sample_mask))
+        out = self.bn1(self.conv(self.conv1, x), sample_mask, leaky=True)
+        out = self.bn2(self.conv(self.conv2, out), sample_mask, leaky=True)
         out = self.bn3(self.conv(self.conv3, out), sample_mask)
         if self.se is not None:
             out = self.se(out)

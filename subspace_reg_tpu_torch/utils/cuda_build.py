@@ -31,7 +31,8 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {"finetune_loop": "finetune_loop.cu",
            "conv3x3_fused": "conv3x3_fused.cu",
            "block_tail": "block_tail.cu",
-           "conv_f32": "conv_f32.cu"}
+           "conv_f32": "conv_f32.cu",
+           "bn_train": "bn_train.cu"}
 # kernels that one path runs together, built together: the evaluation's
 # K1 and K4
 BUILT_WITH = {"finetune_loop": ("conv_f32",), "conv_f32": ("finetune_loop",)}

@@ -11,7 +11,11 @@ pointers' alignment forces); K4 against an f64 convolution at each of
 the 22 convolutions of the evaluation's resnet18 forward at each of its
 batch sizes (``K4_SHAPES`` x ``K4_ROWS``) and at edge shapes
 (``K4_EDGE_SHAPES``), and the evaluation's forward through K4 against the
-same forward through cuDNN.  Marked
+same forward through cuDNN; K5 bit-identical to autograd through its
+plain chain and to its plain backward twin at the pretraining step's 22
+BatchNorm shapes (``K5_SHAPES``, in both layouts, with and without the
+LeakyReLU) and at odd widths and alignments, its launches, its reruns and
+its refusals.  Marked
 ``gpu``: it skips where no card is present and runs on the card with
 
     python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py
@@ -29,9 +33,11 @@ import torch
 from chip_smoke import (K2_CIFAR_SHAPES, K2_EDGE_SHAPES, K2_SHAPES,
                         K3_CIFAR_SHAPES, K3_EDGE_SHAPES, K3_SHAPES,
                         K4_EDGE_SHAPES, K4_ROWS, K4_SHAPES, K4_TOL,
-                        TIERED_BASE, bf16_ulp_diff, k1_case, k1_seed_case,
-                        k2_agreement, k2_case, k2_term_scale, k3_agreement,
-                        k3_case, k4_case, k4_error)
+                        K5_SHAPES, TIERED_BASE, bf16_ulp_diff, k1_case,
+                        k1_seed_case, k2_agreement, k2_case, k2_term_scale,
+                        k3_agreement, k3_case, k4_case, k4_error,
+                        k5_agreement, k5_agreement_ok, k5_case)
+from subspace_reg_tpu_torch.ops import bn_train as k5
 from subspace_reg_tpu_torch.ops import conv_f32 as k4
 from subspace_reg_tpu_torch.ops import conv_fused as cf
 from subspace_reg_tpu_torch.ops import finetune as ft
@@ -468,3 +474,120 @@ def test_k4_eval_forward_matches_cudnn(cuda, monkeypatch):
         ref = m(x.contiguous())
     assert k4.conv_f32.launches == before + 22
     assert float((f - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("layout", ["cl", "nchw"])
+@pytest.mark.parametrize("leaky", [True, False])
+@pytest.mark.parametrize("case", K5_SHAPES, ids=lambda c: c[0])
+def test_k5_matches_plain_at_step_shapes(cuda, case, leaky, layout):
+    """Batch 64: the statistics, y, the running statistics, dx, dweight
+    and dbias bit-identical to autograd through the plain chain, and the
+    backward to its plain twin."""
+    _, c, hw, _, _, _ = case
+    r = k5_agreement(*k5_case(c, hw, 64, layout, cuda), leaky)
+    assert k5_agreement_ok(r), r
+
+
+@pytest.mark.parametrize("layout", ["cl", "nchw"])
+def test_k5_launches_and_bit_identical_rerun(cuda, layout):
+    """A forward and a backward through the autograd function run K5's
+    four kernels and torch's four reductions between them (with the
+    reductions' memsets), nothing else; a second run is bit-identical."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, w, b, rm, rv, dy = k5_case(160, 42, 64, layout, cuda)
+    outs = []
+    for i in range(3):
+        xg = x.detach().requires_grad_()
+        wg, bg = w.clone().requires_grad_(), b.clone().requires_grad_()
+        rm1, rv1 = rm.clone(), rv.clone()
+        before = k5.bn_train.launches
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y = k5.bn_train(xg, wg, bg, rm1, rv1, 0.1, 1e-5, True)
+            y.backward(dy)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if i:
+            ours = [n for n in names if "k5_" in n]
+            sums = [n for n in names if "reduce_kernel" in n]
+            rest = [n for n in names if n not in ours + sums
+                    and not n.startswith("Memset")]
+            assert len(ours) == 4 and len(sums) == 4 and not rest, names
+        assert k5.bn_train.launches == before + 4
+        outs.append((y, xg.grad, wg.grad, bg.grad, rm1, rv1))
+    for p, q in zip(outs[1], outs[2]):
+        assert torch.equal(p, q)
+
+
+def test_k5_odd_widths_and_alignments_match_plain(cuda):
+    """Channels_last at every vector width (C = 24, 12, 6, 5) and through a
+    pointer offset by one element, NCHW with odd planes and one image."""
+    for c, hw, batch, layout in ((24, 7, 3, "cl"), (12, 5, 2, "cl"),
+                                 (6, 9, 3, "cl"), (5, 3, 4, "cl"),
+                                 (40, 3, 1, "nchw"), (7, 11, 5, "nchw")):
+        for leaky in (True, False):
+            r = k5_agreement(*k5_case(c, hw, batch, layout, cuda), leaky)
+            assert k5_agreement_ok(r), (c, hw, batch, layout, leaky, r)
+    x, w, b, rm, rv, dy = k5_case(8, 6, 4, "cl", cuda)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xo = buf[1:].view(4, 6, 6, 8).permute(0, 3, 1, 2)
+    xo.copy_(x)
+    assert xo.is_contiguous(memory_format=torch.channels_last)
+    r = k5_agreement(xo, w, b, rm, rv, dy, True)
+    assert k5_agreement_ok(r), r
+
+
+def test_k5_refuses_bad_operands(cuda):
+    """Bad strides, dtypes, shapes, widths and devices raise before any
+    launch; nothing falls back to the layer's ops."""
+    x, w, b, rm, rv, _ = k5_case(16, 6, 2, "cl", cuda)
+    before = k5.bn_train.launches
+    with pytest.raises(ValueError, match="channels_last or NCHW"):
+        k5.bn_train(x[:, :, :, :4], w, b, rm, rv)
+    with pytest.raises(ValueError, match="channels_last or NCHW"):
+        k5.bn_train(x.transpose(2, 3), w, b, rm, rv)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k5.bn_train(x.float(), w, b, rm, rv)
+    with pytest.raises(ValueError, match="weight"):
+        k5.bn_train(x, w[:8], b, rm, rv)
+    with pytest.raises(ValueError, match="float32"):
+        k5.bn_train(x, w.double(), b, rm, rv)
+    with pytest.raises(ValueError, match="CUDA card"):
+        k5.bn_train(x.cpu(), w.cpu(), b.cpu(), rm.cpu(), rv.cpu())
+    wide = torch.zeros((2, 1025, 2, 2), dtype=torch.bfloat16, device=cuda)
+    ones = torch.ones(1025, device=cuda)
+    with pytest.raises(ValueError, match="1025 channels"):
+        k5.bn_train(wide, ones, ones, ones, ones)
+    with pytest.raises(ValueError, match="threads a row"):
+        k5.bn_train(wide[:, :257].contiguous(
+            memory_format=torch.channels_last), ones[:257], ones[:257],
+            ones[:257], ones[:257])
+    assert k5.bn_train.launches == before
+    k5.bn_train(x, w, b, rm, rv)
+    assert k5.bn_train.launches == before + 2
+
+
+def test_k5_module_routing_on_the_card(cuda):
+    """A bf16 train-mode resnet forward on the card sends its 22
+    BatchNorms to K5; eval mode, f32, a sample mask keep the ops."""
+    from subspace_reg_tpu_torch.models.layers import TorchBatchNorm
+    from subspace_reg_tpu_torch.models.resnet import model_dict
+    torch.manual_seed(0)
+    m = model_dict["resnet18"](avg_pool=True, drop_rate=0.1,
+                               no_dropblock=True, widths=(16, 24, 32, 40),
+                               dtype=torch.bfloat16).to(cuda)
+    x = torch.randn((4, 16, 16, 3), device=cuda).permute(0, 3, 1, 2)
+    for mode, mask, want in (("train", None, 22), ("eval", None, 0),
+                             ("train", torch.ones(4, device=cuda), 0)):
+        m.train(mode == "train")
+        k0 = TorchBatchNorm.kernel_forwards
+        t0 = TorchBatchNorm.train_forwards
+        launches = k5.bn_train.launches
+        f = m(x, sample_mask=mask)
+        assert torch.isfinite(f).all()
+        assert TorchBatchNorm.kernel_forwards - k0 == want
+        assert TorchBatchNorm.train_forwards - t0 == (
+            22 if mode == "train" else 0)
+        assert k5.bn_train.launches - launches == 2 * want

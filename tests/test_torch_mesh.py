@@ -514,12 +514,12 @@ def shard_summed_statistics(n_shards: int):
     forward = TorchBatchNorm.forward
     global_stats = TorchBatchNorm._global_stats
 
-    def sharded_forward(self, x, sample_mask=None):
+    def sharded_forward(self, x, sample_mask=None, leaky=False):
         if not self.training or self.sync_group is not None:
-            return forward(self, x, sample_mask)
+            return forward(self, x, sample_mask, leaky)
         self.sync_group = _Shards(n_shards)
         try:
-            return forward(self, x, sample_mask)
+            return forward(self, x, sample_mask, leaky)
         finally:
             self.sync_group = None
 
