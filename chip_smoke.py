@@ -13,29 +13,30 @@ Phases; any failure raises and the script exits non-zero:
               library's count of HGMMA (wgmma) instructions in its SASS
               (``cuobjdump -sass``; K2's must be above 0); each K3
               instance within 64 registers and without spills.
-  3. kernels  K1 (the fused head fine-tune loop, a cooperative grid of P
-              blocks, one per SM) against its plain torch version on the
-              card at the main path's shapes (100 classes, D=640, 185
-              support rows, 175 of 200 replay rows; the last session's
-              counts), for SGD + subspace pull + memory, Adam, and the
-              [W | b] bias column (99 epochs): us/epoch, each phase's and
-              barrier's share of a block's time, the grid barrier alone;
-              then at the golden run's 1000 epochs: agreement, a
-              bit-identical rerun, CUDA-event times of the kernel and the
-              plain version, and the bound.  K1's semantic pull against
-              the plain version and on rerun.  The seed-batched K1 (one
-              launch, the card's blocks in S groups) at S = 1, 2, 5, 10:
-              each seed against the plain version and bit-identical to a
-              single-seed launch on its group's G blocks, one group
-              stopping early, a bit-identical rerun, S = 2 also at 999
-              epochs; at S = 10 and 999 epochs its time beside 10
-              single-seed launches back to back, and the bound.  K1 at
-              tieredImageNet's last session (391 classes, 476 support and
-              175 replay rows; 999 epochs): agreement, a bit-identical
-              rerun, its time, the plain version's and the bound; the
-              seed-batched launch at S = 10 on those shapes, each seed
-              bit-identical to a single-seed launch on its group's blocks,
-              its time beside 10 single-seed launches.
+  3. kernels  each kernel checked against its plain version at the shapes
+              it is timed at (the support module's measures, as the gpu
+              tests hold them), then timed alone beside its plain version,
+              its library call where one exists, and its bound
+              (operations at the type's
+              peak or bytes at the HBM rate, the benchmark's constants
+              and K1's operation and byte counts): K1 (the fused head
+              fine-tune loop, a cooperative grid of one block per SM) at
+              the golden run's 1000 epochs at the last session's shapes
+              on miniImageNet (100 classes, 185 support and 175 of 200
+              replay rows) and tieredImageNet (391 classes, 476 support
+              rows), and seed-batched at S = 10 beside 10 single-seed
+              launches; K2 and K3 at every shape of the fused step at
+              84 px and at CIFAR's 32 px (K3 alone in a CUDA graph,
+              torch.profiler's mean kernel duration within
+              ``K3_PROFILER_SHARE``; through its wrapper; beside a
+              device-to-device copy); K4 at the forward's 22 convolutions
+              at each of the evaluation's batch sizes (``K4_ROWS``)
+              beside ``F.conv2d`` f32 with TF32 off, and the cuDNN kernels
+              it ran; K5 at the pretraining step's 22 BatchNorms (a CUDA
+              graph of its launches and torch's reductions between them,
+              and through its wrapper) beside ``F.batch_norm`` +
+              ``F.leaky_relu``.  tests/test_torch_kernels_gpu.py adds
+              the edge shapes, reruns and refusals.
   4. agree    the port's 8-session engine on the card against the same
               engine on the CPU (plain twin) at a small size with the same
               draws, for the subspace, semantic and mapping pulls: equal
@@ -50,9 +51,7 @@ Phases; any failure raises and the script exits non-zero:
               just after each run; K1 must have launched once per session,
               K2/K3 never, K4 22 times in each of the run's 48 backbone
               forwards (``K4_EVAL_LAUNCHES``).
-  6. profile  the same run again under torch.profiler: device time of K1,
-              of the convolutions and of the rest per 8-session run, and
-              the busy share.
+  (6. none: eval-mini84's traced runs profile the golden run.)
   7. pretrain-agree  the fused-"pallas" pretraining step (K2 + K3) against
               the module step at full resnet18 width, 84 px, batch 64, from
               the same weights and batch: loss, running statistics,
@@ -129,7 +128,7 @@ Phases; any failure raises and the script exits non-zero:
               single seed's, peak memory; (d) one CLI epoch under
               ``torchrun --nproc_per_node 1`` (NCCL) against the plain
               run, a (2, 1) mesh of two gloo ranks on the card against
-              the single-process step (tests/test_torch_mesh.py), and the
+              the single-process step (tests/torch_support.py), and the
               CLI on two gloo ranks on the card, one step on random and
               on class-coloured pixels: in f32 against the single
               process at the CPU test's tolerances, in bf16 as accurate
@@ -192,35 +191,10 @@ Phases; any failure raises and the script exits non-zero:
               TFRecord reader here: masked CRCs, file version, tags,
               steps and f32 values.
 
-Each phase's seconds are printed before the JSON lines.
-
-Phase 3 also holds K2 and K3 against their plain versions at every shape
-of the fused step, at 84 px and at CIFAR's 32 px (K2 within 1 bf16 ulp,
-K3 bit-identical) and at edge shapes (``K2_EDGE_SHAPES``, ``K3_EDGE_SHAPES``), checks that K2 at
-160->160 and K3 at both step shapes rerun bit-identically, times K2 beside
-``F.conv2d`` (each shape's share of its bound and ratio to ``F.conv2d``)
-and K3 alone (bare launches in a CUDA graph; torch.profiler's mean kernel
-duration must agree within ``K3_PROFILER_SHARE``) and through its wrapper, beside a device-to-device copy of
-each shape's y3 (effective GB/s of both).  The line before
+Each phase's seconds are printed before the JSON lines.  The line before
 the last is one JSON object with each kernel's launches on its path, its
-error against the plain version, its time, the plain version's time, its
-roofline bound and the library call's time; the last line is
-``{"ok": true, "device": ...}``.
-
-Phase 3 then holds K4 (the f32 convolution of the evaluation's forwards)
-against an f64 convolution at its edge shapes and at each of the
-forward's 22 convolutions at each of the evaluation's batch sizes
-(``K4_SHAPES`` x ``K4_ROWS``), against its plain version and on rerun,
-and times it beside its bound and beside ``F.conv2d`` f32 with TF32 off
-on the NCHW input (the yardstick, with the cuDNN kernels it ran).
-
-Phase 3 then holds K5 (the pretraining step's train-mode BatchNorm +
-LeakyReLU) bit-identical to autograd through its plain chain at the step's
-22 BatchNorm shapes (``K5_SHAPES``) and on rerun, times it (a CUDA graph
-of its launches and torch's reductions between them, and through its
-wrapper) beside its bound (bytes), its plain twins and ``F.batch_norm`` +
-``F.leaky_relu``, and counts the module step's launches per phase and its
-device kernels with every BatchNorm on TorchBatchNorm's ops and with K5.
+time, the plain version's time, its roofline bound and the library call's
+time; the last line is ``{"ok": true, "device": ...}``.
 
 ``--only-kernels`` stops after phase 3 for quick iteration on a kernel: it
 prints the kernels line (launches null) and no ok line.
@@ -232,6 +206,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -240,346 +215,41 @@ import time
 import numpy as np
 import torch
 
-N_SESSIONS = 8
-# NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
-FP32_PEAK_FLOPS = 67e12
-BF16_PEAK_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from benchmark.flops import k1_bytes, k1_epoch_flops  # noqa: E402
+from benchmark.harness import (HBM_BYTES_PER_S, PEAK_FLOPS, ROOT,  # noqa: E402
+                               TRACER_OVERHEAD, load_module)
+from torch_support import (  # noqa: E402
+    BATCH, BF16_ACCURACY_MAX, GOLDEN_ARGV, K2_CIFAR_SHAPES, K2_SHAPES,
+    K3_CIFAR_SHAPES, K3_SHAPES, K4_ROWS, K4_SHAPES, K4_TOL, K5_SHAPES,
+    LOSS_RTOL, N_SESSIONS, PRETRAIN_CLASSES, RANK_SCRIPT, SMALL_ARGS,
+    SMALL_WIDTHS, TIERED_BASE, agreement, as_numpy, bf16_readings, check,
+    check_k1_matches_plain, ckpt_diff, ckpt_leaves, cli_agreement,
+    config_argv, engine_inputs, f32_compute, golden_opt, golden_tx, k1_case,
+    k1_seed_case, k2_agreement, k2_case, k3_agreement, k3_case, k4_case,
+    k5_agreement, k5_agreement_ok, k5_case, k5_chain, k5_module, launch,
+    pretrain_backbone, pretrain_data, pretrain_state, pretrain_step,
+    pretrain_teacher, ranks_identical, reference, repo_env, run_engine,
+    seeded_ckpt, small_data, small_model, stats_excess, step_agreement,
+    tree_items, write_continual_mini, write_one_step_split)
 
-GOLDEN_ARGV = [
-    "--model", "resnet18", "--no_dropblock", "--n_shots", "5",
-    "--classifier", "linear", "--eval_mode", "few-shot-incremental-fine-tune",
-    "--min_novel_epochs", "20", "--learning_rate", "0.002",
-    "--freeze_backbone_at", "1", "--test_base_batch_size", "2000",
-    "--continual", "--n_queries", "25", "--lmbd_reg_transform_w", "0.2",
-    "--target_train_loss", "0.0", "--label_pull", "1.0",
-    "--lmbd_reg_novel", "0.1", "--set_seed", "1",
-    "--attraction_override", "distance2subspace",
-    "--n_base_support_samples", "1", "--memory_replay", "1",
-]
-
-
-def check(cond, msg: str):
-    if not cond:
-        raise RuntimeError(f"chip_smoke: {msg}")
-
-
-# --------------------------------------------------------------------------
-# K1 operands at the main path's shapes
-# --------------------------------------------------------------------------
-def k1_case(kind: str, device, max_epochs: int = 100, seed: int = 0,
-            session: int = N_SESSIONS, stable_target: int = 10,
-            orig_base: int = 60, feat: int = 640):
-    """Operands of session ``session`` (1..8, default the last) of the
-    golden run over ``orig_base`` base classes (60: miniImageNet and
-    CIFAR; 351: tieredImageNet) at ``feat`` features (640: the resnets;
-    768: ViT-B/16): orig_base + 5*session active classes of
-    orig_base + 40, 125 novel support rows + one exemplar per base class,
-    25*(session-1) of 200 replay rows, 5*(session-1) reserved rows.
-    ``kind``: 'sgd' (subspace pull + memory), 'adam', 'bias' (the [W | b]
-    layout, D = 641, no novel anchor), 'semantic' (the semantic pull) or
-    'plain' (no pull, no memory).  A ``stable_target`` no run reaches makes
-    the loop run to ``max_epochs``, as the golden run on random weights
-    does."""
-    from subspace_reg_tpu_torch.ops.finetune import LoopConfig, pack_scalars
-    r = np.random.RandomState(seed)
-    n_ways = 5
-    cp, ns, nm = orig_base + 8 * n_ways, 125 + orig_base, 200
-    n_active, mem_count = orig_base + 5 * session, 25 * (session - 1)
-    bias, adam = kind == "bias", kind == "adam"
-    memory_on = kind != "plain"
-    pull_mode = {"semantic": "semantic", "plain": "none"}.get(kind,
-                                                             "subspace")
-    n_reserved = 0 if bias else 5 * (session - 1)
-    d = feat + (1 if bias else 0)
-    f32 = np.float32
-    f_sup = (0.5 * np.abs(r.randn(ns, d))).astype(f32)
-    f_mem = np.zeros((nm, d), f32)
-    f_mem[:mem_count] = 0.5 * np.abs(r.randn(mem_count, d))
-    if bias:
-        f_sup[:, feat] = 1.0
-        f_mem[:, feat] = 1.0
-    y_sup = np.concatenate([np.repeat(np.arange(n_active - n_ways,
-                                                n_active), 25),
-                            np.arange(orig_base)]).astype(np.int32)
-    y_mem = np.zeros(nm, np.int32)
-    y_mem[:mem_count] = np.repeat(np.arange(orig_base, n_active - n_ways),
-                                  5)
-    k = 1.0 / math.sqrt(feat)
-    w = r.uniform(-k, k, (cp, d)).astype(f32)
-    w0 = np.zeros_like(w)
-    w0[:orig_base] = w[:orig_base] + 0.01 * r.randn(orig_base, d)
-    reserved = np.zeros_like(w)
-    reserved[orig_base:orig_base + n_reserved] = (
-        w[orig_base:orig_base + n_reserved]
-        + 0.01 * r.randn(n_reserved, d))
-    mom = (1e-3 * r.randn(cp, d)).astype(f32)
-    nu = (1e-6 * r.rand(cp, d)).astype(f32)
-    q, _ = np.linalg.qr(w0[:orig_base, :feat].T.astype(np.float64))
-    pull_op = np.zeros((d, d), f32)
-    pull_op[:feat, :feat] = np.eye(feat) - q @ q.T
-    pull_tgt = np.zeros_like(w)
-    pull_tgt[n_active - n_ways:n_active, :feat] = 0.05 * r.randn(n_ways, feat)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    ops = dict(f_sup=t(f_sup), y_sup=t(y_sup), f_mem=t(f_mem),
-               y_mem=t(y_mem), w=t(w), mom=t(mom),
-               nu=t(nu) if adam else None, w0=t(w0),
-               reserved=None if bias else t(reserved),
-               pull_op=t(pull_op) if pull_mode == "subspace" else None,
-               pull_tgt=t(pull_tgt) if pull_mode == "semantic" else None)
-    ops["scalars"] = pack_scalars(
-        device, lr=0.002, wd=5e-4, momentum=0.9, lmbd_base=0.2,
-        lmbd_novel=0.0 if bias else 0.1, gamma=1.0, eps=1e-4,
-        target_loss=0.0, min_epochs=20, max_epochs=max_epochs,
-        stable_target=stable_target, adam_b1=0.9, adam_b2=0.999,
-        adam_eps=1e-8, prev_loss0=5.0, stable0=0.0)
-    cfg = LoopConfig(n_sup=ns, mem_count=mem_count, n_active=n_active,
-                     n_reserved=n_reserved, orig_base=orig_base,
-                     n_ways=n_ways, memory_on=memory_on, use_regbase=True,
-                     use_regnovel=not bias, pull_mode=pull_mode,
-                     stable_mode=True,
-                     trace_rows=((max_epochs + 2 + 7) // 8) * 8,
-                     use_adam=adam, bias_col=feat if bias else None)
-    return ops, cfg
-
-
-def k1_seed_case(kind: str, device, n_seeds: int, max_epochs: int = 100,
-                 stable_target: int = 10, stop=None, orig_base: int = 60):
-    """S seeds of one geometry for the seed-batched K1: ``k1_case``'s
-    operands drawn from seeds 0..S-1, stacked on a leading seed axis.
-    ``stop`` = (seed, epochs) caps that seed's loop at ``epochs`` (its own
-    max-epoch scalar), so its group stops while the others run.  Returns
-    (stacked operands, the per-seed operands, the shared config)."""
-    from subspace_reg_tpu_torch.ops.finetune import SCALARS
-    per = []
-    for s in range(n_seeds):
-        ops, cfg = k1_case(kind, device, max_epochs=max_epochs, seed=s,
-                           stable_target=stable_target, orig_base=orig_base)
-        per.append(ops)
-    if stop is not None:
-        sc = per[stop[0]]["scalars"].clone()
-        sc[SCALARS.index("max_epochs")] = float(stop[1])
-        per[stop[0]]["scalars"] = sc
-    stacked = {k: None if t is None else torch.stack([p[k] for p in per])
-               for k, t in per[0].items()}
-    return stacked, per, cfg
-
-
-def k1_bound(ops, cfg, epochs_run: int):
-    """Least time for the same work: the larger of the FP32 operations of
-    the epochs this run needed over the FP32 peak, and the bytes of every
-    input read once and every output written once over the HBM rate."""
-    d = ops["w"].shape[1]
-    per_epoch = (2 * 2 * (cfg.n_sup + cfg.mem_count) * cfg.n_active * d
-                 + 2 * cfg.n_ways * d * d)
-    t_ops = epochs_run * per_epoch / FP32_PEAK_FLOPS
-    n_in = sum(t.numel() * t.element_size() for t in ops.values()
-               if t is not None)
-    n_out = ops["w"].numel() * 4 + 8 * 4 + cfg.trace_rows * 3 * 4
-    t_bytes = (n_in + n_out) / HBM_BYTES_PER_S
-    if t_ops >= t_bytes:
-        return 1e3 * t_ops, "operations"
-    return 1e3 * t_bytes, "bytes"
-
-
-# --------------------------------------------------------------------------
-# K2 / K3 operands at the fused pretraining step's shapes (batch 64)
-# --------------------------------------------------------------------------
-# (name, Cin, Cout, H = W, prologue): stage 1 at 84 px (conv1 on the image,
-# conv2/conv3 with the folded BN + LeakyReLU prologue), stage 2 at 42 px
-K2_SHAPES = (("stage1 3->64", 3, 64, 84, False),
-             ("stage1 64->64", 64, 64, 84, True),
-             ("stage2 64->160", 64, 160, 42, False),
-             ("stage2 160->160", 160, 160, 42, True))
-# resnet12's fused step on CIFAR's 32 px images: stage 1 at 32 px, stage 2
-# at 16 px
-K2_CIFAR_SHAPES = (("32px stage1 3->64", 3, 64, 32, False),
-                   ("32px stage1 64->64", 64, 64, 32, True),
-                   ("32px stage2 64->160", 64, 160, 16, False),
-                   ("32px stage2 160->160", 160, 160, 16, True))
-# (name, C, H = W) of the two block tails
-K3_SHAPES = (("stage1", 64, 84), ("stage2", 160, 42))
-K3_CIFAR_SHAPES = (("32px stage1", 64, 32), ("32px stage2", 160, 16))
-BATCH = 64
-# (name, Cin, Cout, H = W, prologue, batch): ragged tiles, a one-pixel
-# image, the scalar halo path (Cin not a multiple of 8), channel padding
-# (Cin not a multiple of 16) and output widths padded up to 64 or 160
-K2_EDGE_SHAPES = (("13x13 b1 64->64", 64, 64, 13, True, 1),
-                  ("13x13 b1 160->160", 160, 160, 13, True, 1),
-                  ("13x13 b2 3->64", 3, 64, 13, False, 2),
-                  ("42x42 b8 160->8", 160, 8, 42, True, 8),
-                  ("21x21 b2 64->96", 64, 96, 21, True, 2),
-                  ("9x9 b2 24->40", 24, 40, 9, True, 2),
-                  ("7x7 b2 5->16", 5, 16, 7, True, 2),
-                  ("1x1 b3 3->8", 3, 8, 1, False, 3))
-# (name, C, H, W, batch): K3 at each vector width (8 channels a thread
-# where C is a multiple of 8, then 4, 2, 1), a single window, non-square
-# maps and a channel count below one group of threads
-K3_EDGE_SHAPES = (("2x2 b1 c3", 3, 2, 2, 1),
-                  ("6x10 b3 c3", 3, 6, 10, 3),
-                  ("6x10 b3 c6", 6, 6, 10, 3),
-                  ("14x14 b3 c6", 6, 14, 14, 3),
-                  ("6x10 b1 c20", 20, 6, 10, 1),
-                  ("14x14 b64 c20", 20, 14, 14, 64),
-                  ("2x2 b3 c24", 24, 2, 2, 3),
-                  ("6x10 b64 c24", 24, 6, 10, 64),
-                  ("84x84 b1 c64", 64, 84, 84, 1),
-                  ("14x14 b3 c160", 160, 14, 14, 3))
 # K3's kernel-alone time from the CUDA graph and torch.profiler's mean
 # kernel duration agree within this share of the former; at CIFAR's
 # shapes, whose launches last ~5 us, the graph's time per launch may
 # instead exceed the profiler's by up to the gap between two graph nodes
 K3_PROFILER_SHARE = 0.05
 K3_LAUNCH_GAP_MS = 0.001
-# K4: the 22 convolutions of resnet18's forward at 84 px, as (name, Cin,
-# Cout, H = W, R, convolutions of that shape in one forward); 18 are 3x3
-# and 4 the downsample's 1x1
-K4_SHAPES = (("s1 3->64", 3, 64, 84, 3, 1), ("s1 64->64", 64, 64, 84, 3, 2),
-             ("s1 ds 3->64", 3, 64, 84, 1, 1),
-             ("s2 64->160", 64, 160, 42, 3, 1),
-             ("s2 160->160", 160, 160, 42, 3, 2),
-             ("s2 ds 64->160", 64, 160, 42, 1, 1),
-             ("s3a 160->320", 160, 320, 21, 3, 1),
-             ("s3a 320->320", 320, 320, 21, 3, 2),
-             ("s3a ds 160->320", 160, 320, 21, 1, 1),
-             ("s3b 320->320", 320, 320, 10, 3, 3),
-             ("s4a 320->640", 320, 640, 10, 3, 1),
-             ("s4a 640->640", 640, 640, 10, 3, 2),
-             ("s4a ds 320->640", 320, 640, 10, 1, 1),
-             ("s4b 640->640", 640, 640, 5, 3, 3))
-# the evaluation's batch sizes: queries (125 a session), the support (185
-# on miniImageNet, 476 on tieredImageNet), the replay buffer (200) and the
-# base batch (1000)
-K4_ROWS = (125, 185, 200, 476, 1000)
-# (name, Cin, Cout, H, W, R, batch): a one-pixel image, non-square maps,
-# the k tile of 4 (Cin not a multiple of 16, with and without padding to
-# 4), output widths that leave a tile's columns partly empty, ragged rows
-K4_EDGE_SHAPES = (("1x1 b1 64->64", 64, 64, 1, 1, 3, 1),
-                  ("7x9 b3 8->12", 8, 12, 7, 9, 3, 3),
-                  ("13x13 b2 3->64", 3, 64, 13, 13, 3, 2),
-                  ("5x11 b3 24->40 1x1", 24, 40, 5, 11, 1, 3),
-                  ("6x6 b5 160->96", 160, 96, 6, 6, 3, 5),
-                  ("3x17 b7 5->4", 5, 4, 3, 17, 3, 7),
-                  ("9x9 b33 48->200", 48, 200, 9, 9, 3, 33))
 # K4's launches in a golden 8-session run: resnet18's 22 convolutions in
 # each of 48 backbone forwards (eval_base, and per session the epoch-1
 # support forward, the four cached forwards and, in sessions 2-8, the
 # epoch-1 replay forward)
 K4_EVAL_LAUNCHES = 22 * (1 + 5 * N_SESSIONS + N_SESSIONS - 1)
-# K4 against an f64 convolution: the largest |y - y64| over max |y64| (f32
-# sums of up to 5,760 products in another order; TF32 reads ~1e-3)
-K4_TOL = 1e-5
-# K5: resnet18's 22 train-mode BatchNorms at 84 px, as (name, C, H = W,
-# BatchNorms followed by the LeakyReLU (bn1, bn2), without it (bn3 and the
-# downsample's), the layout the module step hands them in: the first
-# stage's maps channels_last from the input, every later one NCHW from the
-# dropout mask before it)
-K5_SHAPES = (("s1", 64, 84, 2, 2, "cl"), ("s2", 160, 42, 2, 2, "nchw"),
-             ("s3", 320, 21, 4, 3, "nchw"), ("s4", 640, 10, 4, 3, "nchw"))
 
 
-def k2_case(cin: int, cout: int, hw: int, prologue: bool, device,
-            batch: int = BATCH, seed: int = 0):
-    """K2 operands: x (B, Cin, H, W) bf16 channels_last, w (Cout, Cin, 3, 3)
-    f32 at the kaiming scale, and with ``prologue`` a BN-like affine."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    x = torch.randn((batch, cin, hw, hw), generator=g)
-    w = torch.randn((cout, cin, 3, 3), generator=g) * math.sqrt(2 / (9 * cout))
-    aff = None
-    if prologue:
-        aff = (torch.rand(cin, generator=g) + 0.5,
-               0.1 * torch.randn(cin, generator=g))
-        aff = tuple(t.to(device) for t in aff)
-    x = x.to(device=device, dtype=torch.bfloat16).contiguous(
-        memory_format=torch.channels_last)
-    return x, w.to(device), aff
-
-
-def k3_case(c: int, h: int, w: int, device, ties: bool = False,
-            batch: int = BATCH, seed: int = 0):
-    """K3 operands: raw conv3 / downsample outputs (B, C, H, W) bf16
-    channels_last and the two folded affines.  ``ties``: values on a grid of
-    five levels around 0 with identity affines, so pooling windows hold
-    ties and exact zeros."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    shape = (batch, c, h, w)
-    if ties:
-        y3 = torch.randint(-2, 3, shape, generator=g).to(torch.float32)
-        res = torch.zeros(shape)
-        affs = [torch.ones(c), torch.zeros(c), torch.ones(c), torch.zeros(c)]
-    else:
-        y3, res = torch.randn(shape, generator=g), torch.randn(shape,
-                                                               generator=g)
-        affs = [torch.rand(c, generator=g) + 0.5,
-                0.1 * torch.randn(c, generator=g),
-                torch.rand(c, generator=g) + 0.5,
-                0.1 * torch.randn(c, generator=g)]
-    cl = dict(memory_format=torch.channels_last)
-    y3 = y3.to(device=device, dtype=torch.bfloat16).contiguous(**cl)
-    res = res.to(device=device, dtype=torch.bfloat16).contiguous(**cl)
-    affs = [t.to(device) for t in affs]
-    return y3, res, (affs[0], affs[1]), (affs[2], affs[3])
-
-
-def k3_agreement(ops):
-    """K3 against its plain version on one input: (out, idx, bit-identical,
-    max |d out|)."""
-    from subspace_reg_tpu_torch.ops import conv_fused as cf
-    out, idx = cf.block_tail(*ops)
-    out_p, idx_p = cf.block_tail_plain(*ops)
-    torch.cuda.synchronize()
-    same = (out.shape == out_p.shape and idx.shape == idx_p.shape
-            and torch.equal(out.view(torch.int16), out_p.view(torch.int16))
-            and torch.equal(idx, idx_p))
-    err = float((out.float() - out_p.float()).abs().max())
-    return out, idx, same, err
-
-
-def k2_term_scale(x, w, aff, relu_in: bool) -> torch.Tensor:
-    """Per output element, 2^-8 of the sum of |terms| the convolution adds
-    up.  An output smaller than that is a near-cancellation, where the f32
-    accumulation order alone moves the rounded bf16 value by many of ITS
-    ulps; the comparison takes the ulp at no less than this scale."""
-    from subspace_reg_tpu_torch.ops.conv_fused import affine_act_plain
-    xa = x
-    if aff is not None:
-        xa = affine_act_plain(x, aff[0], aff[1], relu_in)
-    wb = w.to(torch.bfloat16).to(torch.float32)
-    s = torch.nn.functional.conv2d(xa.to(torch.float32).abs(), wb.abs(),
-                                   padding=1)
-    return s * 2.0 ** -8
-
-
-def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor, floor=None):
-    """(max difference in bf16 ulps of b, share of elements that differ);
-    with ``floor``, the ulp is taken at max(|b|, floor)."""
-    a, b = a.to(torch.float32), b.to(torch.float32)
-    mag = b.abs() if floor is None else torch.maximum(b.abs(), floor)
-    e = torch.floor(torch.log2(mag.clamp_min(2.0 ** -126)))
-    ulp = torch.exp2(e - 7)
-    d = (a - b).abs() / ulp
-    return float(d.max()), float((a != b).to(torch.float32).mean())
-
-
-def k2_agreement(x, w, aff, pro: bool):
-    """K2 against its plain version on one input: (y, stats, max ulps,
-    share of elements that differ, statistics relative error, max |dy|).
-    The statistics are held to the sums of the kernel's own rounded y."""
-    from subspace_reg_tpu_torch.ops import conv_fused as cf
-    y, st = cf.conv3x3_fused(x, w, aff, relu_in=pro)
-    yp, _ = cf.conv3x3_fused_plain(x, w, aff, relu_in=pro)
-    torch.cuda.synchronize()
-    check(y.shape == yp.shape and y.is_contiguous(
-        memory_format=torch.channels_last), "K2 output shape or layout")
-    ulps, share = bf16_ulp_diff(y, yp, k2_term_scale(x, w, aff, pro))
-    yf = y.double()
-    ref = torch.stack([yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))])
-    scale = torch.stack([yf.abs().sum((0, 2, 3)), ref[1]]).clamp_min(1e-30)
-    st_err = float(((st.double() - ref).abs() / scale).max())
-    err = float((y.float() - yp.float()).abs().max())
-    return y, st, ulps, share, st_err, err
-
-
+# --------------------------------------------------------------------------
+# phase 3: each kernel alone
+# --------------------------------------------------------------------------
 def cuda_ms(fn, reps: int) -> float:
     """Mean ms of ``fn`` over ``reps`` calls after one warm-up call, from
     CUDA events around the whole run."""
@@ -638,820 +308,14 @@ def profiled_kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     return sum(us) / len(us) / 1e3
 
 
-def k1_agreement(kind: str, ops, cfg, out, acc_flips: int = 0):
-    """K1's output against its plain version on the same operands: epochs
-    exact, max |dW| <= 1e-4, the last loss and accuracies to 1e-4
-    relative, the loss of every epoch run to rtol 1e-4.  The accuracies of
-    every epoch agree to rtol 1e-4 too, except on at most ``acc_flips``
-    epochs, where they may differ by one support row: over a long run a
-    support row's logits come within an ulp of a rival class's, and the
-    two sum orders may rank it either side.  Returns (epochs, max
-    |dW|)."""
-    from subspace_reg_tpu_torch.ops.finetune import finetune_loop_plain
-    w_k, st_k, tr_k = out
-    w_p, st_p, tr_p = finetune_loop_plain(**ops, cfg=cfg)
-    torch.cuda.synchronize()
-    st_k, st_p = st_k.cpu().numpy(), st_p.cpu().numpy()
-    err = float((w_k - w_p).abs().max())
-    ep = int(st_k[1])
-    print(f"[kernels] K1 {kind}: epochs kernel {ep} plain {int(st_p[1])}"
-          f" max|dW| {err:.3e} loss {st_k[0]:.6f}/{st_p[0]:.6f} "
-          f"acc1 {st_k[3]:.4f}/{st_p[3]:.4f} "
-          f"acc5 {st_k[4]:.4f}/{st_p[4]:.4f}")
-    check(ep == int(st_p[1]), f"K1 {kind}: epochs differ")
-    check(ep > 2, f"K1 {kind}: the loop ran no epoch")
-    check(err <= 1e-4, f"K1 {kind}: max|dW| {err} > 1e-4")
-    for i, name in ((0, "loss"), (3, "acc1"), (4, "acc5")):
-        check(abs(st_k[i] - st_p[i]) <= 1e-4 * abs(st_p[i]),
-              f"K1 {kind}: {name} {st_k[i]} vs {st_p[i]}")
-    t_k, t_p = tr_k[2:ep + 1].double(), tr_p[2:ep + 1].double()
-    loss_rel = float(((t_k[:, 0] - t_p[:, 0]).abs()
-                      / t_p[:, 0].abs().clamp_min(1e-30)).max())
-    off = ~torch.isclose(t_k[:, 1:], t_p[:, 1:], rtol=1e-4, atol=1e-5)
-    flips = int(off.any(1).sum())
-    rows_off = float((t_k[:, 1:] - t_p[:, 1:]).abs().max()) * cfg.n_sup / 100
-    print(f"[kernels] K1 {kind} trace: loss max rel diff {loss_rel:.2e}; "
-          f"accuracy differs on {flips} of {ep - 1} epochs, by at most "
-          f"{rows_off:.3f} support rows")
-    check(torch.allclose(t_k[:, 0], t_p[:, 0], rtol=1e-4, atol=1e-5),
-          f"K1 {kind}: the loss trace differs")
-    check(flips <= acc_flips and rows_off <= 1.001,
-          f"K1 {kind}: the accuracy trace differs on {flips} epochs")
-    return ep, err
-
-
-def k1_phase_times(ops, cfg, blocks: int, epochs: int):
-    """Where a K1 block's time goes, us per epoch from the kernel's own
-    per-block clocks: phase A (its product part apart), the wait at the
-    first barrier, phase B (its slot reduction, G product and update
-    epilogue apart), the wait at the second; blocks grouped by what they
-    own (phase A: a logits tile, a pull chunk or nothing; phase B: a tile
-    with the product G, a tile without it, or nothing), mean and max over
-    each group."""
-    from subspace_reg_tpu_torch.ops import finetune as ft
-    prof = torch.zeros((blocks, ft.K1_PROF_SLOTS), dtype=torch.int64,
-                       device=ops["w"].device)
-    ft._launch(ops, cfg, blocks=blocks, prof=prof)
-    torch.cuda.synchronize()
-    c = (prof.double() / (1e3 * epochs)).cpu().numpy()
-    plan = ft._plan_for(cfg, *ops["w"].shape, blocks)
-    work = [ft.k1_work(plan, b) for b in range(blocks)]
-    has_g = [any(u[4] for u in w["update"]) for w in work]
-    a_groups = (("logits", [b for b in range(blocks) if work[b]["logits"]]),
-                ("pull", [b for b in range(blocks) if work[b]["pull"]
-                          and not work[b]["logits"]]),
-                ("idle", [b for b in range(blocks) if not (
-                    work[b]["logits"] or work[b]["pull"])]))
-    b_groups = (("G tile", [b for b in range(blocks) if has_g[b]]),
-                ("tile without G", [b for b in range(blocks)
-                                    if work[b]["update"] and not has_g[b]]),
-                ("idle", [b for b in range(blocks) if not work[b]["update"]]))
-    parts = {"phase A": (c[:, 0] + c[:, 4], a_groups,
-                         (("product", c[:, 4]),)),
-             "barrier 1": (c[:, 1], (), ()),
-             "phase B": (c[:, 2] + c[:, 5] + c[:, 6] + c[:, 7], b_groups,
-                         (("slot reduction", c[:, 5]), ("G", c[:, 6]),
-                          ("update", c[:, 7]))),
-             "barrier 2": (c[:, 3], (), ())}
-    for name, (total, groups, subs) in parts.items():
-        out = [f"all {total.mean():.2f} (max {total.max():.2f})"]
-        for label, idx in groups:
-            if idx:
-                sub = "".join(f", {s} {v[idx].mean():.2f}" for s, v in subs)
-                out.append(f"{label} x{len(idx)} {total[idx].mean():.2f} "
-                           f"(max {total[idx].max():.2f}{sub})")
-        print(f"[kernels] K1 sgd {name}, us/epoch per block: "
-              + "; ".join(out))
-
-
-def k1_barrier_us(dev, blocks: int, iters: int = 20000) -> float:
-    """Microseconds per grid barrier of K1's kind on ``blocks`` blocks: one
-    cooperative launch that runs ``iters`` barriers and nothing else."""
-    from subspace_reg_tpu_torch.ops import finetune as ft
-    fn = ft._kernel_fn("k1_barrier_probe", 1, 2)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def run():
-        bar = torch.zeros(1, dtype=torch.int32, device=dev)
-        check(fn(bar.data_ptr(), blocks, iters, stream) == 0,
-              "the barrier probe did not launch")
-    return 1e3 * cuda_ms(run, 3) / iters
-
-
-def phase_kernels(dev):
-    """K1 against its plain version at the last golden session's shapes
-    (SGD + subspace pull + memory, Adam, the bias column; 99 epochs), its
-    time per epoch there, where a block's time goes (phase A, barrier,
-    phase B, barrier), the barrier alone, and K1 at the golden run's 1000
-    epochs: agreement, a bit-identical rerun, the time per launch, the
-    plain version's and the bound."""
-    from subspace_reg_tpu_torch.ops import finetune as ft
-    p = ft.k1_blocks(dev)
-    print(f"[kernels] K1 grid: P = {p} blocks of {ft.K1_THREADS} threads "
-          f"(one per SM)")
-    for kind in ("sgd", "adam", "bias"):
-        ops, cfg = k1_case(kind, dev)
-        ep, _ = k1_agreement(kind, ops, cfg, ft.finetune_loop(**ops, cfg=cfg))
-        if kind == "sgd":
-            ms = cuda_ms(lambda: ft.finetune_loop(**ops, cfg=cfg), 10)
-            us_epoch = 1e3 * ms / (ep - 1)
-            print(f"[kernels] K1 sgd: {ep - 1} epochs/launch, kernel "
-                  f"{ms:.3f} ms = {us_epoch:.2f} us/epoch at P = {p}")
-            k1_phase_times(ops, cfg, p, ep - 1)
-    bar_us = k1_barrier_us(dev, p)
-    print(f"[kernels] K1 grid barrier alone: {bar_us:.3f} us at P = {p}")
-    # the golden run: random weights never meet the stable rule, so every
-    # session runs all 1000 epochs
-    ops, cfg = k1_case("sgd", dev, max_epochs=1000, stable_target=10 ** 6)
-    out = ft.finetune_loop(**ops, cfg=cfg)
-    ep, err = k1_agreement("sgd 1000 epochs", ops, cfg, out, acc_flips=10)
-    check(ep == 1000, f"K1 ran {ep} of 1000 epochs")
-    again = ft.finetune_loop(**ops, cfg=cfg)
-    same = all(torch.equal(a, b) for a, b in zip(out, again))
-    print(f"[kernels] K1 sgd 1000 epochs: rerun at P = {p} bit-identical "
-          f"{same}")
-    check(same, "K1: a rerun at the full grid differs")
-    ms = cuda_ms(lambda: ft.finetune_loop(**ops, cfg=cfg), 5)
-    plain_ms = cuda_ms(lambda: ft.finetune_loop_plain(**ops, cfg=cfg), 1)
-    bound_ms, bound_by = k1_bound(ops, cfg, ep - 1)
-    print(f"[kernels] K1 sgd: {ep - 1} epochs/launch, kernel {ms:.3f} ms "
-          f"({1e3 * ms / (ep - 1):.2f} us/epoch), plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{100 * bound_ms / ms:.2f}% of the bound")
-    return {"finetune_loop": dict(
-        name="finetune_loop", route="cuda",
-        source="subspace_reg_tpu_torch/csrc/finetune_loop.cu",
-        replaces="subspace_reg_tpu/ops/pallas/finetune.py:352",
-        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        epochs_per_launch=ep - 1, us_per_epoch=1e3 * ms / (ep - 1),
-        us_per_epoch_99=us_epoch, blocks=p, barrier_us=bar_us)}
-
-
-def _bit_identical(a, b) -> bool:
-    return all(torch.equal(x, y) for x, y in zip(a, b))
-
-
-def phase_k1_semantic(dev):
-    """K1's semantic pull (the semantic and mapping attractors' target at
-    the current rows) at the last golden session's shapes: against the
-    plain version (99 epochs), and a bit-identical rerun."""
-    from subspace_reg_tpu_torch.ops import finetune as ft
-    ops, cfg = k1_case("semantic", dev)
-    out = ft.finetune_loop(**ops, cfg=cfg)
-    _, err = k1_agreement("semantic", ops, cfg, out)
-    same = _bit_identical(out, ft.finetune_loop(**ops, cfg=cfg))
-    print(f"[kernels] K1 semantic: rerun bit-identical {same}")
-    check(same, "K1 semantic: a rerun differs")
-    return err
-
-
-def phase_k1_seeds(dev):
-    """The seed-batched K1 (one launch, the card's blocks in S groups of
-    G): at S = 1, 2, 5, 10 and 99 epochs (seed 0 capped at 40 epochs,
-    so its group stops while the others run), each seed against the plain
-    version, bit-identical to a single-seed launch on G blocks, and a
-    bit-identical rerun; at S = 2 the same at 999 epochs; at S = 10 and
-    999 epochs the launch's time beside 10 single-seed launches on all
-    SMs back to back, and the bound.  Returns the K1 row's seed-batched
-    fields and the largest |dW| against the plain version."""
-    from subspace_reg_tpu_torch.ops import finetune as ft
-    p = ft.k1_blocks(dev)
-    worst = 0.0
-    for n_seeds, max_epochs in ((1, 100), (2, 100), (5, 100), (10, 100),
-                                (2, 1000)):
-        long = max_epochs == 1000
-        stacked, per, cfg = k1_seed_case(
-            "sgd", dev, n_seeds, max_epochs=max_epochs,
-            stable_target=10 ** 6,
-            stop=(0, 40) if n_seeds > 1 and not long else None)
-        g = p // n_seeds
-        out = ft._launch_seeds(stacked, cfg)
-        epochs = []
-        for s in range(n_seeds):
-            mine = tuple(t[s] for t in out)
-            ep, err = k1_agreement(f"S={n_seeds} seed {s}", per[s], cfg,
-                                   mine, acc_flips=10 if long else 0)
-            epochs.append(ep)
-            worst = max(worst, err)
-            alone = ft._launch(per[s], cfg, blocks=g)
-            check(_bit_identical(mine, alone),
-                  f"K1 S={n_seeds}: seed {s} differs from a single-seed "
-                  f"launch on {g} blocks")
-        same = _bit_identical(out, ft._launch_seeds(stacked, cfg))
-        check(same, f"K1 S={n_seeds}: a rerun differs")
-        if n_seeds > 1 and not long:
-            check(epochs == [40] + [max_epochs] * (n_seeds - 1),
-                  f"K1 S={n_seeds}: epochs {epochs}")
-        print(f"[kernels] K1 seed-batched S={n_seeds} (G={g} blocks a seed,"
-              f" {p - n_seeds * g} idle), {max_epochs - 1} epochs at most: "
-              f"epochs {epochs}; each seed bit-identical to a single-seed "
-              f"launch on {g} blocks; rerun bit-identical")
-    n_seeds = 10
-    stacked, per, cfg = k1_seed_case("sgd", dev, n_seeds, max_epochs=1000,
-                                     stable_target=10 ** 6)
-    ms = cuda_ms(lambda: ft._launch_seeds(stacked, cfg), 3)
-    seq_ms = cuda_ms(lambda: [ft._launch(o, cfg) for o in per], 2)
-    epochs = 999
-    bound = sum(k1_bound(o, cfg, epochs)[0] for o in per)
-    us_epoch = 1e3 * ms / epochs
-    print(f"[kernels] K1 seed-batched S={n_seeds}, {epochs} epochs: one "
-          f"launch {ms:.3f} ms ({us_epoch:.2f} us per epoch of all seeds, "
-          f"{us_epoch / n_seeds:.2f} us per seed-epoch); {n_seeds} "
-          f"single-seed launches on {p} blocks back to back {seq_ms:.3f} ms "
-          f"({1e3 * seq_ms / epochs / n_seeds:.2f} us per seed-epoch); "
-          f"bound {bound:.4f} ms; {100 * bound / ms:.2f}% of the bound; "
-          f"{seq_ms / ms:.2f}x faster than the sequential launches")
-    # where a block's time goes, from the kernel's own clocks
-    plan = ft._plan_for(cfg, *per[0]["w"].shape, p, n_seeds)
-    prof = torch.zeros((plan.grid, ft.K1_PROF_SLOTS), dtype=torch.int64,
-                       device=dev)
-    ft._launch_seeds(stacked, cfg, prof=prof)
-    torch.cuda.synchronize()
-    c = (prof.double() / (1e3 * epochs)).cpu().numpy()
-    parts = (("phase A", c[:, 0] + c[:, 4]), ("its product", c[:, 4]),
-             ("barrier 1", c[:, 1]),
-             ("phase B", c[:, 2] + c[:, 5] + c[:, 6] + c[:, 7]),
-             ("its G product", c[:, 6]), ("barrier 2", c[:, 3]))
-    print(f"[kernels] K1 seed-batched S={n_seeds}, us per epoch per block "
-          "(mean, max): " + "; ".join(f"{name} {v.mean():.2f} "
-                                      f"({v.max():.2f})" for name, v in parts))
-    return dict(seeds=n_seeds, seeds_ms=ms, seeds_sequential_ms=seq_ms,
-                seeds_bound_ms=bound, seeds_us_per_seed_epoch=us_epoch
-                / n_seeds, seeds_blocks_per_seed=p // n_seeds), worst
-
-
-TIERED_BASE = 351
-
-
-def phase_k1_tiered(dev):
-    """K1 at tieredImageNet's last golden session (351 + 40 = 391 of 391
-    classes, 476 support rows, 175 of 200 replay rows), 999 epochs: against
-    the plain version, a bit-identical rerun, the time per launch and per
-    epoch beside the plain version's and the bound; then the seed-batched
-    launch at S = 10 on the same shapes (seeds 0..9): each seed
-    bit-identical to a single-seed launch on its group's G blocks, seed 0
-    against the plain version, a bit-identical rerun, its time beside ten
-    single-seed launches on all SMs back to back, and the bound."""
-    from subspace_reg_tpu_torch.ops import finetune as ft
-    p = ft.k1_blocks(dev)
-    ops, cfg = k1_case("sgd", dev, max_epochs=1000, stable_target=10 ** 6,
-                       orig_base=TIERED_BASE)
-    plan = ft._plan_for(cfg, *ops["w"].shape, p)
-    print(f"[kernels] K1 tiered: {cfg.n_active} of {ops['w'].shape[0]} "
-          f"classes, {plan.rows} rows; {plan.items} phase-A items and "
-          f"{plan.tiles} update tiles on {p} blocks; {plan.smem} B of shared "
-          "memory a block")
-    out = ft.finetune_loop(**ops, cfg=cfg)
-    ep, err = k1_agreement("tiered 1000 epochs", ops, cfg, out,
-                           acc_flips=10)
-    check(ep == 1000, f"K1 tiered ran {ep} of 1000 epochs")
-    check(_bit_identical(out, ft.finetune_loop(**ops, cfg=cfg)),
-          "K1 tiered: a rerun differs")
-    ms = cuda_ms(lambda: ft.finetune_loop(**ops, cfg=cfg), 3)
-    plain_ms = cuda_ms(lambda: ft.finetune_loop_plain(**ops, cfg=cfg), 1)
-    bound_ms, bound_by = k1_bound(ops, cfg, ep - 1)
-    print(f"[kernels] K1 tiered: {ep - 1} epochs/launch, kernel {ms:.3f} ms "
-          f"({1e3 * ms / (ep - 1):.2f} us/epoch), plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{100 * bound_ms / ms:.2f}% of the bound; rerun bit-identical")
-    n_seeds = 10
-    g = p // n_seeds
-    stacked, per, cfg = k1_seed_case("sgd", dev, n_seeds, max_epochs=1000,
-                                     stable_target=10 ** 6,
-                                     orig_base=TIERED_BASE)
-    out = ft._launch_seeds(stacked, cfg)
-    _, seed_err = k1_agreement("tiered S=10 seed 0", per[0], cfg,
-                               tuple(t[0] for t in out), acc_flips=10)
-    for s_ in range(n_seeds):
-        check(_bit_identical(tuple(t[s_] for t in out),
-                             ft._launch(per[s_], cfg, blocks=g)),
-              f"K1 tiered S=10: seed {s_} differs from a single-seed launch "
-              f"on {g} blocks")
-    check(_bit_identical(out, ft._launch_seeds(stacked, cfg)),
-          "K1 tiered S=10: a rerun differs")
-    seeds_ms = cuda_ms(lambda: ft._launch_seeds(stacked, cfg), 2)
-    seq_ms = cuda_ms(lambda: [ft._launch(o, cfg) for o in per], 1)
-    seeds_bound = sum(k1_bound(o, cfg, ep - 1)[0] for o in per)
-    print(f"[kernels] K1 tiered seed-batched S={n_seeds} (G={g}): each seed "
-          f"bit-identical to a single-seed launch on {g} blocks; one launch "
-          f"{seeds_ms:.3f} ms ({1e3 * seeds_ms / (ep - 1) / n_seeds:.2f} us "
-          f"per seed-epoch) against {seq_ms:.3f} ms for {n_seeds} single-"
-          f"seed launches on {p} blocks ({seq_ms / seeds_ms:.2f}x); bound "
-          f"{seeds_bound:.4f} ms, {100 * seeds_bound / seeds_ms:.2f}% of it")
-    return dict(tiered_classes=cfg.n_active, tiered_rows=plan.rows,
-                tiered_ms=ms, tiered_us_per_epoch=1e3 * ms / (ep - 1),
-                tiered_plain_ms=plain_ms, tiered_bound_ms=bound_ms,
-                tiered_bound_by=bound_by, tiered_seeds_ms=seeds_ms,
-                tiered_seeds_sequential_ms=seq_ms,
-                tiered_seeds_bound_ms=seeds_bound), max(err, seed_err)
-
-
-def roofline_ms(flops: float, nbytes: float):
-    """The larger of bf16 tensor-core operations at the dense peak and bytes
-    at the HBM rate, in ms, and which of the two it is."""
-    t_ops, t_bytes = flops / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-    if t_ops >= t_bytes:
-        return 1e3 * t_ops, "operations"
-    return 1e3 * t_bytes, "bytes"
-
-
-def phase_k2(shapes=K2_SHAPES, edges: bool = True):
-    """K2 against its plain version at the edge shapes (``edges``) and
-    every shape of the fused step (batch 64; ``shapes``: the 84 px step's,
-    or CIFAR's at 32 px), with CUDA-event times of the wrapper call, the
-    plain version and the one-call yardstick ``F.conv2d`` in bf16
-    channels_last (the convolution alone, without prologue or
-    statistics); its row sums each time over one step's launches (conv1
-    once and conv2/conv3 twice per stage)."""
-    from subspace_reg_tpu_torch.ops import conv_fused as cf
-    F = torch.nn.functional
-    dev = torch.device("cuda")
-    k2 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-              max_abs_err=0.0, shapes=[])
-    ops_ms = bytes_ms = 0.0
-    for name, cin, cout, hw, pro, batch in K2_EDGE_SHAPES if edges else ():
-        x, w, aff = k2_case(cin, cout, hw, pro, dev, batch=batch)
-        _, _, ulps, share, st_err, err = k2_agreement(x, w, aff, pro)
-        print(f"[kernels] K2 edge {name}: {ulps:.2f} ulp max, "
-              f"{100 * share:.4f}% of y differ, max |dy| {err:.3e}, stats "
-              f"rel err {st_err:.2e}")
-        check(ulps <= 1.0 and share <= 1e-3,
-              f"K2 edge {name}: {ulps} ulp, {share} of elements differ")
-        check(st_err <= 1e-4, f"K2 edge {name}: stats rel err {st_err}")
-    for name, cin, cout, hw, pro in shapes:
-        x, w, aff = k2_case(cin, cout, hw, pro, dev)
-        y, st, ulps, share, st_err, err = k2_agreement(x, w, aff, pro)
-        print(f"[kernels] K2 {name}: {ulps:.2f} ulp max, {100 * share:.4f}% "
-              f"of y differ, max |dy| {err:.3e}, stats rel err {st_err:.2e}")
-        check(ulps <= 1.0 and share <= 1e-3,
-              f"K2 {name}: {ulps} ulp, {share} of elements differ")
-        check(st_err <= 1e-4, f"K2 {name}: stats rel err {st_err}")
-        if cin == cout == 160:
-            y2, st2 = cf.conv3x3_fused(x, w, aff, relu_in=pro)
-            same = torch.equal(y, y2) and torch.equal(st, st2)
-            print(f"[kernels] K2 {name}: rerun bit-identical {same}")
-            check(same, f"K2 {name}: a rerun differs")
-        wb = w.to(torch.bfloat16)
-        ms = cuda_ms(lambda: cf.conv3x3_fused(x, w, aff, relu_in=pro), 20)
-        plain_ms = cuda_ms(
-            lambda: cf.conv3x3_fused_plain(x, w, aff, relu_in=pro), 5)
-        lib_ms = cuda_ms(lambda: F.conv2d(x, wb, padding=1), 20)
-        b = x.shape[0]
-        flops = 2.0 * b * hw * hw * cout * cin * 9
-        nbytes = (x.numel() * 2 + w.numel() * 4 + y.numel() * 2
-                  + (2 * cin * 4 if pro else 0) + 2 * cout * 4)
-        bound, by = roofline_ms(flops, nbytes)
-        reps = 1 if cin == 3 or name.endswith("64->160") else 2
-        print(f"[kernels] K2 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-              f" ms, F.conv2d bf16 {lib_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({by}); {100 * bound / ms:.1f}% of the bound, "
-              f"{ms / lib_ms:.2f}x F.conv2d; {reps} launch(es) per step")
-        k2["shapes"].append(dict(shape=name, ms=ms, plain_ms=plain_ms,
-                                 library_ms=lib_ms, bound_ms=bound,
-                                 bound_by=by, ulps=ulps, share=share,
-                                 bound_share=bound / ms,
-                                 vs_library=ms / lib_ms))
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("bound_ms", bound)):
-            k2[key] += reps * v
-        k2["max_abs_err"] = max(k2["max_abs_err"], err)
-        ops_ms += reps * 1e3 * flops / BF16_PEAK_FLOPS
-        bytes_ms += reps * 1e3 * nbytes / HBM_BYTES_PER_S
-    # the step's launches each take at least their own bound; the row
-    # names the class that bounds most of their sum
-    k2["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
-    print(f"[kernels] K2 per step: kernel {k2['ms']:.4f} ms, bound "
-          f"{k2['bound_ms']:.4f} ms ({100 * k2['bound_ms'] / k2['ms']:.1f}%),"
-          f" F.conv2d {k2['library_ms']:.4f} ms "
-          f"({k2['ms'] / k2['library_ms']:.2f}x)")
-    return dict(name="conv3x3_fused", route="cuda",
-                source="subspace_reg_tpu_torch/csrc/conv3x3_fused.cu",
-                replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:168",
-                launches=None, **k2)
-
-
-def k4_case(cin: int, cout: int, h: int, w: int, r: int, batch: int,
-            device, seed: int = 0):
-    """K4's operands: x (batch, Cin, H, W) f32, channels_last as the
-    forward hands it on (NCHW-contiguous at 3 input channels, as the
-    engine's images arrive), and a (Cout, Cin, R, R) weight at the
-    backbone's initial scale (N(0, 2 / fan_out))."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    x = torch.randn((batch, cin, h, w), generator=g).to(device)
-    if cin != 3:
-        x = x.contiguous(memory_format=torch.channels_last)
-    wt = torch.randn((cout, cin, r, r), generator=g) * math.sqrt(
-        2.0 / (cout * r * r))
-    return x, wt.to(device)
-
-
-def k4_error(x, w, y, images=None) -> float:
-    """max |y - y64| / max |y64| over ``images`` (default: the first, a
-    middle and the last one), y64 the f64 convolution."""
-    F = torch.nn.functional
-    b = x.shape[0]
-    idx = sorted({0, b // 2, b - 1}) if images is None else images
-    ref = F.conv2d(x[idx].double(), w.double(), padding=w.shape[-1] // 2)
-    return float((y[idx].double() - ref).abs().max() / ref.abs().max())
-
-
 def k4_flops(batch: int, cin: int, cout: int, hw: int, r: int) -> float:
     return 2.0 * batch * hw * hw * cout * cin * r * r
-
-
-def phase_k4(dev, rows=K4_ROWS, edges: bool = True):
-    """K4 against an f64 convolution at the edge shapes and at every
-    convolution of the evaluation's forward at each of its batch sizes,
-    against its plain version at the smallest, rerun bit-identical; CUDA
-    -event times of the kernel, its bound (operations at the f32 peak),
-    the plain version (at 1000 rows) and the yardstick ``F.conv2d`` f32
-    with TF32 off on the NCHW input the evaluation used to hand it, with
-    the kernels cuDNN ran for it (torch.profiler); per forward, the sums
-    over its 22 convolutions."""
-    from subspace_reg_tpu_torch.ops import conv_f32 as k4
-    F = torch.nn.functional
-    launches0 = k4.conv_f32.launches
-    err_max = 0.0
-    for name, cin, cout, h, w, r, batch in K4_EDGE_SHAPES if edges else ():
-        x, wt = k4_case(cin, cout, h, w, r, batch, dev)
-        y = k4.conv_f32(x, wt)
-        err = k4_error(x, wt, y, list(range(batch)))
-        print(f"[kernels] K4 edge {name}: rel err {err:.2e}")
-        check(err <= K4_TOL, f"K4 edge {name}: rel err {err}")
-        err_max = max(err_max, err)
-    per_rows = {}
-    shapes = []
-    plain_ms = 0.0
-    for batch in rows:
-        tot = dict(ms=0.0, bound_ms=0.0, library_ms=0.0)
-        for name, cin, cout, hw, r, count in K4_SHAPES:
-            x, wt = k4_case(cin, cout, hw, hw, r, batch, dev)
-            y = k4.conv_f32(x, wt)
-            err = k4_error(x, wt, y)
-            check(err <= K4_TOL, f"K4 {name} at {batch} rows: rel err {err}")
-            err_max = max(err_max, err)
-            plan = k4.conv_f32_plan(batch * hw * hw, cout, -(-cin // 4) * 4,
-                                    k4._sm_count(dev), k4._occupancy(dev))
-            if batch == min(rows):
-                plain = k4.conv_f32_plain(x, wt)
-                perr = float((y - plain).abs().max() / plain.abs().max())
-                again = k4.conv_f32(x, wt)
-                same = torch.equal(y, again)
-                check(perr <= K4_TOL and same, f"K4 {name}: against the "
-                      f"plain version {perr}, rerun bit-identical {same}")
-            reps = max(3, min(50, int(2e10 / k4_flops(batch, cin, cout,
-                                                       hw, r))))
-            ms = cuda_ms(lambda: k4.conv_f32(x, wt), reps)
-            xn = x.contiguous()
-            lib_ms = cuda_ms(lambda: F.conv2d(xn, wt, padding=r // 2), reps)
-            bound = 1e3 * k4_flops(batch, cin, cout, hw, r) / FP32_PEAK_FLOPS
-            row = dict(rows=batch, shape=name, ms=ms, bound_ms=bound,
-                       library_ms=lib_ms, err=err, tile=(plan.bm, plan.bn),
-                       grid=plan.grid, tiles=plan.tiles)
-            if batch == max(rows):
-                row["plain_ms"] = cuda_ms(lambda: k4.conv_f32_plain(x, wt),
-                                          2)
-                plain_ms += count * row["plain_ms"]
-                row["library_kernels"] = library_kernels(
-                    lambda: F.conv2d(xn, wt, padding=r // 2))
-            shapes.append(row)
-            print(f"[kernels] K4 {name} x{count} at {batch} rows: kernel "
-                  f"{ms:.4f} ms ({100 * bound / ms:.1f}% of the bound "
-                  f"{bound:.4f}), F.conv2d {lib_ms:.4f} ms "
-                  f"({lib_ms / ms:.2f}x), tile {plan.bm}x{plan.bn}, grid "
-                  f"{plan.grid} over {plan.tiles} tiles, rel err {err:.2e}"
-                  + (f", plain {row['plain_ms']:.3f} ms, cuDNN ran "
-                     f"{row['library_kernels']}" if "plain_ms" in row
-                     else ""))
-            for key in tot:
-                tot[key] += count * row[key]
-            del x, y
-        per_rows[batch] = tot
-        print(f"[kernels] K4 forward at {batch} rows: kernels "
-              f"{tot['ms']:.3f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}%"
-              f" of the bound {tot['bound_ms']:.3f}), F.conv2d "
-              f"{tot['library_ms']:.3f} ms ({tot['library_ms'] / tot['ms']:.2f}x)")
-    launches = k4.conv_f32.launches - launches0
-    print(f"[kernels] K4 launches in this phase: {launches}")
-    big = per_rows[max(rows)]
-    return dict(name="conv_f32", route="cuda",
-                source="subspace_reg_tpu_torch/csrc/conv_f32.cu",
-                replaces=None, launches=None, max_abs_err=err_max,
-                ms=big["ms"], plain_ms=plain_ms,
-                bound_ms=big["bound_ms"], bound_by="operations",
-                library_ms=big["library_ms"], rows=max(rows),
-                per_rows=per_rows, shapes=shapes)
-
-
-def k5_case(c: int, hw: int, batch: int, layout: str, device,
-            seed: int = 0):
-    """K5's operands at one BatchNorm: x (batch, C, H, W) bf16 in
-    ``layout`` ("cl" or "nchw") with a per-channel offset and scale as a
-    convolution's output has, weight near 1 and bias near 0 (f32), the
-    running statistics, and a bf16 dy."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    shift = torch.randn((1, c, 1, 1), generator=g)
-    scale = torch.rand((1, c, 1, 1), generator=g) * 2 + 0.1
-    x = (torch.randn((batch, c, hw, hw), generator=g) * scale + shift)
-    fmt = (torch.channels_last if layout == "cl" else
-           torch.contiguous_format)
-    x = x.to(torch.bfloat16).to(device).contiguous(memory_format=fmt)
-    w = (1 + 0.2 * torch.randn(c, generator=g)).to(device)
-    b = (0.2 * torch.randn(c, generator=g)).to(device)
-    rm = (0.1 * torch.randn(c, generator=g)).to(device)
-    rv = (1 + torch.rand(c, generator=g)).to(device)
-    dy = (torch.randn((batch, c, hw, hw), generator=g) * 1e-3).to(
-        torch.bfloat16).to(device).contiguous(memory_format=fmt)
-    return x, w, b, rm, rv, dy
-
-
-def k5_module(w, b, rm, rv):
-    """A train-mode ``TorchBatchNorm`` holding copies of ``w`` and ``b`` as
-    its parameters and ``rm``, ``rv`` themselves as its running
-    statistics (updated in place)."""
-    from subspace_reg_tpu_torch.models.layers import TorchBatchNorm
-    bn = TorchBatchNorm(w.shape[0]).to(w.device).train()
-    with torch.no_grad():
-        bn.weight.copy_(w)
-        bn.bias.copy_(b)
-    bn.running_mean, bn.running_var = rm, rv
-    return bn
-
-
-def k5_chain(bn, x, leaky: bool):
-    """K5's plain twin: the layer's own ops, ``TorchBatchNorm._normalize``
-    then ``leaky_relu`` if ``leaky``."""
-    from subspace_reg_tpu_torch.models.layers import leaky_relu
-    out = bn._normalize(x, None)
-    return leaky_relu(out) if leaky else out
-
-
-def k5_agreement(x, w, b, rm, rv, dy, leaky: bool) -> dict:
-    """K5 through its wrapper ``bn_train`` under autograd, forward and
-    backward, against autograd through its plain twin (the layer's chain)
-    and against the plain backward twin, on the card from the same
-    operands: the elements of each output that differ (all 0: the sums
-    are torch's own reductions on the same tensors, the rest rounds where
-    the chain rounds), the largest absolute difference, and whether y and
-    dx keep x's layout."""
-    from subspace_reg_tpu_torch.ops import bn_train as k5
-    rm_k, rv_k, rm_p, rv_p = rm.clone(), rv.clone(), rm.clone(), rv.clone()
-    xk = x.detach().requires_grad_()
-    wk, bk = w.clone().requires_grad_(), b.clone().requires_grad_()
-    y = k5.bn_train(xk, wk, bk, rm_k, rv_k, 0.1, 1e-5, leaky)
-    mean, e2 = y.grad_fn.saved_tensors[3:5]
-    y.backward(dy)
-    dx, dw, db = xk.grad, wk.grad, bk.grad
-    xg = x.detach().requires_grad_()
-    bn = k5_module(w, b, rm_p, rv_p)
-    yp = k5_chain(bn, xg, leaky)
-    yp.backward(dy)
-    xs = x.float()
-    mean_p, e2_p = xs.mean((0, 2, 3)), (xs * xs).mean((0, 2, 3))
-    dx_t, dw_t, db_t = k5.bn_train_backward_plain(x, dy, mean_p, e2_p, w, b,
-                                                  1e-5, leaky)
-    torch.cuda.synchronize()
-    groups = dict(
-        stats=((mean, mean_p), (e2, e2_p)), y=((y, yp),),
-        running=((rm_k, rm_p), (rv_k, rv_p)), dx=((dx, xg.grad),),
-        dweight=((dw, bn.weight.grad),), dbias=((db, bn.bias.grad),),
-        twin=((dx, dx_t), (dw, dw_t), (db, db_t)))
-    out = {k: sum(int((p != q).sum()) for p, q in pairs)
-           for k, pairs in groups.items()}
-    out["max_abs_err"] = max(
-        float((p.detach().float() - q.detach().float()).abs().max())
-        for pairs in groups.values() for p, q in pairs)
-    out["layout_kept"] = (y.stride() == x.stride()
-                          and dx.stride() == x.stride())
-    return out
-
-
-def k5_agreement_ok(r: dict) -> bool:
-    return r["layout_kept"] and not any(v for k, v in r.items()
-                                        if k != "layout_kept")
 
 
 def k5_bytes(numel: int) -> float:
     """K5's bytes at the bound for one BatchNorm, forward and backward: x
     read and y written, then x and dy read and dx written, bf16."""
     return 2.0 * numel * (2 + 3)
-
-
-@contextlib.contextmanager
-def k5_off():
-    """Inside the block every BatchNorm keeps TorchBatchNorm's own ops (the
-    path before K5), for the module step's before-and-after counts."""
-    from subspace_reg_tpu_torch.ops import bn_train as k5
-    wanted = k5.wanted
-    k5.wanted = lambda *a, **k: False
-    try:
-        yield
-    finally:
-        k5.wanted = wanted
-
-
-def step_launches(step, args_of, steps: int = 5) -> dict:
-    """Host kernel launches per step in each of the step's ranges
-    (``srt.pretrain.gather`` + ``.augment``, ``.forward``, ``.backward``,
-    ``.optimizer``; by start time, from any thread) and the device kernels
-    per step, over ``steps`` profiled steps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
-            step(*args_of(i))
-        torch.cuda.synchronize()
-    phases = {"augment": ("srt.pretrain.gather", "srt.pretrain.augment"),
-              "forward": ("srt.pretrain.forward",),
-              "backward": ("srt.pretrain.backward",),
-              "optimizer": ("srt.pretrain.optimizer",)}
-    events = list(prof.events())
-    launches = sorted(e.time_range.start for e in events
-                      if e.name.startswith(("cudaLaunch", "cuLaunch")))
-    import bisect
-    out = {}
-    for label, names in phases.items():
-        n = 0
-        for e in events:
-            # the host's range (kineto also files a device-side copy)
-            if e.name in names and e.device_type == DeviceType.CPU:
-                n += (bisect.bisect_left(launches, e.time_range.end)
-                      - bisect.bisect_left(launches, e.time_range.start))
-        out[label] = n / steps
-    out["kernels"] = sum(1 for e in events if e.device_type ==
-                         DeviceType.CUDA and e.name not in _TRACER_OVERHEAD
-                         ) / steps
-    return out
-
-
-def phase_k5(dev, reps: int = 20, steps: int = 10):
-    """K5 against its plain twins at the pretraining step's 22 BatchNorm
-    shapes (batch 64, 84 px, each with and without the LeakyReLU, in the
-    layout the step hands it), through the wrapper ``bn_train`` under
-    autograd, rerun bit-identical; per shape the device time of its four
-    launches with torch's four reductions between them (a CUDA graph of
-    the bare calls), the same through the wrapper under autograd, the
-    plain twin's (the layer's chain under autograd, the step's ops before
-    K5) and the library's (``F.batch_norm`` + ``F.leaky_relu`` under
-    autograd), forward and backward, and the bound (bytes); the sums over
-    the step's 22.  Then the module step at full
-    width before K5 (every BatchNorm on TorchBatchNorm's ops) and with it:
-    launches per phase and device kernels per step, ms per step, and the
-    BatchNorm layouts K5 saw (x, and dy before any copy)."""
-    from subspace_reg_tpu_torch.models.layers import TorchBatchNorm
-    from subspace_reg_tpu_torch.ops import bn_train as k5
-    F = torch.nn.functional
-    launches0 = k5.bn_train.launches
-    tot = dict(ms=0.0, wrapper_ms=0.0, bound_ms=0.0, plain_ms=0.0,
-               library_ms=0.0)
-    worst = {}
-    shapes = []
-    for name, c, hw, n_leaky, n_plain, layout in K5_SHAPES:
-        for leaky, count in ((True, n_leaky), (False, n_plain)):
-            x, w, b, rm, rv, dy = k5_case(c, hw, BATCH, layout, dev)
-            r = k5_agreement(x, w, b, rm, rv, dy, leaky)
-            print(f"[kernels] K5 {name} C {c} {hw}x{hw} {layout} leaky "
-                  f"{int(leaky)}: elements that differ {r}")
-            check(k5_agreement_ok(r), f"K5 {name} leaky {leaky}: {r}")
-            for key, v in r.items():
-                if key != "layout_kept":
-                    worst[key] = max(worst.get(key, 0), v)
-            xg = x.detach().requires_grad_()
-            wg, bg = w.clone().requires_grad_(), b.clone().requires_grad_()
-
-            def bare():
-                # the kernels and torch's reductions between them, without
-                # the autograd function (a CUDA graph of them)
-                y, mean, e2 = k5._k5_forward(x, w, b, rm, rv, 0.1, 1e-5,
-                                             leaky)
-                k5._k5_backward(x, dy, mean, e2, w, b, 1e-5, leaky)
-
-            def fwd_bwd():
-                y = k5.bn_train(xg, wg, bg, rm, rv, 0.1, 1e-5, leaky)
-                torch.autograd.grad(y, (xg, wg, bg), dy)
-
-            outs = []
-            for _ in range(2):
-                rm1, rv1 = rm.clone(), rv.clone()
-                xr = x.detach().requires_grad_()
-                wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
-                y = k5.bn_train(xr, wr, br, rm1, rv1, 0.1, 1e-5, leaky)
-                y.backward(dy)
-                outs.append((y, xr.grad, wr.grad, br.grad, rm1, rv1))
-            check(all(torch.equal(p, q) for p, q in zip(*outs)),
-                  f"K5 {name} leaky {leaky}: a rerun differs")
-            ms = graph_ms(bare)
-            wrapper_ms = cuda_ms(fwd_bwd, reps)
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    fwd_bwd()
-                torch.cuda.synchronize()
-            _, _, by_name = kernel_breakdown(prof, [])
-            print(f"[kernels] K5 {name} leaky {int(leaky)} device us a "
-                  "BatchNorm by kernel: " + ", ".join(
-                      f"{n[:60]} {us / 5:.1f}" for n, us in sorted(
-                          by_name.items(), key=lambda kv: -kv[1])))
-            same = torch.equal(x.float().mean((0, 2, 3)),
-                               x.mean((0, 2, 3), dtype=torch.float32))
-            print(f"[kernels] K5 {name}: mean(x, dtype=f32) bit-identical "
-                  f"to mean(f32(x)): {same}")
-
-            bn = k5_module(w, b, rm, rv)
-
-            def plain():
-                # the twin: the layer's chain under autograd, the step's
-                # ops before K5
-                torch.autograd.grad(k5_chain(bn, xg, leaky),
-                                    (xg, bn.weight, bn.bias), dy)
-
-            plain_ms = cuda_ms(plain, reps)
-
-            def library():
-                y = F.batch_norm(xg, rm, rv, wg, bg, True, 0.1, 1e-5)
-                if leaky:
-                    y = F.leaky_relu(y, 0.1)
-                torch.autograd.grad(y, (xg, wg, bg), dy)
-
-            library_ms = cuda_ms(library, reps)
-            bound = 1e3 * k5_bytes(x.numel()) / HBM_BYTES_PER_S
-            row = dict(shape=name, c=c, hw=hw, layout=layout, leaky=leaky,
-                       count=count, ms=ms, wrapper_ms=wrapper_ms,
-                       bound_ms=bound, plain_ms=plain_ms,
-                       library_ms=library_ms)
-            shapes.append(row)
-            print(f"[kernels] K5 {name} leaky {int(leaky)} x{count}: "
-                  f"kernels {ms:.4f} ms ({100 * bound / ms:.1f}% of the "
-                  f"bound {bound:.4f}), through the wrapper "
-                  f"{wrapper_ms:.4f}, plain {plain_ms:.4f}, F.batch_norm "
-                  f"{library_ms:.4f}")
-            for key in tot:
-                tot[key] += count * row[key]
-            del x, dy, xg, bn
-    print(f"[kernels] K5 the step's 22 BatchNorms, forward and backward: "
-          f"kernels {tot['ms']:.3f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}"
-          f"% of the bound {tot['bound_ms']:.3f}), through the wrapper "
-          f"{tot['wrapper_ms']:.3f}, plain {tot['plain_ms']:.3f}, "
-          f"F.batch_norm {tot['library_ms']:.3f}; worst {worst}")
-    # the module step before and with K5
-    data, labels = pretrain_data(dev)
-    bb = pretrain_backbone()
-    r = np.random.RandomState(5)
-    batches = [torch.from_numpy(r.randint(0, len(labels), BATCH)).to(dev)
-               for _ in range(steps)]
-    seen = []
-    backward = k5._k5_backward
-
-    def recording(x, dy, *rest):
-        seen.append((k5._is_cl(x), dy.is_contiguous(
-            memory_format=torch.channels_last), dy.is_contiguous()))
-        return backward(x, dy, *rest)
-
-    step_row = {}
-    for label in ("before", "with K5", "before", "with K5"):
-        off = label == "before"
-        st = pretrain_state(bb, dev)
-        step = pretrain_step(st, dev, False)
-        ctx = k5_off() if off else contextlib.nullcontext()
-        with ctx:
-            for i in range(3):
-                step(st, data, labels, batches[i])
-            torch.cuda.synchronize()
-            k0, t0 = TorchBatchNorm.kernel_forwards, time.time()
-            for i in range(steps):
-                m = step(st, data, labels, batches[i])
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.time() - t0) / steps
-            kf = TorchBatchNorm.kernel_forwards - k0
-            k5._k5_backward = recording
-            try:
-                counts = step_launches(
-                    lambda *a: step(*a),
-                    lambda i: (st, data, labels, batches[i]), 5)
-            finally:
-                k5._k5_backward = backward
-        check(math.isfinite(float(m["loss"])), f"module step {label}: loss")
-        check(kf == (0 if off else 22 * steps),
-              f"module step {label}: {kf} K5 forwards in {steps} steps")
-        step_row.setdefault(label, []).append(dict(ms=ms, **counts))
-        print(f"[kernels] K5 module step {label}: {ms:.3f} ms/step, "
-              f"launches per step {counts}")
-    kinds = sorted(set(seen))
-    print(f"[kernels] K5 backward layouts (x channels_last, dy "
-          f"channels_last, dy NCHW): {kinds}")
-    launches = k5.bn_train.launches - launches0
-    return dict(name="bn_train", route="cuda",
-                source="subspace_reg_tpu_torch/csrc/bn_train.cu",
-                replaces=None, launches=None, launches_in_phase=launches,
-                max_abs_err=worst["max_abs_err"], worst=worst,
-                ms=tot["ms"], wrapper_ms=tot["wrapper_ms"],
-                plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-                bound_by="bytes", library_ms=tot["library_ms"],
-                shapes=shapes, module_step=step_row,
-                dy_layouts=[list(k) for k in kinds])
 
 
 def library_kernels(fn) -> list:
@@ -1479,13 +343,150 @@ def k3_bytes(y3) -> int:
     return 2 * n_in * 2 + 4 * c * 4 + (n_in // 4) * 3
 
 
-def phase_k3(dev, shapes=K3_SHAPES, edges: bool = True,
-             launch_gap_ms: float = 0.0):
-    """K3 against its plain version, bit for bit, at the edge shapes
-    (``edges``) and at both shapes of the fused step (``shapes``: the
-    84 px step's, or CIFAR's at 32 px, where ``launch_gap_ms`` allows the
-    graph's gaps between launches; random and with ties, and a rerun);
-    then per step shape: the kernel alone (outputs allocated once, bare
+def roofline_ms(flops: float, nbytes: float, dtype: str = "bf16"):
+    """The larger of operations at ``dtype``'s dense peak and bytes at the
+    HBM rate (the benchmark's constants), in ms, and which of the two it
+    is."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations"
+    return 1e3 * t_bytes, "bytes"
+
+
+def k1_roofline(ops, cfg, epochs: int):
+    """K1's bound for one launch of ``epochs`` epochs (the first is the
+    engine's, outside the loop), by the benchmark's operation and byte
+    counts."""
+    d = ops["w"].shape[1]
+    flops = (epochs - 1) * k1_epoch_flops(cfg.n_sup, cfg.mem_count,
+                                          cfg.n_active, d, cfg.n_ways)
+    nbytes = k1_bytes(cfg.n_sup, ops["f_mem"].shape[0], ops["w"].shape[0],
+                      d, cfg.trace_rows)
+    return roofline_ms(flops, nbytes, "f32")
+
+
+def phase_k1(dev):
+    """K1 at the golden run's 1000 epochs (random weights never meet the
+    stable rule), at the last session's shapes on miniImageNet (100
+    classes, 185 support and 175 of 200 replay rows) and on
+    tieredImageNet (391 classes, 476 and 175 rows): the launch checked
+    against the plain version (``check_k1_matches_plain``; the accuracies
+    of up to 10 epochs a support row off), its time, the plain version's
+    and the bound; then the seed-batched launch at S = 10 (seeds 0..9),
+    its seed 0 checked against the plain version too, beside 10
+    single-seed launches on all SMs back to back, and the bound."""
+    from subspace_reg_tpu_torch.ops import finetune as ft
+    p = ft.k1_blocks(dev)
+    print(f"[kernels] K1 grid: P = {p} blocks of {ft.K1_THREADS} threads "
+          f"(one per SM)")
+    row = dict(name="finetune_loop", route="cuda",
+               source="subspace_reg_tpu_torch/csrc/finetune_loop.cu",
+               replaces="subspace_reg_tpu/ops/pallas/finetune.py:352",
+               launches=None, library_ms=None, blocks=p)
+    n_seeds = 10
+    for tag, orig_base in (("", 60), ("tiered_", TIERED_BASE)):
+        ops, cfg = k1_case("sgd", dev, max_epochs=1000,
+                           stable_target=10 ** 6, orig_base=orig_base)
+        ep = check_k1_matches_plain(ops, cfg, ft.finetune_loop(**ops, cfg=cfg),
+                                    acc_flips=10)
+        check(ep == 1000, f"K1 at {orig_base} base classes ran {ep} of "
+              "1000 epochs")
+        ms = cuda_ms(lambda: ft.finetune_loop(**ops, cfg=cfg), 3)
+        plain_ms = cuda_ms(lambda: ft.finetune_loop_plain(**ops, cfg=cfg), 1)
+        bound_ms, bound_by = k1_roofline(ops, cfg, ep)
+        stacked, per, cfg = k1_seed_case("sgd", dev, n_seeds, max_epochs=1000,
+                                         stable_target=10 ** 6,
+                                         orig_base=orig_base)
+        out = ft._launch_seeds(stacked, cfg)
+        check_k1_matches_plain(per[0], cfg, tuple(t[0] for t in out),
+                               acc_flips=10)
+        seeds_ms = cuda_ms(lambda: ft._launch_seeds(stacked, cfg), 2)
+        seq_ms = cuda_ms(lambda: [ft._launch(o, cfg) for o in per], 1)
+        seeds_bound = sum(k1_roofline(o, cfg, ep)[0] for o in per)
+        us_epoch = 1e3 * ms / (ep - 1)
+        print(f"[kernels] K1 {cfg.n_active} classes, {cfg.n_sup} + "
+              f"{cfg.mem_count} rows, {ep - 1} epochs/launch: kernel "
+              f"{ms:.3f} ms ({us_epoch:.2f} us/epoch), plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.2f}% of the bound; seed-batched "
+              f"S={n_seeds} (G={p // n_seeds}) {seeds_ms:.3f} ms "
+              f"({1e3 * seeds_ms / (ep - 1) / n_seeds:.2f} us per "
+              f"seed-epoch) against {seq_ms:.3f} ms for {n_seeds} "
+              f"single-seed launches ({seq_ms / seeds_ms:.2f}x); bound "
+              f"{seeds_bound:.4f} ms, {100 * seeds_bound / seeds_ms:.2f}% "
+              "of it")
+        row.update({tag + k: v for k, v in dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            us_per_epoch=us_epoch, seeds_ms=seeds_ms,
+            seeds_sequential_ms=seq_ms, seeds_bound_ms=seeds_bound).items()})
+    row.update(epochs_per_launch=ep - 1, seeds=n_seeds)
+    return row
+
+
+def phase_k2(shapes=K2_SHAPES):
+    """K2 at every shape of the fused step (batch 64; ``shapes``: the 84 px
+    step's, or CIFAR's at 32 px): each checked against the plain version
+    (``k2_agreement``: y within 1 bf16 ulp at no less than 2^-8 of its
+    summed |terms|, at most 0.1% of elements differing, the statistics to
+    1e-4), then CUDA-event times of the wrapper call,
+    the plain version and the one-call yardstick ``F.conv2d`` in bf16
+    channels_last (the convolution alone, without prologue or
+    statistics), and the bound; its row sums each time over one step's
+    launches (conv1 once and conv2/conv3 twice per stage)."""
+    from subspace_reg_tpu_torch.ops import conv_fused as cf
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    k2 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+              shapes=[])
+    ops_ms = bytes_ms = 0.0
+    for name, cin, cout, hw, pro in shapes:
+        x, w, aff = k2_case(cin, cout, hw, pro, dev)
+        _, _, ulps, share, st_err, _ = k2_agreement(x, w, aff, pro)
+        check(ulps <= 1.0 and share <= 1e-3 and st_err <= 1e-4,
+              f"K2 {name}: {ulps} ulps, {share} of the elements differ, "
+              f"statistics {st_err} from its plain version")
+        wb = w.to(torch.bfloat16)
+        ms = cuda_ms(lambda: cf.conv3x3_fused(x, w, aff, relu_in=pro), 20)
+        plain_ms = cuda_ms(
+            lambda: cf.conv3x3_fused_plain(x, w, aff, relu_in=pro), 5)
+        lib_ms = cuda_ms(lambda: F.conv2d(x, wb, padding=1), 20)
+        b = x.shape[0]
+        flops = 2.0 * b * hw * hw * cout * cin * 9
+        nbytes = (x.numel() * 2 + w.numel() * 4 + b * cout * hw * hw * 2
+                  + (2 * cin * 4 if pro else 0) + 2 * cout * 4)
+        bound, by = roofline_ms(flops, nbytes)
+        reps = 1 if cin == 3 or name.endswith("64->160") else 2
+        print(f"[kernels] K2 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+              f" ms, F.conv2d bf16 {lib_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}); {100 * bound / ms:.1f}% of the bound, "
+              f"{ms / lib_ms:.2f}x F.conv2d; {reps} launch(es) per step")
+        k2["shapes"].append(dict(shape=name, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=bound,
+                                 bound_by=by, bound_share=bound / ms,
+                                 vs_library=ms / lib_ms))
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound)):
+            k2[key] += reps * v
+        ops_ms += reps * 1e3 * flops / PEAK_FLOPS["bf16"]
+        bytes_ms += reps * 1e3 * nbytes / HBM_BYTES_PER_S
+    # the step's launches each take at least their own bound; the row
+    # names the class that bounds most of their sum
+    k2["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"[kernels] K2 per step: kernel {k2['ms']:.4f} ms, bound "
+          f"{k2['bound_ms']:.4f} ms ({100 * k2['bound_ms'] / k2['ms']:.1f}%),"
+          f" F.conv2d {k2['library_ms']:.4f} ms "
+          f"({k2['ms'] / k2['library_ms']:.2f}x)")
+    return dict(name="conv3x3_fused", route="cuda",
+                source="subspace_reg_tpu_torch/csrc/conv3x3_fused.cu",
+                replaces="subspace_reg_tpu/ops/pallas/conv_fused.py:168",
+                launches=None, **k2)
+
+
+def phase_k3(dev, shapes=K3_SHAPES, launch_gap_ms: float = 0.0):
+    """K3 at both shapes of the fused step (``shapes``: the 84 px step's,
+    or CIFAR's at 32 px, where ``launch_gap_ms`` allows the graph's gaps
+    between launches): bit-identical to the plain version
+    (``k3_agreement``), then the kernel alone (outputs allocated once, bare
     launches in a CUDA graph; cross-checked with torch.profiler), the
     wrapper call, the plain version, the bytes bound, the share of it and
     the effective GB/s, beside a device-to-device copy of the shape's y3
@@ -1493,30 +494,12 @@ def phase_k3(dev, shapes=K3_SHAPES, edges: bool = True,
     two launches; its copy is stage 1's."""
     from subspace_reg_tpu_torch.ops import conv_fused as cf
     k3 = dict(ms=0.0, wrapper_ms=0.0, profiler_ms=0.0, plain_ms=0.0,
-              bound_ms=0.0, max_abs_err=0.0, shapes=[])
-    for name, c, h, w, batch in K3_EDGE_SHAPES if edges else ():
-        for ties in (False, True):
-            ops = k3_case(c, h, w, dev, ties=ties, batch=batch)
-            _, _, same, err = k3_agreement(ops)
-            print(f"[kernels] K3 edge {name}{' ties' if ties else ''}: "
-                  f"bit-identical {same}")
-            check(same, f"K3 edge {name} (ties={ties}) differs from plain")
-            k3["max_abs_err"] = max(k3["max_abs_err"], err)
+              bound_ms=0.0, shapes=[])
     nbytes_all = 0
     for name, c, hw in shapes:
-        for ties in (False, True):
-            ops = k3_case(c, hw, hw, dev, ties=ties)
-            out, idx, same, err = k3_agreement(ops)
-            print(f"[kernels] K3 {name}{' ties' if ties else ''}: "
-                  f"bit-identical {same}")
-            check(same, f"K3 {name} (ties={ties}) differs from plain")
-            k3["max_abs_err"] = max(k3["max_abs_err"], err)
-        out2, idx2 = cf.block_tail(*ops)
-        same = torch.equal(out.view(torch.int16), out2.view(
-            torch.int16)) and torch.equal(idx, idx2)
-        print(f"[kernels] K3 {name}: rerun bit-identical {same}")
-        check(same, f"K3 {name}: a rerun differs")
         ops = k3_case(c, hw, hw, dev)
+        check(k3_agreement(ops)[2],
+              f"K3 {name}: not bit-identical to its plain version")
         vecs, out, idx = cf._k3_operands(*ops)
 
         def bare():
@@ -1572,6 +555,157 @@ def phase_k3(dev, shapes=K3_SHAPES, edges: bool = True,
                 launches=None, library_ms=None, **k3)
 
 
+def phase_k4(dev, rows=K4_ROWS):
+    """K4 at every convolution of the evaluation's forward at each of its
+    batch sizes: CUDA-event times of the kernel, its bound (operations at
+    the f32 peak), the plain version (at 1000 rows, where the kernel's
+    output is checked against it within ``K4_TOL`` of its largest) and the
+    yardstick
+    ``F.conv2d`` f32 with TF32 off on the NCHW input the evaluation used
+    to hand it, with the kernels cuDNN ran for it (torch.profiler); per
+    forward, the sums over its 22 convolutions."""
+    from subspace_reg_tpu_torch.ops import conv_f32 as k4
+    F = torch.nn.functional
+    per_rows = {}
+    shapes = []
+    plain_ms = 0.0
+    for batch in rows:
+        tot = dict(ms=0.0, bound_ms=0.0, library_ms=0.0)
+        for name, cin, cout, hw, r, count in K4_SHAPES:
+            x, wt = k4_case(cin, cout, hw, hw, r, batch, dev)
+            plan = k4.conv_f32_plan(batch * hw * hw, cout, -(-cin // 4) * 4,
+                                    k4._sm_count(dev), k4._occupancy(dev))
+            reps = max(3, min(50, int(2e10 / k4_flops(batch, cin, cout,
+                                                       hw, r))))
+            ms = cuda_ms(lambda: k4.conv_f32(x, wt), reps)
+            xn = x.contiguous()
+            lib_ms = cuda_ms(lambda: F.conv2d(xn, wt, padding=r // 2), reps)
+            bound, _ = roofline_ms(k4_flops(batch, cin, cout, hw, r), 0.0,
+                                   "f32")
+            row = dict(rows=batch, shape=name, ms=ms, bound_ms=bound,
+                       library_ms=lib_ms, tile=(plan.bm, plan.bn),
+                       grid=plan.grid, tiles=plan.tiles)
+            if batch == max(rows):
+                plain = k4.conv_f32_plain(x, wt)
+                gap = float((k4.conv_f32(x, wt) - plain).abs().max()
+                            / plain.abs().max())
+                check(gap <= K4_TOL, f"K4 {name} at {batch} rows: "
+                      f"{gap:.2e} of the largest output from its plain "
+                      "version")
+                del plain
+                row["plain_ms"] = cuda_ms(lambda: k4.conv_f32_plain(x, wt),
+                                          2)
+                plain_ms += count * row["plain_ms"]
+                row["library_kernels"] = library_kernels(
+                    lambda: F.conv2d(xn, wt, padding=r // 2))
+            shapes.append(row)
+            print(f"[kernels] K4 {name} x{count} at {batch} rows: kernel "
+                  f"{ms:.4f} ms ({100 * bound / ms:.1f}% of the bound "
+                  f"{bound:.4f}), F.conv2d {lib_ms:.4f} ms "
+                  f"({lib_ms / ms:.2f}x), tile {plan.bm}x{plan.bn}, grid "
+                  f"{plan.grid} over {plan.tiles} tiles"
+                  + (f", plain {row['plain_ms']:.3f} ms, cuDNN ran "
+                     f"{row['library_kernels']}" if "plain_ms" in row
+                     else ""))
+            for key in tot:
+                tot[key] += count * row[key]
+            del x
+        per_rows[batch] = tot
+        print(f"[kernels] K4 forward at {batch} rows: kernels "
+              f"{tot['ms']:.3f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}%"
+              f" of the bound {tot['bound_ms']:.3f}), F.conv2d "
+              f"{tot['library_ms']:.3f} ms ({tot['library_ms'] / tot['ms']:.2f}x)")
+    big = per_rows[max(rows)]
+    return dict(name="conv_f32", route="cuda",
+                source="subspace_reg_tpu_torch/csrc/conv_f32.cu",
+                replaces=None, launches=None, ms=big["ms"],
+                plain_ms=plain_ms, bound_ms=big["bound_ms"],
+                bound_by="operations", library_ms=big["library_ms"],
+                rows=max(rows), per_rows=per_rows, shapes=shapes)
+
+
+def phase_k5(dev, reps: int = 20):
+    """K5 at the pretraining step's 22 BatchNorm shapes (batch 64, 84 px,
+    each with and without the LeakyReLU, in the layout the step hands
+    it): per shape the agreement (``k5_agreement``: bit-identical to the
+    plain chain under autograd, to the plain backward twin and to a
+    rerun), the device time of its four launches with torch's four
+    reductions between them (a CUDA graph of the bare calls), the same
+    through the wrapper ``bn_train`` under autograd, the plain twin's (the
+    layer's chain under autograd, the step's ops before K5) and the
+    library's (``F.batch_norm`` + ``F.leaky_relu`` under autograd),
+    forward and backward, and the bound (bytes); the sums over the step's
+    22."""
+    from subspace_reg_tpu_torch.ops import bn_train as k5
+    F = torch.nn.functional
+    tot = dict(ms=0.0, wrapper_ms=0.0, bound_ms=0.0, plain_ms=0.0,
+               library_ms=0.0)
+    shapes = []
+    for name, c, hw, n_leaky, n_plain, layout in K5_SHAPES:
+        for leaky, count in ((True, n_leaky), (False, n_plain)):
+            x, w, b, rm, rv, dy = k5_case(c, hw, BATCH, layout, dev)
+            r = k5_agreement(x, w, b, rm, rv, dy, leaky)
+            check(k5_agreement_ok(r), f"K5 {name} leaky {int(leaky)}: {r}")
+            xg = x.detach().requires_grad_()
+            wg, bg = w.clone().requires_grad_(), b.clone().requires_grad_()
+
+            def bare():
+                # the kernels and torch's reductions between them, without
+                # the autograd function (a CUDA graph of them)
+                y, mean, e2 = k5._k5_forward(x, w, b, rm, rv, 0.1, 1e-5,
+                                             leaky)
+                k5._k5_backward(x, dy, mean, e2, w, b, 1e-5, leaky)
+
+            def fwd_bwd():
+                y = k5.bn_train(xg, wg, bg, rm, rv, 0.1, 1e-5, leaky)
+                torch.autograd.grad(y, (xg, wg, bg), dy)
+
+            ms = graph_ms(bare)
+            wrapper_ms = cuda_ms(fwd_bwd, reps)
+            bn = k5_module(w, b, rm, rv)
+
+            def plain():
+                # the twin: the layer's chain under autograd, the step's
+                # ops before K5
+                torch.autograd.grad(k5_chain(bn, xg, leaky),
+                                    (xg, bn.weight, bn.bias), dy)
+
+            plain_ms = cuda_ms(plain, reps)
+
+            def library():
+                y = F.batch_norm(xg, rm, rv, wg, bg, True, 0.1, 1e-5)
+                if leaky:
+                    y = F.leaky_relu(y, 0.1)
+                torch.autograd.grad(y, (xg, wg, bg), dy)
+
+            library_ms = cuda_ms(library, reps)
+            bound, _ = roofline_ms(0.0, k5_bytes(x.numel()))
+            row = dict(shape=name, c=c, hw=hw, layout=layout, leaky=leaky,
+                       count=count, ms=ms, wrapper_ms=wrapper_ms,
+                       bound_ms=bound, plain_ms=plain_ms,
+                       library_ms=library_ms)
+            shapes.append(row)
+            print(f"[kernels] K5 {name} leaky {int(leaky)} x{count}: "
+                  f"kernels {ms:.4f} ms ({100 * bound / ms:.1f}% of the "
+                  f"bound {bound:.4f}), through the wrapper "
+                  f"{wrapper_ms:.4f}, plain {plain_ms:.4f}, F.batch_norm "
+                  f"{library_ms:.4f}")
+            for key in tot:
+                tot[key] += count * row[key]
+            del x, dy, xg, bn
+    print(f"[kernels] K5 the step's 22 BatchNorms, forward and backward: "
+          f"kernels {tot['ms']:.3f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}"
+          f"% of the bound {tot['bound_ms']:.3f}), through the wrapper "
+          f"{tot['wrapper_ms']:.3f}, plain {tot['plain_ms']:.3f}, "
+          f"F.batch_norm {tot['library_ms']:.3f}")
+    return dict(name="bn_train", route="cuda",
+                source="subspace_reg_tpu_torch/csrc/bn_train.cu",
+                replaces=None, launches=None, ms=tot["ms"],
+                wrapper_ms=tot["wrapper_ms"], plain_ms=tot["plain_ms"],
+                bound_ms=tot["bound_ms"], bound_by="bytes",
+                library_ms=tot["library_ms"], shapes=shapes)
+
+
 # --------------------------------------------------------------------------
 # the engine
 # --------------------------------------------------------------------------
@@ -1587,52 +721,11 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def _engine_inputs(opt):
-    """The samplers and the base-test split of the synthetic sets (10
-    training and 2 validation images a base class)."""
-    from subspace_reg_tpu_torch.data.episodes import EpisodeSampler
-    from subspace_reg_tpu_torch.data.mini_imagenet import load_mini_imagenet
-
-    def split(**kw):
-        return load_mini_imagenet(opt, train_per_class=10, val_per_class=2,
-                                  **kw)
-    base_test = split(split="train", phase="test")
-    base_train = split(split="train", phase="train")
-    novel = split(split="val")
-    return dict(meta_sampler=EpisodeSampler(novel, opt, split="val",
-                                            disjoint_classes=True),
-                base_test_split=base_test,
-                base_support_sampler=EpisodeSampler(
-                    base_train, opt, split="train", phase="train"))
-
-
-def _run_engine(root, opt, backbone, head, device, draws=None,
-                verbose=True, meta=None):
-    from subspace_reg_tpu_torch.engine.incremental import (
-        few_shot_finetune_incremental_test)
-    return few_shot_finetune_incremental_test(
-        backbone, head, meta or {}, opt, **_engine_inputs(opt),
-        verbose=verbose, device=device, draws=draws)
-
-
 # the paper's pulls beside the golden subspace regularizer: the semantic
 # subspace regularizer (--label_pull with the override unset: attractors
 # from the word embeddings) and the linear label->image mapping (on the
 # 300-d GloVe slice)
 CONFIGS = ("subspace", "semantic", "mapping")
-
-
-def config_argv(config: str, data_root: str):
-    """The golden flags for ``config``, with the synthetic word embeds."""
-    argv = list(GOLDEN_ARGV)
-    i = argv.index("--attraction_override")
-    if config == "semantic":
-        del argv[i:i + 2]
-    elif config == "mapping":
-        argv[i + 1] = "mapping_linear_label2image"
-        argv.append("--glove")
-    return argv + ["--data_root", data_root, "--word_embed_path",
-                   f"{data_root}/word_embeds"]
 
 
 def config_meta(config: str, feat: int, seed: int = 4):
@@ -1646,45 +739,6 @@ def config_meta(config: str, feat: int, seed: int = 4):
         "bias": (0.01 * r.randn(feat)).astype(np.float32)}}
 
 
-def _golden_opt(data_root, *extra, config: str = "subspace"):
-    from subspace_reg_tpu_torch.config import parse_option_eval
-    return parse_option_eval(config_argv(config, data_root) + list(extra))
-
-
-SMALL_WIDTHS = (8, 16, 24, 80)
-SMALL_ARGS = ("--n_queries", "4", "--test_base_batch_size", "200",
-              "--max_novel_epochs", "30", "--min_novel_epochs", "5",
-              "--stable_epochs", "3", "--convergence_epsilon", "1e-2",
-              "--learning_rate", "0.01")
-
-
-def small_data(tmp):
-    """Synthetic miniImageNet at 16 px (100 classes x 20 images) and its
-    word embeds."""
-    from subspace_reg_tpu_torch.data import synthetic
-    root = f"{tmp}/small"
-    synthetic.make_mini_imagenet(f"{root}/miniImageNet", n_classes=100,
-                                 per_class=20, img_size=16, seed=0)
-    synthetic.make_word_embeds(f"{root}/word_embeds")
-    return root
-
-
-def small_model(seed: int = 1, n_base: int = 60, drop_rate: float = 0.0):
-    """A narrow backbone and its head over ``n_base`` classes (room for 8
-    sessions of 5), drawn from ``seed``; the last stage is 80 wide, or 96
-    above 60 base classes, so the subspace pull is not vacuous."""
-    from subspace_reg_tpu_torch.models.head import init_head
-    from subspace_reg_tpu_torch.models.resnet import ResNetRFS
-    widths = SMALL_WIDTHS[:3] + (max(SMALL_WIDTHS[-1], n_base + 16),)
-    torch.manual_seed(seed)
-    backbone = ResNetRFS(n_blocks=(1, 1, 1, 1), drop_rate=drop_rate,
-                         no_dropblock=True, widths=widths)
-    head = init_head(n_base, widths[-1], with_bias=False,
-                     max_classes=n_base + 8 * 5,
-                     generator=torch.Generator().manual_seed(seed + 1))
-    return backbone, head
-
-
 def phase_agree(tmp):
     """Engine on the card vs the same engine on the CPU, small size, for
     the subspace, semantic and mapping configurations: epochs exact,
@@ -1693,12 +747,12 @@ def phase_agree(tmp):
     root = small_data(tmp)
     backbone, head = small_model()
     for config in CONFIGS:
-        opt = _golden_opt(root, *SMALL_ARGS, "--set_seed", "3",
-                          config=config)
+        opt = golden_opt(root, *SMALL_ARGS, "--set_seed", "3",
+                         config=config)
         meta = config_meta(config, SMALL_WIDTHS[-1])
-        res = {dev: _run_engine(root, opt, backbone, head, dev,
-                                draws=TorchDraws(opt.set_seed, "cpu"),
-                                verbose=False, meta=meta)
+        res = {dev: run_engine(root, opt, backbone, head, dev,
+                               draws=TorchDraws(opt.set_seed, "cpu"),
+                               verbose=False, meta=meta)
                for dev in ("cuda", "cpu")}
         g, c = res["cuda"], res["cpu"]
         print(f"[agree] {config}: epochs card {g.epochs_per_session} cpu "
@@ -1729,7 +783,7 @@ def phase_main(tmp, counters):
     synthetic.make_mini_imagenet(f"{root}/miniImageNet", n_classes=100,
                                  per_class=40, img_size=84, seed=0)
     synthetic.make_word_embeds(f"{root}/word_embeds")
-    opt = _golden_opt(root)
+    opt = golden_opt(root)
     torch.manual_seed(0)
     backbone = create_model(opt.model, opt, dataset=opt.dataset)
     head = init_head(60, backbone.feature_dim, with_bias=False,
@@ -1740,7 +794,7 @@ def phase_main(tmp, counters):
     from subspace_reg_tpu_torch.ops.conv_f32 import conv_f32
     out_launches = None
     for config in CONFIGS:
-        opt = _golden_opt(root, config=config)
+        opt = golden_opt(root, config=config)
         tee = _Tee(sys.stdout)
         old = sys.stdout
         for c in counters:
@@ -1748,19 +802,14 @@ def phase_main(tmp, counters):
         conv_f32.launches = 0
         sys.stdout = tee
         try:
-            t0 = time.time()
-            res = _run_engine(root, opt, backbone, head, "cuda",
-                              meta=config_meta(config, backbone.feature_dim))
-            torch.cuda.synchronize()
-            wall = time.time() - t0
+            res = run_engine(root, opt, backbone, head, "cuda",
+                             meta=config_meta(config, backbone.feature_dim))
         finally:
             sys.stdout = old
         launches = {c.__name__: c.launches for c in counters}
         out = tee.buf.getvalue()
-        print(f"[main] {config}: 8-session run {wall:.2f} s; per-session "
-              f"seconds {[round(s, 4) for s in res.session_seconds]}; "
-              f"epochs {res.epochs_per_session}; launches {launches}, "
-              f"conv_f32 {conv_f32.launches}")
+        print(f"[main] {config}: epochs {res.epochs_per_session}; launches "
+              f"{launches}, conv_f32 {conv_f32.launches}")
         check(conv_f32.launches == K4_EVAL_LAUNCHES,
               f"{config}: K4 launched {conv_f32.launches} times, expected "
               f"{K4_EVAL_LAUNCHES}")
@@ -1790,38 +839,11 @@ def phase_main(tmp, counters):
         if config == "subspace":
             out_launches = dict(launches, conv_f32=conv_f32.launches)
             run = (root, opt, backbone, head)
-            golden = dict(res=res, wall=wall)
+            golden = res
     return out_launches, run, golden
 
 
 MULTI_SEEDS = (1, 2, 3)
-
-
-def write_continual_mini(root: str, per_class: int = 560, img: int = 84,
-                         n_classes: int = 100, seed: int = 0) -> None:
-    """``all.pickle`` + ``class_labels.txt`` in the layout of
-    data/synthetic.py::make_mini_imagenet (class-coloured uint8 noise),
-    with the 560 images a class that the CLIs' 500/50 continual split
-    needs, made class by class to bound the host memory."""
-    import os
-    import pickle
-    os.makedirs(root, exist_ok=True)
-    r = np.random.RandomState(seed)
-    colors = r.randint(30, 226, size=(n_classes, 3))
-    imgs = np.empty((n_classes * per_class, img, img, 3), np.uint8)
-    for c in range(n_classes):
-        noise = r.randint(-25, 26, size=(per_class, img, img, 3),
-                          dtype=np.int16)
-        imgs[c * per_class:(c + 1) * per_class] = np.clip(colors[c] + noise,
-                                                          0, 255)
-    cats = {f"n{900000 + i:08d}": i for i in range(n_classes)}
-    with open(f"{root}/all.pickle", "wb") as f:
-        pickle.dump({"data": imgs, "labels": np.repeat(
-            np.arange(n_classes), per_class).tolist(),
-            "catname2label": cats}, f, protocol=4)
-    with open(f"{root}/class_labels.txt", "w") as f:
-        for cat, lbl in cats.items():
-            f.write(f"{cat} synthetic_{lbl}\n")
 
 
 def training_classes(data_root: str, seed: int):
@@ -1829,7 +851,7 @@ def training_classes(data_root: str, seed: int):
     as the split draws them: the ``training_classes`` that pretraining on
     them writes."""
     from subspace_reg_tpu_torch.data.mini_imagenet import load_mini_imagenet
-    opt = _golden_opt(data_root, "--set_seed", str(seed))
+    opt = golden_opt(data_root, "--set_seed", str(seed))
     return load_mini_imagenet(opt, split="train", phase="test",
                               lazy=True).basec_map
 
@@ -1943,17 +965,17 @@ def phase_multiseed(tmp, counters, small_root):
           f"without an original label {unmapped}")
 
     seeds = (3, 4, 5)
-    opts = [_golden_opt(small_root, *SMALL_ARGS, "--set_seed", str(s))
+    opts = [golden_opt(small_root, *SMALL_ARGS, "--set_seed", str(s))
             for s in seeds]
     models = [small_model(10 + i) for i in range(len(seeds))]
-    ins = [_engine_inputs(o) for o in opts]
+    ins = [engine_inputs(o) for o in opts]
     ms = few_shot_finetune_multiseed(
         [m[0] for m in models], [m[1] for m in models], [{}] * len(seeds),
         opts, [x["meta_sampler"] for x in ins],
         [x["base_test_split"] for x in ins],
         [x["base_support_sampler"] for x in ins], device="cuda")
     for s, opt, (bb, head), got in zip(seeds, opts, models, ms.per_seed):
-        want = _run_engine(small_root, opt, bb, head, "cuda", verbose=False)
+        want = run_engine(small_root, opt, bb, head, "cuda", verbose=False)
         print(f"[multiseed] small, seed {s}: epochs multi "
               f"{got.epochs_per_session} single {want.epochs_per_session}")
         check(got.epochs_per_session == want.epochs_per_session,
@@ -1969,15 +991,6 @@ def phase_multiseed(tmp, counters, small_root):
                 multiseed_seed_loops=launches["seed_loops"])
 
 
-# kernel-name fragments of cuDNN's convolution kernels (implicit GEMM and
-# FFT algorithms) in the profiler's device events
-_CONV_MARKS = ("conv", "xmma", "fft", "pointwise_mult_and_sum_complex",
-               "region_transform")
-# the tracer's own activity records, which it files as device events
-_TRACER_OVERHEAD = ("Command Buffer Full", "Buffer Flush",
-                    "Activity Buffer Request")
-
-
 def kernel_breakdown(prof, groups):
     """Device time by kernel class from a torch.profiler run.  ``groups``:
     (label, name fragments) in order of precedence; the rest is "other
@@ -1989,7 +1002,7 @@ def kernel_breakdown(prof, groups):
     out["other kernels"] = 0.0
     by_name, spans = {}, []
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name in _TRACER_OVERHEAD:
+        if e.device_type != DeviceType.CUDA or e.name in TRACER_OVERHEAD:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         us = e.device_time_total
@@ -2012,182 +1025,6 @@ def print_breakdown(tag, groups, busy, by_name, wall):
           "wall clock")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[{tag}] {us / 1e3:10.3f} ms  {name[:90]}")
-
-
-def phase_profile(run):
-    """One more golden run under torch.profiler, after the counted one:
-    device time of K1, of the convolutions and of everything else, against
-    the wall clock."""
-    from torch.profiler import ProfilerActivity, profile
-    root, opt, backbone, head = run
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        _run_engine(root, opt, backbone, head, "cuda", verbose=False)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    groups, busy, by_name = kernel_breakdown(
-        prof, [("K1", ("finetune_loop_kernel",)),
-               ("convolution", _CONV_MARKS)])
-    check(groups["K1"] > 0, "the profiler saw no K1 launch")
-    print_breakdown("profile", groups, busy, by_name, wall)
-    print(f"[profile] per 8-session run: K1 device time "
-          f"{groups['K1'] / 1e6:.3f} s, convolutions "
-          f"{groups['convolution'] / 1e6:.3f} s, wall {wall:.2f} s")
-
-
-# --------------------------------------------------------------------------
-# pretraining: the fused step (K2, K3) at full resnet18 width
-# --------------------------------------------------------------------------
-PRETRAIN_CLASSES = 64
-
-
-def pretrain_data(device, n_cls: int = PRETRAIN_CLASSES, per_class: int = 20,
-                  img: int = 84, seed: int = 0):
-    """A device-resident uint8 store (n_cls * per_class, img, img, 3) of
-    class-coloured synthetic images and its labels."""
-    r = np.random.RandomState(seed)
-    labels = np.repeat(np.arange(n_cls), per_class)
-    colors = r.randint(30, 226, size=(n_cls, 3))
-    imgs = np.clip(colors[labels][:, None, None, :]
-                   + r.randint(-25, 26, size=(len(labels), img, img, 3)),
-                   0, 255).astype(np.uint8)
-    return (torch.from_numpy(imgs).to(device),
-            torch.from_numpy(labels).to(device))
-
-
-def pretrain_backbone(widths=None, drop_rate: float = 0.1, seed: int = 0,
-                      n_blocks=(1, 1, 2, 2)):
-    """resnet18-RFS in bf16 (golden flags: --no_dropblock, drop rate 0.1)
-    with weights drawn from ``seed``; ``n_blocks=(1, 1, 1, 1)`` is
-    resnet12."""
-    from subspace_reg_tpu_torch.models.resnet import WIDTHS, ResNetRFS
-    torch.manual_seed(seed)
-    return ResNetRFS(n_blocks=n_blocks, drop_rate=drop_rate,
-                     no_dropblock=True, avg_pool=True,
-                     widths=widths or WIDTHS, dtype=torch.bfloat16)
-
-
-def golden_tx():
-    """The golden SGD (lr 0.05, momentum 0.9, wd 5e-4) as ``params ->
-    optimizer``."""
-    import functools
-    from subspace_reg_tpu_torch.utils.optim import sgd_torch
-    return functools.partial(sgd_torch, learning_rate=0.05, momentum=0.9,
-                             weight_decay=5e-4)
-
-
-def pretrain_state(backbone, device, n_cls: int = PRETRAIN_CLASSES):
-    """A fresh state over a copy of ``backbone``: golden SGD, no linear
-    bias, the head drawn from seed 1."""
-    import copy
-    from subspace_reg_tpu_torch.engine.pretrain import init_pretrain_state
-    return init_pretrain_state(copy.deepcopy(backbone), n_cls, golden_tx(),
-                               False, torch.Generator().manual_seed(1),
-                               device)
-
-
-def pretrain_teacher(device, widths=None, n_cls: int = PRETRAIN_CLASSES,
-                     seed: int = 7):
-    """A KD teacher ``(module, head_w, None)``: a bf16 resnet18-RFS with
-    weights and a ``torch.nn.Linear``-initialized ``n_cls``-row head drawn
-    from ``seed``, in eval mode on ``device``."""
-    from subspace_reg_tpu_torch.models.head import torch_linear_init
-    module = pretrain_backbone(widths, seed=seed).to(device).eval()
-    w, _ = torch_linear_init(n_cls, module.feature_dim, False,
-                             torch.Generator().manual_seed(seed))
-    return module, w.to(device), None
-
-
-def pretrain_step(state, device, fused: bool, backend: str = "xla",
-                  transform: str = "A", teacher=None):
-    """The device-data step over ``state``'s backbone (golden schedule:
-    decay at epochs 60 and 80, 100 steps an epoch; ``transform`` 'A' at
-    84 px, 'D' at CIFAR's 32 px), with the KD term when a ``teacher`` is
-    given (T 4, alpha and beta 1)."""
-    from subspace_reg_tpu_torch.data.transforms import transforms_options
-    from subspace_reg_tpu_torch.engine.draws import TorchDraws
-    from subspace_reg_tpu_torch.engine.pretrain import (
-        make_train_step_device_data)
-    from subspace_reg_tpu_torch.utils.optim import step_decay_schedule
-    spec, _ = transforms_options[transform]
-    return make_train_step_device_data(
-        state.backbone, step_decay_schedule(0.05, [60, 80], 0.1, 100), spec,
-        False, TorchDraws(1, device), fused=fused, fused_backend=backend,
-        teacher=teacher)
-
-
-def _named_params(state):
-    out = dict(state.backbone.named_parameters())
-    out.update({f"head.{k}": v for k, v in state.head.items()})
-    return out
-
-
-def step_agreement(device, backbone, data, labels, idxs,
-                   backend: str = "pallas", n_cls: int = PRETRAIN_CLASSES,
-                   transform: str = "A", teacher=None):
-    """The fused step against the module step from the same weights and
-    batch, inside the chaos-control envelope of
-    tests/test_fused_forward.py:55-125: loss within 3%, running statistics
-    within 0.05 (rtol and atol), every block counter at 1, and per
-    parameter the fused-vs-module update difference at most 3x that of the
-    module step from weights perturbed by 0.4% (bf16's half ulp), or 2% of
-    the update.  Both steps draw the same augmentation and dropout.  With
-    a KD ``teacher`` every step carries its term, and the teacher's
-    statistics and counters must be unchanged.
-    Returns (module loss, fused loss, worst difference / allowance)."""
-    s_ref = pretrain_state(backbone, device, n_cls)
-    s_ctl = pretrain_state(backbone, device, n_cls)
-    s_fus = pretrain_state(backbone, device, n_cls)
-    init = {k: v.detach().clone() for k, v in _named_params(s_ref).items()}
-    r = np.random.RandomState(5)
-    with torch.no_grad():
-        for p in _named_params(s_ctl).values():
-            noise = torch.from_numpy(
-                r.standard_normal(tuple(p.shape)).astype(np.float32))
-            p.mul_(1.0 + 0.004 * noise.to(p.device))
-    init_ctl = {k: v.detach().clone()
-                for k, v in _named_params(s_ctl).items()}
-    t_bufs = None if teacher is None else {
-        k: v.clone() for k, v in teacher[0].state_dict().items()}
-    m_ref = pretrain_step(s_ref, device, False, transform=transform,
-                          teacher=teacher)(s_ref, data, labels, idxs)
-    pretrain_step(s_ctl, device, False, transform=transform,
-                  teacher=teacher)(s_ctl, data, labels, idxs)
-    m_fus = pretrain_step(s_fus, device, True, backend, transform,
-                          teacher)(s_fus, data, labels, idxs)
-    if teacher is not None:
-        check(all(torch.equal(v, t_bufs[k]) for k, v in
-                  teacher[0].state_dict().items()),
-              "the KD steps moved the teacher's weights, statistics or "
-              "counters")
-    l_ref, l_fus = float(m_ref["loss"]), float(m_fus["loss"])
-    check(abs(l_fus - l_ref) <= 0.03 * abs(l_ref),
-          f"fused loss {l_fus} vs module {l_ref}")
-    bufs_ref = dict(s_ref.backbone.named_buffers())
-    for k, v in s_fus.backbone.named_buffers():
-        a, b = bufs_ref[k], v
-        if k.endswith("num_batches_tracked"):
-            check(int(a) == int(b) == 1, f"{k}: {int(a)} vs {int(b)}")
-        else:
-            check(torch.allclose(b, a, rtol=0.05, atol=0.05),
-                  f"{k}: running statistic differs")
-    p_ref, p_fus = _named_params(s_ref), _named_params(s_fus)
-    p_ctl = _named_params(s_ctl)
-    worst = 0.0
-    for k, p0 in init.items():
-        if p0.numel() < 32:
-            continue
-        u_ref = (p_ref[k].detach() - p0).float()
-        u_fus = (p_fus[k].detach() - p0).float()
-        u_ctl = (p_ctl[k].detach() - init_ctl[k]).float()
-        d_fus = float((u_fus - u_ref).norm())
-        allow = max(3.0 * float((u_ctl - u_ref).norm()),
-                    0.02 * max(float(u_ref.norm()), 1e-9))
-        worst = max(worst, d_fus / allow)
-        check(d_fus <= allow, f"{k}: fused update differs by {d_fus:.3e}, "
-              f"allowed {allow:.3e}")
-    return l_ref, l_fus, worst
 
 
 def phase_pretrain_agree(dev):
@@ -2284,6 +1121,10 @@ def phase_pretrain_profile(run, data_batches, steps: int = 5):
     K2, K3, the library convolutions (the conv backward, the 1x1
     downsample, stages 3-4) and the rest."""
     from torch.profiler import ProfilerActivity, profile
+    # cuDNN's convolution kernels by the names eval.conv_ms_per_seed reads
+    conv_marks = load_module(
+        ROOT / "benchmark" / "metrics" / "eval.conv_ms_per_seed.py",
+        "eval.conv_ms_per_seed").CONV_MARKS
     st, step = run
     data, labels, batches = data_batches
     torch.cuda.synchronize()
@@ -2296,7 +1137,7 @@ def phase_pretrain_profile(run, data_batches, steps: int = 5):
         wall = time.time() - t0
     groups, busy, by_name = kernel_breakdown(
         prof, [("K2", ("conv3x3_kernel", "reduce_partials")),
-               ("K3", ("block_tail_kernel",)), ("convolution", _CONV_MARKS)])
+               ("K3", ("block_tail_kernel",)), ("convolution", conv_marks)])
     check(groups["K2"] > 0 and groups["K3"] > 0,
           "the profiler saw no K2 or K3 launch")
     print_breakdown(f"pretrain-profile {steps} steps", groups, busy, by_name,
@@ -2304,7 +1145,7 @@ def phase_pretrain_profile(run, data_batches, steps: int = 5):
     from torch.autograd import DeviceType
     n_kernels = sum(1 for e in prof.events()
                     if e.device_type == DeviceType.CUDA
-                    and e.name not in _TRACER_OVERHEAD)
+                    and e.name not in TRACER_OVERHEAD)
     print(f"[pretrain-profile] {n_kernels / steps:.0f} device kernels per "
           f"step; {1e3 * wall / steps:.3f} ms per step under the profiler")
 
@@ -2352,30 +1193,14 @@ def phase_pretrain_cli(tmp):
           "checkpoint read back")
 
 
-def _tree_items(tree, prefix=""):
-    """(path, leaf) pairs of a nested dict, in key order."""
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            yield from _tree_items(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v
-
-
-def _as_numpy(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
 def trees_bit_equal(a, b) -> bool:
     """Every leaf of two nested dicts equal in path, dtype, shape and
     bytes."""
-    la, lb = dict(_tree_items(a)), dict(_tree_items(b))
+    la, lb = dict(tree_items(a)), dict(tree_items(b))
     if la.keys() != lb.keys():
         return False
     for k in la:
-        x, y = _as_numpy(la[k]), _as_numpy(lb[k])
+        x, y = as_numpy(la[k]), as_numpy(lb[k])
         if (x.dtype, x.shape) != (y.dtype, y.shape) or \
                 x.tobytes() != y.tobytes():
             return False
@@ -2471,11 +1296,11 @@ def phase_resume(tmp, counters, steps: int = 10):
     want_vars, want_head, want_extra = checkpoint_parts(straight)
     check(trees_bit_equal(variables, want_vars)
           and trees_bit_equal(meta["extra"], want_extra)
-          and np.array_equal(head.weight, _as_numpy(want_head.weight))
+          and np.array_equal(head.weight, as_numpy(want_head.weight))
           and head.n_active == want_head.n_active and meta["epoch"] == 2,
           "the .ckpt the card wrote does not read back leaf for leaf")
-    n_leaves = len(dict(_tree_items(variables))) + len(
-        dict(_tree_items(meta["extra"])))
+    n_leaves = len(dict(tree_items(variables))) + len(
+        dict(tree_items(meta["extra"])))
     print(f"[resume] resnet12_last.ckpt read back leaf for leaf "
           f"({n_leaves} leaves, epoch {meta['epoch']}, step "
           f"{int(meta['extra']['step'])})")
@@ -2533,24 +1358,6 @@ def _eval_cli(argv, counters):
         c.launches = 0
     res, wall, _ = _quiet(lambda: eval_incremental.main(argv))
     return res, wall, {c.__name__: c.launches for c in counters}
-
-
-def seeded_ckpt(path: str, model: str, n_base: int, seed: int = 0) -> None:
-    """A ``.ckpt`` of a seeded random ``model`` at full width and an
-    ``n_base``-class head, written by the port's ``save_checkpoint``."""
-    from subspace_reg_tpu_torch.models.factory import create_model
-    from subspace_reg_tpu_torch.models.head import Head
-    from subspace_reg_tpu_torch.utils.checkpoint import save_checkpoint
-    from subspace_reg_tpu_torch.weights import to_jax_variables
-
-    class O:
-        no_dropblock = True
-    torch.manual_seed(seed)
-    sd = create_model(model, O()).state_dict()
-    k = 1.0 / math.sqrt(640)
-    w = torch.empty(n_base, 640).uniform_(-k, k)
-    save_checkpoint(path, to_jax_variables(sd),
-                    Head(weight=w, bias=None, n_active=n_base), {"epoch": 1})
 
 
 def _dataset_inputs(opt):
@@ -2615,12 +1422,10 @@ def phase_datasets(tmp, counters):
         argv += ["--dataset", dataset, "--data_root", f"{tmp}/{key}",
                  "--model_path", f"{tmp}/{key}/{model}_last.ckpt",
                  "--device", "cuda"]
-        res, wall, launches = _eval_cli(argv, counters)
+        res, _, launches = _eval_cli(argv, counters)
         n_base = TIERED_BASE if key == "tiered" else 60
         print(f"[datasets] {dataset} ({model}, {n_base} base classes): "
-              f"8-session run {wall:.2f} s; per-session seconds "
-              f"{[round(x, 4) for x in res.session_seconds]}; epochs "
-              f"{res.epochs_per_session}; launches {launches}")
+              f"epochs {res.epochs_per_session}; launches {launches}")
         check(launches["finetune_loop"] == N_SESSIONS,
               f"{dataset}: K1 launched {launches['finetune_loop']} times")
         check(launches["conv3x3_fused"] == launches["block_tail"] == 0,
@@ -2629,8 +1434,6 @@ def phase_datasets(tmp, counters):
             np.all(np.isfinite(getattr(res, n))) for n in
             ("acc_novel_list", "acc_base_list", "weighted_avg_l")),
             f"{dataset}: trace length or values")
-        out[f"{key}_s"] = wall
-        out[f"{key}_session_s"] = list(res.session_seconds)
         out[f"{key}_launches"] = launches["finetune_loop"]
 
     small = f"{tmp}/small_sets"
@@ -2640,9 +1443,9 @@ def phase_datasets(tmp, counters):
     for dataset, _, transform, n_base in DATASETS:
         # the engine runs neval_episodes sessions off miniImageNet (the
         # CLI's load_eval_splits sets 8)
-        opt = _golden_opt(small, *SMALL_ARGS, "--set_seed", "3",
-                          "--dataset", dataset, "--transform", transform,
-                          "--neval_episodes", str(N_SESSIONS))
+        opt = golden_opt(small, *SMALL_ARGS, "--set_seed", "3",
+                         "--dataset", dataset, "--transform", transform,
+                         "--neval_episodes", str(N_SESSIONS))
         backbone, head = small_model(n_base=n_base)
         res = {d: few_shot_finetune_incremental_test(
             backbone, head, {}, opt, **_dataset_inputs(opt), verbose=False,
@@ -2725,7 +1528,7 @@ def _freeze_run(opt, backbone, head, dev):
     entry point drives them: (result, the backbone's state after each
     session, on the host)."""
     from subspace_reg_tpu_torch.engine.incremental import SeedRun
-    run = SeedRun(backbone, head, {}, opt, **_engine_inputs(opt),
+    run = SeedRun(backbone, head, {}, opt, **engine_inputs(opt),
                   base_split_for_vocab=None, dev=torch.device(dev),
                   draws=_host_draws(opt.set_seed), prt=lambda *a, **k: None)
     states = []
@@ -2749,7 +1552,7 @@ def _freeze_lockstep(opt, backbone, head):
     backbone share and running-statistics difference (``_session_share``)
     and its novel and weighted-average gaps to the CPU's."""
     from subspace_reg_tpu_torch.engine.incremental import SeedRun
-    card, cpu = (SeedRun(backbone, head, {}, opt, **_engine_inputs(opt),
+    card, cpu = (SeedRun(backbone, head, {}, opt, **engine_inputs(opt),
                          base_split_for_vocab=None, dev=torch.device(dev),
                          draws=_host_draws(opt.set_seed),
                          prt=lambda *a, **k: None)
@@ -2810,14 +1613,14 @@ def modes_agree(tmp, small_root):
     within ``FREEZE_STATS``."""
     import os
     backbone, head = small_model()
-    opt = _golden_opt(small_root, *SMALL_ARGS, "--set_seed", "3",
-                      "--track_weights")
+    opt = golden_opt(small_root, *SMALL_ARGS, "--set_seed", "3",
+                     "--track_weights")
     res, csvs = {}, {}
     for dev in ("cuda", "cpu"):
         with in_dir(f"{tmp}/modes_tracked_{dev}") as d:
-            res[dev] = _run_engine(small_root, opt, backbone, head, dev,
-                                   draws=_host_draws(opt.set_seed),
-                                   verbose=False)
+            res[dev] = run_engine(small_root, opt, backbone, head, dev,
+                                  draws=_host_draws(opt.set_seed),
+                                  verbose=False)
             csvs[dev] = {f: read_rows(os.path.join(d, f))
                          for f in os.listdir(d)}
     g, c = res["cuda"], res["cpu"]
@@ -2844,8 +1647,8 @@ def modes_agree(tmp, small_root):
     check(worst <= 1e-4, f"tracked: weights differ by {worst}")
 
     backbone, head = small_model(drop_rate=0.1)
-    opt = _golden_opt(small_root, *SMALL_ARGS, "--set_seed", "3",
-                      "--freeze_backbone_at", "3")
+    opt = golden_opt(small_root, *SMALL_ARGS, "--set_seed", "3",
+                     "--freeze_backbone_at", "3")
     cudnn = torch.backends.cudnn
     pinned = (cudnn.deterministic, cudnn.benchmark, torch.get_num_threads())
     runs = {}
@@ -2925,25 +1728,23 @@ def modes_save_preds(tmp, counters, run, golden):
     and the dump's 8 x (session-0 queries + base batch) rows."""
     import os
     root, _, backbone, head = run
-    opt = _golden_opt(root, "--save_preds_0")
+    opt = golden_opt(root, "--save_preds_0")
     _reset(counters)
     with in_dir(f"{tmp}/modes_preds") as d:
-        res, wall, _ = _quiet(lambda: _run_engine(root, opt, backbone, head,
-                                                  "cuda", verbose=False))
+        res, wall, _ = _quiet(lambda: run_engine(root, opt, backbone, head,
+                                                 "cuda", verbose=False))
         launches = _launches(counters)
         files = os.listdir(f"{d}/csv_files_mem")
         header, rows = read_rows(f"{d}/csv_files_mem/{files[0]}")
-    ref = golden["res"]
     want_rows = N_SESSIONS * (opt.n_ways * opt.n_queries
                               + opt.test_base_batch_size // 2)
-    print(f"[modes] save_preds: 8-session run {wall:.2f} s (phase 5 "
-          f"{golden['wall']:.2f} s); launches {launches}; {files[0]}: "
-          f"{len(rows)} rows")
+    print(f"[modes] save_preds: 8-session run {wall:.2f} s; launches "
+          f"{launches}; {files[0]}: {len(rows)} rows")
     check(launches["finetune_loop"] == N_SESSIONS,
           f"save_preds: K1 launched {launches['finetune_loop']} times")
-    check(res.epochs_per_session == ref.epochs_per_session
-          and res.acc_novel_list == ref.acc_novel_list
-          and res.acc_base_list == ref.acc_base_list,
+    check(res.epochs_per_session == golden.epochs_per_session
+          and res.acc_novel_list == golden.acc_novel_list
+          and res.acc_base_list == golden.acc_base_list,
           "save_preds: the run differs from phase 5's")
     check(len(files) == 1 and len(rows) == want_rows and header == [
         "Episode", "Gold", "Prediction", "Original_Gold",
@@ -2960,10 +1761,10 @@ def modes_freeze(tmp, counters, run):
     each a forward and backward of the whole backbone)."""
     from subspace_reg_tpu_torch.engine.incremental import SeedRun
     root, _, backbone, head = run
-    opt = _golden_opt(root, "--freeze_backbone_at", "3",
-                      "--max_novel_epochs", "100", "--verbose")
+    opt = golden_opt(root, "--freeze_backbone_at", "3",
+                     "--max_novel_epochs", "100", "--verbose")
     lines = []
-    seed_run = SeedRun(backbone, head, {}, opt, **_engine_inputs(opt),
+    seed_run = SeedRun(backbone, head, {}, opt, **engine_inputs(opt),
                        base_split_for_vocab=None, dev=torch.device("cuda"),
                        draws=None, prt=lambda *a, **k: lines.append(
                            " ".join(str(x) for x in a)))
@@ -3036,8 +1837,8 @@ def modes_tracked(tmp, counters, run, k1):
     head3 = _three_session_head(head, 3)
     flags = ("--neval_episodes", "3", "--max_novel_epochs", "20")
     _reset(counters)
-    ref, wall_u, _ = _quiet(lambda: _run_engine(
-        root, _golden_opt(root, *flags), backbone, head3, "cuda",
+    ref, wall_u, _ = _quiet(lambda: run_engine(
+        root, golden_opt(root, *flags), backbone, head3, "cuda",
         verbose=False))
     k1_launches = _launches(counters)["finetune_loop"]
     spent = []
@@ -3051,13 +1852,13 @@ def modes_tracked(tmp, counters, run, k1):
         spent.append((time.perf_counter() - t0, out.epoch - e0))
         return out
 
-    opt = _golden_opt(root, *flags, "--track_weights",
-                      "--track_label_inspired_weights")
+    opt = golden_opt(root, *flags, "--track_weights",
+                     "--track_label_inspired_weights")
     _reset(counters)
     inc.SeedRun._live_epochs = live
     try:
         with in_dir(f"{tmp}/modes_tracked") as d:
-            got, wall_t, _ = _quiet(lambda: _run_engine(
+            got, wall_t, _ = _quiet(lambda: run_engine(
                 root, opt, backbone, head3, "cuda", verbose=False))
             sizes = {f: os.path.getsize(f"{d}/{f}") for f in os.listdir(d)}
     finally:
@@ -3115,15 +1916,15 @@ def modes_vis_predict(tmp, run, tracked):
     from subspace_reg_tpu_torch.engine.predict import make_predict_fn
     from subspace_reg_tpu_torch.ops.augment import normalize_batch
     root, _, backbone, head = run
-    opt = _golden_opt(root, "--neval_episodes", "1", "--max_novel_epochs",
-                      "20")
+    opt = golden_opt(root, "--neval_episodes", "1", "--max_novel_epochs",
+                     "20")
     t0 = time.time()
     frames = inc.few_shot_finetune_incremental_test(
         backbone, _three_session_head(head, 1), {}, opt,
-        **_engine_inputs(opt), verbose=False, device="cuda", vis=True)
+        **engine_inputs(opt), verbose=False, device="cuda", vis=True)
     vis_s = time.time() - t0
     nq = opt.n_ways * opt.n_queries
-    size = _engine_inputs(opt)["base_test_split"].imgs.shape[1]
+    size = engine_inputs(opt)["base_test_split"].imgs.shape[1]
     n = len(frames["img"])
     print(f"[modes] vis: {n} frames ({n // nq} epochs x {nq} queries) in "
           f"{vis_s:.2f} s; columns {list(frames)}")
@@ -3135,7 +1936,7 @@ def modes_vis_predict(tmp, run, tracked):
     check(all(_png_ok(t, size) for t in set(frames["img"])),
           "vis: an img is not a PNG of the query's size")
 
-    base = _engine_inputs(_golden_opt(root))["base_test_split"]
+    base = engine_inputs(golden_opt(root))["base_test_split"]
     imgs = np.ascontiguousarray(base.imgs[:opt.test_base_batch_size // 2])
     bb = copy.deepcopy(backbone).to("cuda")
     predict = make_predict_fn(backbone, head)
@@ -3431,28 +2232,6 @@ def loader_above_limit(dev):
                 loader_large_alone_ms=1e3 * alone_s / n_b)
 
 
-def ckpt_leaves(path: str) -> dict:
-    """Every leaf of a ``.ckpt``: variables, optimizer state, step, head."""
-    from subspace_reg_tpu_torch.utils.checkpoint import load_checkpoint
-    variables, head, meta = load_checkpoint(path)
-    out = dict(_tree_items(variables))
-    out.update({f"extra/{k}": v for k, v in
-                _tree_items(meta.get("extra") or {})})
-    out["head"] = np.asarray(head.weight)
-    return out
-
-
-def ckpt_diff(a: str, b: str):
-    """(max |difference| over the leaves of two ``.ckpt``s, bit-identical)."""
-    la, lb = ckpt_leaves(a), ckpt_leaves(b)
-    check(la.keys() == lb.keys(), f"{a} and {b} hold different leaves")
-    diff = max(float(np.abs(np.asarray(la[k], np.float64)
-                            - np.asarray(lb[k], np.float64)).max())
-               if np.asarray(la[k]).size else 0.0 for k in la)
-    same = all(np.array_equal(la[k], lb[k]) for k in la)
-    return diff, same
-
-
 def _pretrain_cli_argv(root: str, save: str):
     """Phase 10's CLI flags (golden model and optimizer, 84 px, one
     epoch) writing to ``<root>/<save>``."""
@@ -3609,29 +2388,6 @@ def rest_multiseed(tmp, counters):
                 ms_peak_gib=peak, ms_launches=launches)
 
 
-def mesh_check():
-    """The mesh's check, tests/test_torch_mesh.py (torch and the port
-    only): ``launch``, ``reference``, ``agreement``, ``cli_agreement``,
-    ``shard_summed_statistics``, ``write_one_step_split``."""
-    import importlib.util
-    import os
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "test_torch_mesh.py")
-    spec = importlib.util.spec_from_file_location("torch_mesh_check", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _repo_env():
-    import os
-    env = dict(os.environ)
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"]
-                                if env.get("PYTHONPATH") else "")
-    return env
-
-
 def rest_mesh(tmp):
     """15d: one CLI epoch (phase 10's flags and data) under ``torchrun
     --nproc_per_node 1`` (NCCL, a mesh of one rank) against the same run
@@ -3639,12 +2395,11 @@ def rest_mesh(tmp):
     Then a (2, 1) mesh of two gloo ranks on the one card, one f32 step at
     phase 7's shapes (full-width resnet18, 84 px, global batch 64, drop
     rate 0.1), against the single-process step on the global batch, at
-    the CPU test's tolerances (tests/test_torch_mesh.py).  Then the CLI
+    the CPU test's tolerances (tests/torch_support.py).  Then the CLI
     (phase 10's flags) in bf16 and f32 under ``torchrun --nproc_per_node
     2`` on the card, one step of 64 images at 84 px
     (``rest_mesh_bf16``)."""
     from subspace_reg_tpu_torch.models.resnet import WIDTHS
-    mc = mesh_check()
     root = _phase10_data(tmp)
     launcher = f"{tmp}/deterministic_train.py"
     with open(launcher, "w") as f:
@@ -3653,7 +2408,7 @@ def rest_mesh(tmp):
                 "torch.backends.cudnn.benchmark = False\n"
                 "runpy.run_module('subspace_reg_tpu_torch.train_supervised',"
                 " run_name='__main__', alter_sys=True)\n")
-    env = _repo_env()
+    env = repo_env()
     runs = {}
     for label, head in (
             ("plain", [sys.executable, launcher]),
@@ -3686,15 +2441,15 @@ def rest_mesh(tmp):
                scenarios=[dict(name="data", n_data=2, n_model=1, steps=1,
                                mode="device_data")])
     t0 = time.time()
-    ranks = mc.launch(cfg, 2, f"{tmp}/mesh2")
+    ranks = launch(cfg, 2, f"{tmp}/mesh2")
     wall = time.time() - t0
-    ref = mc.reference(cfg)
-    reps = [mc.agreement(ref["data"], r["data"]) for r in ranks]
-    same = mc.ranks_identical(ranks, "data")
+    ref = reference(cfg)
+    reps = [agreement(ref["data"], r["data"]) for r in ranks]
+    same = ranks_identical(ranks, "data")
     print(f"[rest-mesh] (2, 1) mesh, two gloo ranks with CUDA tensors on "
           f"the one card, one f32 step at 84 px, global batch {BATCH} "
           f"({wall:.1f} s with the processes): loss rel "
-          f"{reps[0]['loss_rel']:.2e} (tolerance {mc.LOSS_RTOL:g}),"
+          f"{reps[0]['loss_rel']:.2e} (tolerance {LOSS_RTOL:g}),"
           f" running statistics at {reps[0]['stats_excess']:.3f} of their "
           f"tolerance, update cosine >= {reps[0]['cos_min']:.6f}, norms "
           f"within {reps[0]['norm_rel_max']:.2e}; ranks bit-identical "
@@ -3703,7 +2458,7 @@ def rest_mesh(tmp):
           f"the two-rank step departs from the single-process step: {reps}")
     out = dict(mesh_plain_ms=ms["plain"], mesh_torchrun_ms=ms["torchrun"],
                mesh_f32_cos=reps[0]["cos_min"])
-    out.update(rest_mesh_bf16(tmp, mc))
+    out.update(rest_mesh_bf16(tmp))
     return out
 
 
@@ -3760,10 +2515,10 @@ def conv_rows_by_batch(dev):
           f"{max(grads):.2e}")
 
 
-def rest_mesh_bf16(tmp, mc):
+def rest_mesh_bf16(tmp):
     """The CLI data-parallel on the card: ``torchrun --nproc_per_node 2``
     with both ranks on the one card (gloo, CUDA tensors;
-    tests/test_torch_mesh.py::cli_rank), one step of the global batch (64
+    tests/torch_support.py::cli_rank), one step of the global batch (64
     images at 84 px, one a class; phase 10's flags), on random pixels and
     on class-coloured images, in bf16 as the CLI computes and in f32
     (``f32_compute``), each against the single-process CLI of its dtype.
@@ -3779,7 +2534,7 @@ def rest_mesh_bf16(tmp, mc):
     conv_rows_by_batch(torch.device("cuda"))
     roots = {px: f"{tmp}/mesh_bf16_{px}" for px in ("random", "coloured")}
     for px, root in roots.items():
-        mc.write_one_step_split(f"{root}/data/miniImageNet", 84, px)
+        write_one_step_split(f"{root}/data/miniImageNet", 84, px)
 
     def argv(root, save, epochs=1):
         a = _pretrain_cli_argv(root, save)
@@ -3788,13 +2543,12 @@ def rest_mesh_bf16(tmp, mc):
 
     runs = [(argv(root, f"mesh_{dt}"), dt) for root in roots.values()
             for dt in ("bf16", "f32")]
-    here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.time()
     p = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "2", f"{here}/tests/test_torch_mesh.py",
+         "--nproc_per_node", "2", RANK_SCRIPT,
          "--cli", json.dumps(runs)],
-        env=_repo_env(), capture_output=True, text=True, timeout=600)
+        env=repo_env(), capture_output=True, text=True, timeout=600)
     wall = time.time() - t0
     check(p.returncode == 0, f"the two-rank CLI exited "
           f"{p.returncode}:\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
@@ -3803,7 +2557,7 @@ def rest_mesh_bf16(tmp, mc):
     with deterministic_cudnn():
         for root in roots.values():
             _quiet(lambda: train_supervised.main(argv(root, "plain_bf16")))
-            with mc.f32_compute():
+            with f32_compute():
                 _quiet(lambda: train_supervised.main(
                     argv(root, "plain_f32")))
             _quiet(lambda: train_supervised.main(argv(root, "init", 0)))
@@ -3814,7 +2568,7 @@ def rest_mesh_bf16(tmp, mc):
         ck = {k: f"{root}/{k}/{model}_last.ckpt" for k in (
             "mesh_bf16", "mesh_f32", "plain_bf16", "plain_f32", "init")}
         for dt in ("f32", "bf16"):
-            r = mc.cli_agreement(ck[f"plain_{dt}"], ck[f"mesh_{dt}"],
+            r = cli_agreement(ck[f"plain_{dt}"], ck[f"mesh_{dt}"],
                                  ck["init"])
             check(r["step"] == 1, f"{px} {dt}: not one step")
             print(f"[rest-mesh] {dt} CLI, two gloo ranks on the card, {px} "
@@ -3827,13 +2581,13 @@ def rest_mesh_bf16(tmp, mc):
             if dt == "f32":
                 check(r["ok"], f"the two-rank f32 CLI step departs "
                       f"({px}): {r}")
-        d = mc.bf16_readings(ck["plain_bf16"], ck["mesh_bf16"],
+        d = bf16_readings(ck["plain_bf16"], ck["mesh_bf16"],
                              ck["plain_f32"], ck["init"])
         print(f"[rest-mesh] bf16, {px} pixels, against the f32 twin: the "
               f"two-rank step's error over the single process's, updates "
               f"<= {d['accuracy_update']:.4f}, running statistics <= "
               f"{d['accuracy_stats']:.4f} (at most "
-              f"{mc.BF16_ACCURACY_MAX:g}); its distance from the single "
+              f"{BF16_ACCURACY_MAX:g}); its distance from the single "
               f"process over that process's error, updates <= "
               f"{d['departure_update']:.4f}, statistics <= "
               f"{d['departure_stats']:.4f}; update cosine against the f32 "
@@ -4187,7 +2941,7 @@ def distill_mapping(tmp, counters, dev):
     root = f"{tmp}/multi"
     synthetic.make_word_embeds(f"{root}/word_embeds")
     sd, head, _ = load_any(f"{root}/seed_1/resnet18_last.pth")
-    base = load_mini_imagenet(_golden_opt(root), split="train",
+    base = load_mini_imagenet(golden_opt(root), split="train",
                               phase="train", lazy=True)
     n_base = int(head.n_active)
     os.makedirs(f"{tmp}/mapping", exist_ok=True)
@@ -4254,25 +3008,8 @@ def phase_distill(tmp, counters, dev):
     return out
 
 
-# --------------------------------------------------------------------------
-# phase 17: pretraining on a mesh of two ranks, the parity gate, the seed
-# layout of the multi-seed evaluation
-# --------------------------------------------------------------------------
-def mesh_runner():
-    """tests/test_torch_mesh_fused.py, the scenario runner of the fused,
-    KD and contrastive steps on the mesh harness (``launch``,
-    ``reference``, ``stats_excess``; ``mh`` is tests/test_torch_mesh.py)."""
-    import importlib
-    import os
-    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    return importlib.import_module("test_torch_mesh_fused")
-
-
-def state_readings(mc, plain, got, f32, init):
-    """``mc.bf16_readings`` (tests/test_torch_mesh.py) on the harness's
+def state_readings(plain, got, f32, init):
+    """``bf16_readings`` (tests/torch_support.py) on the harness's
     host states instead of ``.ckpt`` files: the momentum buffers left
     out, ``head.w`` as the head."""
     import types
@@ -4286,7 +3023,7 @@ def state_readings(mc, plain, got, f32, init):
         return sd, types.SimpleNamespace(weight=sd.pop("head.w")), {}
 
     with mock.patch.object(ck, "load_any", load):
-        return mc.bf16_readings("plain", "got", "f32", "init")
+        return bf16_readings("plain", "got", "f32", "init")
 
 
 def _mesh_cfg(scenarios, n_store: int = 256):
@@ -4314,24 +3051,23 @@ MESH_DISTILL = [dict(name="kd", kind="kd", n_data=2, n_model=1, steps=1,
 
 def mesh_steps(tmp):
     """17a and 17b's steps: one launch of two gloo ranks on the one card
-    (tests/test_torch_mesh_fused.py's scenarios over test_torch_mesh.py's
-    harness; full-width resnet18, 84 px, global batch 64) for every
-    scenario of ``MESH_FUSED`` and ``MESH_DISTILL``, and the single-process
-    reference of each; ``mesh_fused`` and ``mesh_distill`` check them."""
-    runner = mesh_runner()
+    (tests/torch_support.py's mesh harness; full-width resnet18, 84 px,
+    global batch 64) for every scenario of ``MESH_FUSED`` and
+    ``MESH_DISTILL``, and the single-process reference of each;
+    ``mesh_fused`` and ``mesh_distill`` check them."""
     cfg = _mesh_cfg(MESH_FUSED + MESH_DISTILL)
     t0 = time.time()
-    ranks = runner.launch(cfg, 2, f"{tmp}/mesh_steps")
+    ranks = launch(cfg, 2, f"{tmp}/mesh_steps")
     wall = time.time() - t0
-    ref = runner.reference(cfg)
+    ref = reference(cfg)
     print(f"[mesh] two gloo ranks on the one card, {len(cfg['scenarios'])} "
           f"scenarios: {wall:.1f} s with the processes")
-    out = mesh_fused(runner, ranks, ref)
-    out.update(mesh_distill(runner, ranks, ref))
+    out = mesh_fused(ranks, ref)
+    out.update(mesh_distill(ranks, ref))
     return out
 
 
-def mesh_fused(runner, ranks, ref):
+def mesh_fused(ranks, ref):
     """17a: the fused step on a (2, 1) mesh of two ranks, one device-data
     step each of the bf16 fused "pallas" step (K2/K3, their epilogue sums
     all-reduced between the launches) and of the f32 fused "xla" step,
@@ -4341,7 +3077,6 @@ def mesh_fused(runner, ranks, ref):
     15d holds the CLI); both ranks bit-identical.  Each rank's K2/K3
     launches, as the rank counted them, printed as a JSON line: 6 K2 and
     2 K3 a step for "pallas", none for "xla"."""
-    mc = runner.mh
     launches = []
     for r, res in enumerate(ranks):
         for s in MESH_FUSED:
@@ -4354,8 +3089,8 @@ def mesh_fused(runner, ranks, ref):
                 else {k: 0 for k in KD_LAUNCHES})
         check(line["launches"] == want, f"17a: rank {line['rank']} "
               f"{line['scenario']} launched {line['launches']}, want {want}")
-    rep = [mc.agreement(ref["f32"], r["f32"]) for r in ranks]
-    blocks = max(runner.stats_excess(a, b) for a, b in zip(
+    rep = [agreement(ref["f32"], r["f32"]) for r in ranks]
+    blocks = max(stats_excess(a, b) for a, b in zip(
         ref["f32"]["block_stats"], ranks[0]["f32"]["block_stats"]))
     print(f"[mesh-fused] f32 fused \"xla\" step on two gloo ranks on the "
           f"card against the single process: loss rel "
@@ -4366,18 +3101,18 @@ def mesh_fused(runner, ranks, ref):
           f"{blocks:.3f} of their tolerance")
     check(all(x["ok"] for x in rep) and blocks <= 1.0, f"17a: the f32 "
           f"two-rank fused step departs from the single process: {rep}")
-    d = state_readings(mc, ref["bf16"]["final"], ranks[0]["bf16"]["final"],
+    d = state_readings(ref["bf16"]["final"], ranks[0]["bf16"]["final"],
                        ref["f32"]["final"], ref["bf16"]["init"])
     print(f"[mesh-fused] bf16 fused \"pallas\" step on two ranks against the "
           f"f32 twin: error over the single process's, updates <= "
           f"{d['accuracy_update']:.4f}, running statistics <= "
-          f"{d['accuracy_stats']:.4f} (at most {mc.BF16_ACCURACY_MAX:g}); "
+          f"{d['accuracy_stats']:.4f} (at most {BF16_ACCURACY_MAX:g}); "
           f"update cosine against the f32 twin >= {d['cos_plain_f32']:.6f} "
           f"(single process), {d['cos_got_f32']:.6f} (two ranks)")
     check(d["ok"], f"17a: the two-rank bf16 fused step is less accurate "
           f"than the single process: {d}")
     for s in MESH_FUSED:
-        check(mc.ranks_identical(ranks, s["name"]), f"17a: the ranks' "
+        check(ranks_identical(ranks, s["name"]), f"17a: the ranks' "
               f"{s['name']} states differ")
     sec = {s["name"]: ranks[0][s["name"]]["seconds"] for s in MESH_FUSED}
     print(f"[mesh-fused] a first step on two ranks of one card (warm-up "
@@ -4388,16 +3123,15 @@ def mesh_fused(runner, ranks, ref):
                 mesh_fused_bf16_accuracy=d["accuracy_update"])
 
 
-def mesh_distill(runner, ranks, ref):
+def mesh_distill(ranks, ref):
     """17b's steps: KD, NCE and CRD on a (2, 1) mesh of two ranks (f32, a
     seeded teacher of the student's geometry, the RFS feat_dim 128 and
     nce_k 16384 over a 256-item store), one step each against the single
     process at the CPU test's tolerances (the banks and Z at the
     statistics'), and two NCE steps: every rank's state and banks
     bit-identical."""
-    mc = runner.mh
     for name in ("kd", "nce", "crd"):
-        rep = [mc.agreement(ref[name], r[name]) for r in ranks]
+        rep = [agreement(ref[name], r[name]) for r in ranks]
         print(f"[mesh-distill] {name} on two gloo ranks on the card against "
               f"the single process: loss rel {rep[0]['loss_rel']:.2e}, "
               f"running statistics at {rep[0]['stats_excess']:.3f} of their "
@@ -4405,11 +3139,11 @@ def mesh_distill(runner, ranks, ref):
               f"within {rep[0]['norm_rel_max']:.2e}")
         check(all(x["ok"] for x in rep), f"17b: {name} departs: {rep}")
     banks = ("nce.memory_l", "nce.memory_ab", "nce.z_l", "nce.z_ab")
-    excess = {n: runner.stats_excess([ref[n]["final"][k] for k in banks],
+    excess = {n: stats_excess([ref[n]["final"][k] for k in banks],
                                      [ranks[0][n]["final"][k]
                                       for k in banks])
               for n in ("nce", "nce_two")}
-    same = [mc.ranks_identical(ranks, s["name"]) for s in MESH_DISTILL]
+    same = [ranks_identical(ranks, s["name"]) for s in MESH_DISTILL]
     print(f"[mesh-distill] banks and Z against the single process, at the "
           f"statistics' tolerance: one NCE step {excess['nce']:.3f}, two "
           f"steps {excess['nce_two']:.3f} (not held: the second step's "
@@ -4424,7 +3158,7 @@ def mesh_distill(runner, ranks, ref):
 def mesh_nce_cli(tmp):
     """17b's CLI: ``--distill nce`` for one epoch under ``torchrun
     --nproc_per_node 2`` (gloo, both ranks on the card;
-    tests/test_torch_mesh.py's ``cli_rank``) on phase 10's data with
+    tests/torch_support.py's ``cli_rank``) on phase 10's data with
     phase 10's ``.ckpt`` as the teacher: one mesh, rank 0 alone prints
     and saves, 100 steps, the contrastive state in the ``.ckpt``."""
     import os
@@ -4433,13 +3167,12 @@ def mesh_nce_cli(tmp):
     check(os.path.exists(teacher), "17b needs phase 10's .ckpt")
     argv = _pretrain_cli_argv(root, "mesh_nce") + [
         "--distill", "nce", "--teacher_path", teacher]
-    here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.time()
     p = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "2", f"{here}/tests/test_torch_mesh.py",
+         "--nproc_per_node", "2", RANK_SCRIPT,
          "--cli", json.dumps([(argv, "bf16")])],
-        env=_repo_env(), capture_output=True, text=True, timeout=600)
+        env=repo_env(), capture_output=True, text=True, timeout=600)
     cli_wall = time.time() - t0
     check(p.returncode == 0, f"17b: the two-rank NCE CLI exited "
           f"{p.returncode}:\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
@@ -4453,7 +3186,7 @@ def mesh_nce_cli(tmp):
     check(int(extra["step"]) == 100 and {"embed_s", "embed_t", "nce"}
           <= set(extra), "17b: the CLI's .ckpt lacks its contrastive state")
     check(all(np.all(np.isfinite(np.asarray(v))) for _, v in
-              _tree_items(extra["nce"])), "17b: the banks are not finite")
+              tree_items(extra["nce"])), "17b: the banks are not finite")
     ips = _images_per_sec(p.stdout, 1)
     print(f"[mesh-distill] --distill nce, one epoch (100 steps of 64) under "
           f"torchrun --nproc_per_node 2 on the one card: {cli_wall:.1f} s "
@@ -4532,10 +3265,10 @@ def mesh_seed_layout(tmp, counters, small_root):
     seeds = (3, 4, 5)
     out = {}
     for shard in (False, True):
-        opts = [_golden_opt(small_root, *SMALL_ARGS, "--set_seed", str(s))
+        opts = [golden_opt(small_root, *SMALL_ARGS, "--set_seed", str(s))
                 for s in seeds]
         models = [small_model(10 + i) for i in range(len(seeds))]
-        ins = [_engine_inputs(o) for o in opts]
+        ins = [engine_inputs(o) for o in opts]
         _reset(counters)
         finetune_loop.seed_loops = 0
         t0 = time.time()
@@ -4683,7 +3416,7 @@ def orbax_round_trip(tmp, backbone, head):
         state = Head(weight=head.weight.to("cuda"), bias=b,
                      n_active=head.n_active)
         variables = to_jax_variables(sd)
-        n_bytes = sum(_as_numpy(v).nbytes for _, v in _tree_items(variables))
+        n_bytes = sum(as_numpy(v).nbytes for _, v in tree_items(variables))
         orbax, path = f"{tmp}/orbax/state_{bias}", f"{tmp}/orbax/{bias}.ckpt"
         t0 = time.time()
         ck.save_orbax(orbax, variables, state, meta)
@@ -4696,12 +3429,12 @@ def orbax_round_trip(tmp, backbone, head):
         t4 = time.time()
         check(trees_bit_equal(ov, cv) and trees_bit_equal(ov, variables),
               f"orbax (bias {bias}): leaves differ from the .ckpt's")
-        check(_as_numpy(oh.weight).tobytes() == _as_numpy(chd.weight)
+        check(as_numpy(oh.weight).tobytes() == as_numpy(chd.weight)
               .tobytes() and oh.n_active == chd.n_active == head.n_active
               and type(oh.n_active) is int
               and (oh.bias is None) is (chd.bias is None) is (not bias)
-              and (not bias or _as_numpy(oh.bias).tobytes()
-                   == _as_numpy(chd.bias).tobytes()),
+              and (not bias or as_numpy(oh.bias).tobytes()
+                   == as_numpy(chd.bias).tobytes()),
               f"orbax (bias {bias}): the head differs from the .ckpt's")
         check(om == cm == meta, f"orbax (bias {bias}): meta differs")
         mb = n_bytes / 1e6
@@ -4740,13 +3473,13 @@ def orbax_fixture():
     cv, chd, cm = ck.load_checkpoint(f"{root}/state.ckpt")
     check(trees_bit_equal(ov, cv),
           "fixture: load_orbax's leaves differ from the .ckpt's")
-    check(all(_as_numpy(x).tobytes() == _as_numpy(y).tobytes()
+    check(all(as_numpy(x).tobytes() == as_numpy(y).tobytes()
               for x, y in ((oh.weight, chd.weight), (oh.bias, chd.bias)))
           and type(oh.n_active) is int and oh.n_active == chd.n_active
           and om == cm, "fixture: the head or meta differs from the .ckpt's")
     chunks = {k: v for k, v in ocdbt.read_store(f"{root}/orbax").items()
               if not k.endswith(b".zarray")}
-    n_bytes = sum(_as_numpy(v).nbytes for _, v in _tree_items(ov))
+    n_bytes = sum(as_numpy(v).nbytes for _, v in tree_items(ov))
     framed = sum(len(v) for v in chunks.values())
     check(framed < n_bytes, "fixture: its chunks are not compressed")
     widths = tuple(ov["params"][f"layer{i}_0"]["conv1"]["kernel"]
@@ -4786,7 +3519,7 @@ def orbax_eval(root, opt, template, trip, counters):
                     bias=None, n_active=h.n_active)
         _reset(counters)
         with deterministic_cudnn():
-            res, wall, out = _quiet(lambda: _run_engine(
+            res, wall, out = _quiet(lambda: run_engine(
                 root, opt, backbone.cuda(), head, "cuda"))
         runs[kind] = (res, wall, out, _launches(counters))
     (res, wall, out, launches), (ref, ref_wall, ref_out, _) = (
@@ -4938,30 +3671,21 @@ def main(argv=None) -> int:
                 regs <= 64 and spill == 0 for regs, spill in usage),
                 "K3's instances exceed 64 registers or spill")
 
-    # phase 3: kernels against their plain versions
-    rows = timed("3 kernels K1", phase_kernels, dev)
+    # phase 3: each kernel alone, beside its plain version, its library
+    # call and its bound
+    rows = {"finetune_loop": timed("3 kernels K1", phase_k1, dev),
+            "conv3x3_fused": timed("3 kernels K2", phase_k2),
+            "block_tail": timed("3 kernels K3", phase_k3, dev),
+            "conv_f32": timed("3 kernels K4", phase_k4, dev),
+            "bn_train": timed("3 kernels K5", phase_k5, dev)}
     k1 = rows["finetune_loop"]
-    err = timed("3 kernels K1 semantic", phase_k1_semantic, dev)
-    seeds_row, seeds_err = timed("3 kernels K1 seed-batched",
-                                 phase_k1_seeds, dev)
-    k1.update(seeds_row)
-    tiered_row, tiered_err = timed("3 kernels K1 tiered", phase_k1_tiered,
-                                   dev)
-    k1.update(tiered_row)
-    k1["max_abs_err"] = max(k1["max_abs_err"], err, seeds_err, tiered_err)
-    rows["conv3x3_fused"] = timed("3 kernels K2", phase_k2)
-    rows["block_tail"] = timed("3 kernels K3", phase_k3, dev)
-    rows["conv_f32"] = timed("3 kernels K4", phase_k4, dev)
-    rows["bn_train"] = timed("3 kernels K5", phase_k5, dev)
     # K2 and K3 at CIFAR's 32 px step (resnet12): their rows keep the
     # 84 px step's numbers and carry these beside them
     cifar = {"conv3x3_fused": timed("3 kernels K2 32px", phase_k2,
-                                    K2_CIFAR_SHAPES, False),
+                                    K2_CIFAR_SHAPES),
              "block_tail": timed("3 kernels K3 32px", phase_k3, dev,
-                                 K3_CIFAR_SHAPES, False, K3_LAUNCH_GAP_MS)}
+                                 K3_CIFAR_SHAPES, K3_LAUNCH_GAP_MS)}
     for kname, row in cifar.items():
-        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"],
-                                         row["max_abs_err"])
         rows[kname].update({f"cifar_{k}": row[k] for k in (
             "ms", "plain_ms", "bound_ms", "library_ms", "wrapper_ms",
             "shapes") if row.get(k) is not None})
@@ -4983,8 +3707,6 @@ def main(argv=None) -> int:
                                            counters)
         k1["launches"] = launches["finetune_loop"]
         rows["conv_f32"]["launches"] = launches["conv_f32"]
-        # phase 6: where the evaluation path's device time goes
-        timed("6 profile", phase_profile, eval_run)
         # phase 7: the fused pretraining step agrees with the module step
         timed("7 pretrain-agree", phase_pretrain_agree, dev)
         # phase 8: the pretraining path, with the launch counters

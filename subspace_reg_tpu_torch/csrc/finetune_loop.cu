@@ -29,8 +29,8 @@
 // those items, but L2: a logits tile streams all of W (256 KB) through
 // its SM's L2 port, and every load that many SMs make of the same lines
 // at once (the partial sums, dlog, the current rows) waits in line.
-// chip_smoke.py phase 3 prints each part's time from the kernel's own
-// clocks (Clock below).
+// ops/finetune.py::_launch(..., prof=) returns each part's time from the
+// kernel's own clocks (Clock below).
 //
 // One epoch, two phases, a grid barrier after each:
 //   A (reads W_e)  work items dealt round-robin, item i to block i % P:

@@ -9,7 +9,24 @@ from __future__ import annotations
 
 from torch import nn
 
-from .resnet import model_dict
+from .resnet import resnet_builder
+from .vit import vit_b16
+
+# factories mirror reference models/resnet_language.py:408-479
+model_dict = {
+    "resnet12": resnet_builder((1, 1, 1, 1)),
+    "resnet18": resnet_builder((1, 1, 2, 2)),
+    "resnet24": resnet_builder((2, 2, 2, 2)),
+    "resnet50": resnet_builder((3, 4, 6, 3)),
+    "resnet101": resnet_builder((3, 4, 23, 3)),
+    "seresnet12": resnet_builder((1, 1, 1, 1), use_se=True),
+    "seresnet18": resnet_builder((1, 1, 2, 2), use_se=True),
+    "seresnet24": resnet_builder((2, 2, 2, 2), use_se=True),
+    "seresnet50": resnet_builder((3, 4, 6, 3), use_se=True),
+    "seresnet101": resnet_builder((3, 4, 23, 3), use_se=True),
+    # the one transformer backbone (models/vit.py)
+    "vit_b16": vit_b16,
+}
 
 # DropBlock's block size per dataset (reference models/util.py:16-18,27):
 # 5 on the 84 px datasets, 2 on CIFAR's 32 px images

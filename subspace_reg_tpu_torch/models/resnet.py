@@ -36,7 +36,6 @@ from torch import nn
 from ..ops import conv_f32
 from .layers import (SELayer, TorchBatchNorm, dropblock, dropout,
                      kaiming_normal_fan_out_, leaky_relu, max_pool_torch)
-from .vit import vit_b16
 
 WIDTHS = (64, 160, 320, 640)
 
@@ -216,7 +215,9 @@ class ResNetRFS(nn.Module):
         return x.reshape(x.shape[0], -1).to(torch.float32)
 
 
-def _factory(n_blocks, use_se=False):
+def resnet_builder(n_blocks, use_se: bool = False):
+    """A builder of ``ResNetRFS`` with ``n_blocks`` blocks a stage (the
+    registry's entries, models/factory.py)."""
     def build(avg_pool: bool = False, drop_rate: float = 0.0,
               dropblock_size: int = 5, no_dropblock: bool = False,
               widths: Sequence[int] = WIDTHS, dtype=None, **_) -> ResNetRFS:
@@ -225,20 +226,3 @@ def _factory(n_blocks, use_se=False):
                          no_dropblock=no_dropblock, use_se=use_se,
                          avg_pool=avg_pool, widths=widths, dtype=dtype)
     return build
-
-
-# factories mirror reference models/resnet_language.py:408-479
-model_dict = {
-    "resnet12": _factory((1, 1, 1, 1)),
-    "resnet18": _factory((1, 1, 2, 2)),
-    "resnet24": _factory((2, 2, 2, 2)),
-    "resnet50": _factory((3, 4, 6, 3)),
-    "resnet101": _factory((3, 4, 23, 3)),
-    "seresnet12": _factory((1, 1, 1, 1), use_se=True),
-    "seresnet18": _factory((1, 1, 2, 2), use_se=True),
-    "seresnet24": _factory((2, 2, 2, 2), use_se=True),
-    "seresnet50": _factory((3, 4, 6, 3), use_se=True),
-    "seresnet101": _factory((3, 4, 23, 3), use_se=True),
-    # the one transformer backbone (models/vit.py)
-    "vit_b16": vit_b16,
-}

@@ -263,7 +263,7 @@ def test_module_step_through_make_train_step(on_card):
     ``make_train_step``: with K5's routing (its plain twins) the loss, every
     gradient, parameter and statistic equal today's, and each of the 22
     BatchNorms took it."""
-    from chip_smoke import golden_tx, pretrain_backbone
+    from torch_support import golden_tx, pretrain_backbone
     from subspace_reg_tpu_torch.data.transforms import transforms_options
     from subspace_reg_tpu_torch.engine import pretrain as pt
     from subspace_reg_tpu_torch.engine.draws import TorchDraws

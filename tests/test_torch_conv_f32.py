@@ -13,11 +13,12 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import (SMALL_ARGS, _golden_opt, _run_engine, pretrain_backbone,
-                        pretrain_data, pretrain_state, pretrain_step,
-                        small_data, small_model)
-from subspace_reg_tpu_torch.models.resnet import ResNetRFS, model_dict
+from subspace_reg_tpu_torch.models.factory import model_dict
+from subspace_reg_tpu_torch.models.resnet import ResNetRFS
 from subspace_reg_tpu_torch.ops import conv_f32 as k4
+from torch_support import (SMALL_ARGS, golden_opt, pretrain_backbone,
+                           pretrain_data, pretrain_state, pretrain_step,
+                           run_engine, small_data, small_model)
 
 CL = torch.channels_last
 WIDTHS = (8, 16, 24, 32)
@@ -229,10 +230,10 @@ def test_evaluation_forwards_all_take_k4(tmp_path, calls):
     backbone forwards, each with all of the backbone's convolutions in K4
     (16 in this resnet12, 22 in resnet18: 1,056 launches on the card)."""
     root = small_data(str(tmp_path))
-    opt = _golden_opt(root, *SMALL_ARGS)
+    opt = golden_opt(root, *SMALL_ARGS)
     backbone, head = small_model(drop_rate=0.1)
     forwards = []
     backbone.register_forward_hook(lambda *a: forwards.append(1))
-    _run_engine(root, opt, backbone, head, "cpu", verbose=False)
+    run_engine(root, opt, backbone, head, "cpu", verbose=False)
     assert len(forwards) == 1 + 8 * 5 + 7
     assert len(calls) == 16 * len(forwards)

@@ -6,7 +6,7 @@ the wrappers take the plain versions because the tensors lie on the CPU.
 
 Tolerances:
 * K2's y: within 1 bf16 ulp of the Pallas result, the ulp taken at no less
-  than 2^-8 of the summed |terms| (``chip_smoke.k2_term_scale``): JAX
+  than 2^-8 of the summed |terms| (``torch_support.k2_term_scale``): JAX
   accumulates in f32, the plain version in f64, and only near-cancelling
   outputs see the f32 order.  The statistics (sums over the rounded y):
   rtol 1e-4 of the sum of |y|.
@@ -23,9 +23,9 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import bf16_ulp_diff, k2_term_scale
 from subspace_reg_tpu.ops.pallas import conv_fused as jcf
 from subspace_reg_tpu_torch.ops import conv_fused as cf
+from torch_support import bf16_ulp_diff, k2_term_scale
 
 CL = torch.channels_last
 

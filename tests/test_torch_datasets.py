@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import write_continual_mini
 from subspace_reg_tpu.data import cifar as jcifar
 from subspace_reg_tpu.data import eval_splits as jsplits
 from subspace_reg_tpu.data import synthetic as jsyn
@@ -36,6 +35,7 @@ from subspace_reg_tpu_torch.data import tiered_imagenet as tiered
 from subspace_reg_tpu_torch.models.factory import create_model
 from subspace_reg_tpu_torch.models.resnet import ResNetRFS
 from subspace_reg_tpu_torch.weights import from_jax_variables
+from torch_support import write_continual_mini
 
 from test_torch_engine import JaxDropout, dropout_keys
 

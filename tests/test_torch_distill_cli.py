@@ -19,9 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ckpt_diff, ckpt_leaves, seeded_ckpt
 from subspace_reg_tpu_torch import train_supervised
 from subspace_reg_tpu_torch.data import synthetic
+from torch_support import ckpt_diff, ckpt_leaves, seeded_ckpt
 
 NCE_K, FEAT, N_CLS = 16, 8, 64
 

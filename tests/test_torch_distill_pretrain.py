@@ -21,7 +21,7 @@ Tolerances, as tests/test_torch_pretrain.py:9-14 holds the plain step:
 * the negative table and the negatives drawn from injected uniforms:
   equal exactly;
 * the fused KD step against the module KD step: the chaos-control
-  envelope (``chip_smoke.step_agreement``);
+  envelope (``torch_support.step_agreement``);
 * a contrastive ``.ckpt`` read by the other package's loader: leaves
   equal.
 The CLI's ``--distill kd|nce|crd`` is tests/test_torch_distill_cli.py.
@@ -37,8 +37,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import (ckpt_leaves, pretrain_backbone, pretrain_data,
-                        pretrain_teacher, step_agreement)
 from subspace_reg_tpu.data.transforms import transforms_options as jax_tf
 from subspace_reg_tpu.engine import pretrain as jpt
 from subspace_reg_tpu.models.resnet import ResNetRFS as JaxResNet
@@ -55,6 +53,8 @@ from subspace_reg_tpu_torch.utils import optim
 from subspace_reg_tpu_torch.weights import from_jax_variables
 from test_torch_pretrain import (BATCH, IMG, LR, N_CLS, SEED, SPE, WIDTHS,
                                  _jax_sd, _pair, _port_sd)
+from torch_support import (ckpt_leaves, pretrain_backbone, pretrain_data,
+                           pretrain_teacher, step_agreement)
 
 NCE_K, FEAT, PER_CLASS = 16, 8, 4
 N_DATA = N_CLS * PER_CLASS

@@ -1,8 +1,9 @@
-"""The port stands alone: every module of subspace_reg_tpu_torch, and
-chip_smoke.py, imports with JAX, flax, optax, msgpack, PIL, pandas, orbax,
-tensorstore, zstandard, TensorBoard and protobuf (the card's machine has
-none of them) and the JAX package blocked, and no source of the port names
-one of them in an import."""
+"""The port stands alone: every module of subspace_reg_tpu_torch,
+chip_smoke.py and the support module it shares with the tests
+(tests/torch_support.py) import with JAX, flax, optax, msgpack, PIL,
+pandas, orbax, tensorstore, zstandard, TensorBoard and protobuf (the card's
+machine has none of them) and the JAX package blocked, and no source of
+the port names one of them in an import."""
 
 import ast
 import os
@@ -57,6 +58,7 @@ def test_every_module_imports_without_jax():
         + [f"sys.modules[{name!r}] = None" for name in BLOCKED]
         + [f"importlib.import_module({m!r})" for m in mods]
         + ["import chip_smoke",
+           "import torch_support",
            "leaked = [m for m in sys.modules if sys.modules[m] is not None"
            f" and any(m == b or m.startswith(b + '.') for b in {BLOCKED!r})]",
            "assert not leaked, leaked",
@@ -72,7 +74,8 @@ def test_every_module_imports_without_jax():
 def test_no_source_imports_the_jax_package():
     sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
                if f.endswith(".py")]
-    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    sources += [os.path.join(REPO, "chip_smoke.py"),
+                os.path.join(REPO, "tests", "torch_support.py")]
     bad = []
     for path in sources:
         with open(path) as fh:

@@ -5,8 +5,8 @@ W update and of the anchor sums is owned by exactly one block, each block's
 partial sums land in the slots the wrapper allocates, and a block's shared
 memory fits.  Also the kernel's view of the operands (the feature axis
 widened with zero columns to a multiple of 4).  The kernel itself is held
-against the plain version on the card (tests/test_torch_kernels_gpu.py,
-chip_smoke.py phase 3).  Exact checks; no JAX."""
+against the plain version on the card (tests/test_torch_kernels_gpu.py).
+Exact checks; no JAX."""
 
 import numpy as np
 import pytest

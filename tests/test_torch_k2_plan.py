@@ -3,7 +3,7 @@ can check without the card: the packed weights are the shared-memory image
 of the wgmma B operand that the kernel's descriptor assumes, and the launch
 plan covers every output pixel exactly once within the card's shared
 memory.  The kernel itself is held against the plain version on the card
-(tests/test_torch_kernels_gpu.py, chip_smoke.py phase 3).  Exact checks."""
+(tests/test_torch_kernels_gpu.py).  Exact checks."""
 
 import numpy as np
 import pytest

@@ -5,8 +5,7 @@ column, channel) exactly once and reads each pooling window where NHWC puts
 it; the vector width divides C and matches the pointers' alignment; the
 tile loop fits 32 bits at any size the card holds; each thread loads its
 affines once per group tile.  The kernel itself is held against the plain
-version on the card (tests/test_torch_kernels_gpu.py, chip_smoke.py phase
-3).  Exact checks."""
+version on the card (tests/test_torch_kernels_gpu.py).  Exact checks."""
 
 import numpy as np
 import pytest

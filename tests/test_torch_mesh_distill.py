@@ -2,15 +2,14 @@
 single process on the global batch: the KD step (module and fused paths)
 and the contrastive steps NCE and CRD (engine/pretrain.py::
 make_train_step_nce with distill/nce.py's global-batch bank update), with
-the harness of tests/test_torch_mesh.py through the scenario runner of
-tests/test_torch_mesh_fused.py, at the harness's narrow resnet18 (widths
+the mesh harness of tests/torch_support.py, at its narrow resnet18 (widths
 8/16/24/32, 16 px, global batch 8, drop rate 0.1, f32), a seeded teacher
 of the same geometry, 8-d embeddings, 16 negatives over 64 items; every
 rank and the single process start from the JAX package's initial
 student, embed heads and banks, carried as numpy (``NCEAverageState.
 from_jax`` for the banks).
 
-Held at test_torch_mesh.py's tolerances (loss rtol 2e-5, statistics
+Held at the harness's tolerances (loss rtol 2e-5, statistics
 rtol 1e-4 / atol 1e-5, update cosine >= 0.999, norm within 1%): one step
 of each; after two contrastive steps the memory banks bit-identical
 across the ranks (every rank applies the global batch's update, as the
@@ -29,8 +28,11 @@ import pytest
 import torch
 
 import test_torch_mesh as mh
-from test_torch_mesh_fused import (jax_initial_state, launch, reference,
-                                   stats_excess)
+from test_torch_mesh_fused import jax_initial_state
+from torch_support import (LOSS_RTOL, RANK_SCRIPT, SMALL, THREADS,
+                           agreement, cli_agreement, f32_compute, launch,
+                           ranks_identical, reference, stats_excess,
+                           write_one_step_split)
 
 SCENARIOS = [
     dict(name="kd", kind="kd", n_data=2, n_model=1, steps=1,
@@ -51,7 +53,7 @@ SCENARIOS = [
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     work = tmp_path_factory.mktemp("mesh_distill")
-    cfg = dict(mh.SMALL, device="cpu", scenarios=SCENARIOS, timeout_s=90.0)
+    cfg = dict(SMALL, device="cpu", scenarios=SCENARIOS, timeout_s=90.0)
     cfg["init_state"] = jax_initial_state(cfg, str(work / "init.pickle"),
                                           contrastive=True)
     ranks = launch(cfg, 2, str(work))
@@ -66,13 +68,13 @@ def test_distill_step_on_two_ranks_equals_single_process(runs, name):
     bit-identical (the embed heads and banks included)."""
     ranks, ref = runs
     for r in ranks:
-        rep = mh.agreement(ref[name], r[name])
+        rep = agreement(ref[name], r[name])
         assert rep["ok"], rep
         for k in ("ce", "contrast", "acc1"):
             if k in ref[name]["metrics"][0]:
                 assert r[name]["metrics"][0][k] == pytest.approx(
-                    ref[name]["metrics"][0][k], rel=mh.LOSS_RTOL, abs=1e-6)
-    assert mh.ranks_identical(ranks, name)
+                    ref[name]["metrics"][0][k], rel=LOSS_RTOL, abs=1e-6)
+    assert ranks_identical(ranks, name)
 
 
 @pytest.mark.parametrize("name", ["nce_two", "crd_two"])
@@ -81,7 +83,7 @@ def test_banks_after_two_steps(runs, name):
     bit, and the single process's within the statistics' tolerances; the
     rest of the state as the one step's check holds it."""
     ranks, ref = runs
-    assert mh.ranks_identical(ranks, name)
+    assert ranks_identical(ranks, name)
     banks = ("nce.memory_l", "nce.memory_ab", "nce.z_l", "nce.z_ab")
     want = [ref[name]["final"][k] for k in banks]
     for r in ranks:
@@ -90,7 +92,7 @@ def test_banks_after_two_steps(runs, name):
         # the banks moved: the items of both steps were written
         assert not torch.equal(r[name]["final"]["nce.memory_l"],
                                r[name]["init"]["nce.memory_l"])
-        assert mh.agreement(ref[name], r[name])["loss_rel"] <= mh.LOSS_RTOL
+        assert agreement(ref[name], r[name])["loss_rel"] <= LOSS_RTOL
 
 
 @pytest.mark.parametrize("name", ["nce", "crd"])
@@ -102,8 +104,8 @@ def test_z_is_set_from_the_global_batch(runs, name):
     (zl, zab), = ref[name]["z"]
     for r in ranks:
         (gl, gab), = r[name]["z"]
-        assert gl == pytest.approx(zl, rel=mh.LOSS_RTOL)
-        assert gab == pytest.approx(zab, rel=mh.LOSS_RTOL)
+        assert gl == pytest.approx(zl, rel=LOSS_RTOL)
+        assert gab == pytest.approx(zab, rel=LOSS_RTOL)
     assert ranks[0][name]["z"] == ranks[1][name]["z"]
     two = ranks[0][name + "_two"]["z"]
     assert two[0] == two[1] and two[0][0] > 0
@@ -120,7 +122,7 @@ def _flags(tmp_path, save, *extra, epochs=1):
 
 def test_cli_distill_under_torchrun(tmp_path, monkeypatch):
     """``torchrun --nproc_per_node 2`` (gloo) of the CLI in f32
-    (``mh.f32_compute``) with ``--distill kd`` and ``--distill nce`` (the
+    (``f32_compute``) with ``--distill kd`` and ``--distill nce`` (the
     teacher: the seeded initial weights, ``--epochs 0``) on 64 random
     images at 16 px, one step of the global batch, against the
     single-process CLI at the harness's tolerances; then ``--distill nce``
@@ -132,7 +134,7 @@ def test_cli_distill_under_torchrun(tmp_path, monkeypatch):
     their items) the ``--distill nce`` epoch equals the staged one bit for
     bit."""
     from subspace_reg_tpu_torch.utils.checkpoint import load_checkpoint
-    mh.write_one_step_split(str(tmp_path / "data" / "miniImageNet"), 16,
+    write_one_step_split(str(tmp_path / "data" / "miniImageNet"), 16,
                             "random")
     ckpt = mh._single_process(tmp_path,
                               ("init", contextlib.nullcontext(), 0))
@@ -143,28 +145,28 @@ def test_cli_distill_under_torchrun(tmp_path, monkeypatch):
              "f32"),
             (_flags(tmp_path, "mesh_resumed", "--distill", "nce",
                     "--reload_path", resume, epochs=2), "f32")]
-    out = mh._torchrun(tmp_path, mh.__file__, "--cli", json.dumps(runs))
+    out = mh._torchrun(tmp_path, RANK_SCRIPT, "--cli", json.dumps(runs))
     assert out.count("==> mesh 2x1 over 2 ranks (gloo)") == len(runs)
     assert out.count("==> resumed contrastive state") == 1
     monkeypatch.setenv("DEVICE_DATA_MAX_BYTES", "0")
     streamed = [(_flags(tmp_path, "mesh_streamed", "--distill", "nce"),
                  "f32")]
-    out = mh._torchrun(tmp_path, mh.__file__, "--cli", json.dumps(streamed))
+    out = mh._torchrun(tmp_path, RANK_SCRIPT, "--cli", json.dumps(streamed))
     assert "==> streaming dataset from the host" in out
     monkeypatch.delenv("DEVICE_DATA_MAX_BYTES")
     n = torch.get_num_threads()
-    torch.set_num_threads(mh.THREADS)
+    torch.set_num_threads(THREADS)
     try:
         from subspace_reg_tpu_torch import train_supervised
         for name in ("kd", "nce"):
-            with mh.f32_compute():
+            with f32_compute():
                 train_supervised.main(_flags(tmp_path, f"plain_{name}",
                                              "--distill", name))
     finally:
         torch.set_num_threads(n)
     path = lambda d: str(tmp_path / d / "resnet12_last.ckpt")  # noqa
     for name in ("kd", "nce"):
-        rep = mh.cli_agreement(path(f"plain_{name}"), path(f"mesh_{name}"),
+        rep = cli_agreement(path(f"plain_{name}"), path(f"mesh_{name}"),
                                ckpt["init"])
         assert rep["step"] == 1 and rep["ok"], (name, rep)
     flat = lambda t, p="": ([(p, t)] if not isinstance(t, dict) else [  # noqa

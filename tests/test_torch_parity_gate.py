@@ -146,7 +146,7 @@ def test_fixture_records_then_passes_and_a_moved_trace_fails(
     gate in record mode, then in compare mode: PASSED, exit code 0, the
     JAX tool's report schema.  A recorded trace moved by 0.6 fails the
     next compare pass with exit code 1."""
-    from subspace_reg_tpu_torch.models.resnet import model_dict
+    from subspace_reg_tpu_torch.models.factory import model_dict
     monkeypatch.setattr(parity_gate, "_COMMON", parity_gate._COMMON + [
         "--max_novel_epochs", "30"])
     monkeypatch.setitem(model_dict, "resnet18", functools.partial(

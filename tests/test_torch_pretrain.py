@@ -17,7 +17,7 @@ Tolerances:
   tests/test_fused_forward.py, since bf16 rounds at other places in the
   two convolution libraries and this narrow geometry amplifies it;
 * the port's fused step against its module step: the chaos-control
-  envelope of tests/test_fused_forward.py (``chip_smoke.step_agreement``);
+  envelope of tests/test_fused_forward.py (``torch_support.step_agreement``);
 * schedules: rtol 1e-6 and atol 1e-8 (JAX evaluates them in f32);
 * validation metrics: rtol 1e-5, accuracies exact.
 """
@@ -32,7 +32,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import pretrain_backbone, pretrain_data, step_agreement
 from subspace_reg_tpu.data.transforms import transforms_options as jax_tf
 from subspace_reg_tpu.engine import pretrain as jpt
 from subspace_reg_tpu.models import layers as jlayers
@@ -50,6 +49,7 @@ from subspace_reg_tpu_torch.utils import optim
 from subspace_reg_tpu_torch.weights import (from_jax_variables,
                                             load_checkpoint,
                                             save_checkpoint)
+from torch_support import pretrain_backbone, pretrain_data, step_agreement
 
 WIDTHS = (8, 16, 24, 32)
 N_CLS, IMG, BATCH, SEED = 12, 16, 8, 1

@@ -256,7 +256,7 @@ def test_load_pth_of_a_resnet_is_unchanged(tmp_path):
 def test_eval_cli_runs_a_vit_pth(tmp_path, monkeypatch, capsys):
     """``eval_incremental.main --model vit_b16`` on a tiny ViT ``.pth``:
     the factory, the engine and K1's twin, one session."""
-    from chip_smoke import write_continual_mini
+    from torch_support import write_continual_mini
     from subspace_reg_tpu_torch import eval_incremental
     monkeypatch.setitem(model_dict, "vit_b16",
                         functools.partial(vit.vit_b16, **TINY))
