@@ -1051,8 +1051,13 @@ def phase_pretrain_main(dev, counters, steps: int = 20):
     phase 5): every BatchNorm that runs as a ``TorchBatchNorm`` goes to
     K5, 2 + 2 launches a step: all of the module path's (88 for
     resnet18's 22), and the fused paths' stages 3-4 (56), their stages 1-2
-    bypassing ``TorchBatchNorm``.  The returned launches are fused
+    bypassing ``TorchBatchNorm``.  The module path runs its first warm-up
+    step eagerly and every later one as a replay of its CUDA graph
+    (``StepRunner.graph_replays``; the fused paths none): its capture
+    counts no launch, each replay the graph's (``BODY_COUNTERS``), so the
+    warm-up reads 3 x 88 and 2 replays.  The returned launches are fused
     "pallas"'s, with the module path's K5 count under "bn_train"."""
+    from subspace_reg_tpu_torch.engine.pretrain import StepRunner
     from subspace_reg_tpu_torch.models.layers import TorchBatchNorm
     from subspace_reg_tpu_torch.ops.bn_train import bn_train
     data, labels = pretrain_data(dev)
@@ -1076,14 +1081,23 @@ def phase_pretrain_main(dev, counters, steps: int = 20):
     for order in (paths, paths[::-1]):
         for label, fused, backend in order:
             st, step = runs[label]
+            l0, r0 = bn_train.launches, StepRunner.graph_replays
             for i in range(3):
                 step(st, data, labels, batches[i])
             torch.cuda.synchronize()
+            if label == "module" and timings[label] == []:
+                # the eager first step, the capture and two replays
+                n, replays = (bn_train.launches - l0,
+                              StepRunner.graph_replays - r0)
+                check(n == 3 * 4 * n_bn[label] and replays == 2,
+                      f"module: K5 launched {n} times, {replays} graph "
+                      "replays in the 3 warm-up steps")
             torch.cuda.reset_peak_memory_stats()
             for c in counters:
                 c.launches = 0
             bn_train.launches = 0
             k0 = TorchBatchNorm.kernel_forwards
+            r0 = StepRunner.graph_replays
             t0 = time.time()
             for i in range(steps):
                 m = step(st, data, labels, batches[3 + i])
@@ -1092,6 +1106,7 @@ def phase_pretrain_main(dev, counters, steps: int = 20):
             launches = {c.__name__: c.launches for c in counters}
             launches["bn_train"] = bn_train.launches
             kf = TorchBatchNorm.kernel_forwards - k0
+            replays = StepRunner.graph_replays - r0
             check(math.isfinite(float(m["loss"])), f"{label}: loss not "
                   "finite")
             want = ({"conv3x3_fused": 6 * steps, "block_tail": 2 * steps}
@@ -1102,6 +1117,8 @@ def phase_pretrain_main(dev, counters, steps: int = 20):
                       f"{n} times in {steps} steps")
             check(kf == n_bn[label] * steps, f"{label}: {kf} BatchNorm "
                   f"forwards took K5 in {steps} steps")
+            check(replays == steps * (label == "module"), f"{label}: "
+                  f"{replays} graph replays in {steps} steps")
             if label == "fused pallas" and main_launches is None:
                 main_launches = launches
             if label == "module" and k5_launches is None:
@@ -1111,7 +1128,8 @@ def phase_pretrain_main(dev, counters, steps: int = 20):
             print(f"[pretrain] {label}: {ms:.3f} ms/step, "
                   f"{BATCH * steps / wall:.1f} images/s, peak "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
-                  f"final loss {float(m['loss']):.4f}; launches {launches}")
+                  f"final loss {float(m['loss']):.4f}; launches {launches}, "
+                  f"graph replays {replays}")
     return (dict(main_launches, bn_train=k5_launches), runs["fused pallas"],
             (data, labels, batches))
 

@@ -9,6 +9,12 @@ schedule.  Under ``torch.profiler`` these phases are the ranges
 ``srt.pretrain.augment``, ``.forward``, ``.backward`` and ``.optimizer``,
 after ``srt.pretrain.gather`` in the device-data step (utils/spans.py).
 
+On a CUDA card the module step without a mesh, a teacher or the label
+pull replays its body, from the augmentation's application to
+``optimizer.step()``, as one CUDA graph (``StepRunner``): the host then
+draws and stages the step's inputs (``srt.pretrain.gather``,
+``.augment``) and launches the graph (``srt.pretrain.replay``).
+
 Where JAX and PyTorch differ in form:
 
 * the JAX ``PretrainState`` is an immutable tree that each step returns
@@ -53,9 +59,13 @@ the ranks.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
+import gc
+import weakref
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -67,11 +77,12 @@ from ..distill.nce import (CONTRAST_MODES, NCEAverageState,
                            init_nce_average, nce_forward)
 from ..models.fused_forward import can_fuse, fused_forward
 from ..models.head import Head, torch_linear_init
-from ..models.layers import cross_replica
+from ..models.layers import TorchBatchNorm, cross_replica, uniform
 from ..models.resnet import ResNetRFS
 from ..ops import augment as aug_ops
-from ..ops import losses
+from ..ops import conv_f32, losses
 from ..ops.augment import AugmentDraws
+from ..ops.bn_train import bn_train
 from ..parallel import mesh as mesh_lib
 from ..utils import optim
 from ..utils.optim import Schedule, set_lr
@@ -255,6 +266,251 @@ def _global_draws(mesh, s, n_local, draw):
             *(t[rows] for t in rest))
 
 
+def recording(generator, shapes: List[tuple]):
+    """``generator`` (a dropout draw, ``models.layers.uniform``) in its
+    callable form, the same numbers, noting each draw's shape in
+    ``shapes``."""
+    def draw(shape, device):
+        shapes.append(tuple(shape))
+        return uniform(shape, generator, device)
+    return draw
+
+
+class DrawnAhead:
+    """A train-mode forward's dropout and DropBlock uniforms, drawn before
+    the forward in its order and shapes into buffers that keep their
+    addresses, and handed to it in turn through the callable form of a
+    dropout draw (``models.layers.uniform``): the numbers the forward
+    would draw from the same generator, bit for bit."""
+
+    def __init__(self, shapes, device):
+        self.buffers = [torch.empty(s, dtype=torch.float32, device=device)
+                        for s in shapes]
+        self._next = 0
+
+    def draw(self, generator) -> "DrawnAhead":
+        """Fill the buffers from ``generator`` (a ``torch.Generator``,
+        None or a draw callable) as the forward draws from it."""
+        for buf in self.buffers:
+            if callable(generator):
+                buf.copy_(generator(tuple(buf.shape), buf.device))
+            else:
+                torch.rand(buf.shape, generator=generator, out=buf)
+        self._next = 0
+        return self
+
+    def __call__(self, shape, device) -> torch.Tensor:
+        i = self._next
+        if i == len(self.buffers) or tuple(shape) != self.buffers[i].shape:
+            raise ValueError(f"draw {i} of the forward has shape "
+                             f"{tuple(shape)}; drawn ahead: "
+                             f"{[tuple(b.shape) for b in self.buffers]}")
+        self._next += 1
+        return self.buffers[i]
+
+    def spent(self) -> bool:
+        return self._next == len(self.buffers)
+
+
+# the Python counters of the work a step's body launches: a replay of the
+# step's CUDA graph adds what its capture counted
+BODY_COUNTERS = ((bn_train, "launches"), (conv_f32.conv_f32, "launches"),
+                 (TorchBatchNorm, "train_forwards"),
+                 (TorchBatchNorm, "kernel_forwards"))
+
+# one memory pool a card for the graphs of every runner on it (the lanes of
+# the multi-seed step replay one at a time, so their activations share it),
+# with the graphs that hold it: the allocator takes a pool again only while
+# a graph holds it, so a card whose graphs are all gone gets a new one
+_graph_pools: Dict[torch.device, tuple] = {}
+
+
+def _graph_pool(dev) -> tuple:
+    """(the pool's token, the set of the graphs that hold it) of ``dev``."""
+    gc.collect()        # a graph in a cycle lets go of its pool here
+    pool = _graph_pools.get(dev)
+    if pool is None or not pool[1]:
+        with torch.cuda.device(dev):
+            pool = _graph_pools[dev] = (torch.cuda.graph_pool_handle(),
+                                        weakref.WeakSet())
+    return pool
+
+
+def _tensors(draws: AugmentDraws) -> List[torch.Tensor]:
+    return [getattr(draws, f.name) for f in dataclasses.fields(draws)]
+
+
+@contextlib.contextmanager
+def _side_stream(dev):
+    """Work on a new stream of ``dev`` that starts after the current
+    stream's work and that the current stream waits for."""
+    side = torch.cuda.Stream(dev)
+    current = torch.cuda.current_stream(dev)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        yield
+    current.wait_stream(side)
+
+
+class StepRunner:
+    """Runs a pretraining step's body, from the augmentation's application
+    to ``optimizer.step()``, each step: eagerly, or replayed as one CUDA
+    graph where the step allows it.
+
+    A step allows it (``capturable``, and ``engages`` at each step) where
+    it is the module step without a mesh, a teacher or the label pull, its
+    state is on a CUDA card and its optimizer is ``torch.optim.SGD``, whose
+    step takes the learning rate as a number (DropBlock's gamma follows
+    the blocks' counters on the device, which the graph advances).  There
+    the host stages the step's inputs into buffers that keep their
+    addresses: the batch and its labels, the augmentation's draws, and the
+    dropout's and DropBlock's uniforms drawn ahead from the step's
+    generator (``DrawnAhead``); then it replays the graph and returns a
+    copy of its loss and accuracies, which the next replay overwrites.
+
+    The first step on a set of parameters, buffers and input shapes runs
+    eagerly, on a side stream: it creates the optimizer's state, builds K5
+    and cuDNN's plans and notes the forward's draws.  The next step is
+    captured (capture records the step and runs nothing) and replayed at
+    once.  The graph bakes the learning rate and every other setting of
+    the optimizer, as SGD's step does with a number, and the addresses of
+    the parameters, buffers and optimizer state: a change in any of them
+    captures anew, so a step-decay schedule captures once a decay, a
+    cosine one once an epoch.  A capture that fails raises.  The graphs of
+    one card share a memory pool.
+
+    The Python counters of the body's work (``BODY_COUNTERS``) count what
+    runs on the device: a capture takes back what its Python counted, and
+    each replay adds it.  ``graph_steps`` counts every step of every
+    runner, ``graph_replays`` the steps that ran as a replay (a captured
+    step's among them)."""
+
+    graph_steps = 0
+    graph_replays = 0
+
+    def __init__(self, body, backbone, capturable: bool):
+        self.body = body
+        self.capturable = capturable
+        # the modules that hold the backbone's buffers
+        self._owners = [m for m in backbone.modules() if m._buffers]
+        self._warm = None     # what the last eager step ran on
+        self._key = None      # what the graph was captured on
+        self._graph = None
+        self._shapes: List[tuple] = []
+        self._counts = [0] * len(BODY_COUNTERS)   # a replay's
+
+    def engages(self, state: PretrainState) -> bool:
+        return (self.capturable and state.head["w"].is_cuda
+                and isinstance(state.optimizer, torch.optim.SGD))
+
+    def warm_key(self, state: PretrainState, inputs: tuple) -> tuple:
+        """What a step's eager warm-up ran on: ``inputs`` (the shapes and
+        types of the batch and its labels) and the addresses and shapes of
+        the parameters and of the backbone's buffers."""
+        tensors = ([p for g in state.optimizer.param_groups
+                    for p in g["params"]]
+                   + [b for m in self._owners for b in m._buffers.values()
+                      if b is not None])
+        return (inputs, tuple(map(torch.Tensor.data_ptr, tensors)),
+                tuple(t.shape for t in tensors))
+
+    @staticmethod
+    def capture_key(state: PretrainState, warm: tuple) -> tuple:
+        """What a graph bakes in: ``warm`` with the addresses of the
+        optimizer's state and its settings, the learning rate among
+        them."""
+        opt = state.optimizer
+        opt_state = tuple(map(torch.Tensor.data_ptr, [
+            v for st in opt.state.values() for v in st.values()
+            if isinstance(v, torch.Tensor)]))
+        settings = tuple(tuple(sorted((k, v) for k, v in g.items()
+                                      if k != "params"))
+                         for g in opt.param_groups)
+        return warm, opt_state, settings
+
+    def __call__(self, state: PretrainState, x_u8: torch.Tensor,
+                 y: torch.Tensor, draw) -> Metrics:
+        """The step's metrics.  ``draw()`` sets the step's learning rate
+        and returns its draws (augmentation, dropout generator)."""
+        StepRunner.graph_steps += 1
+        if not self.engages(state):
+            return self.body(state, x_u8, y, draw)
+        warm = self.warm_key(state, ((x_u8.shape, x_u8.dtype),
+                                     (y.shape, y.dtype)))
+        if warm != self._warm:
+            self._graph = self._key = None
+            m = self._eager(state, x_u8, y, draw)
+            self._warm = warm
+            return m
+        with span("srt.pretrain.augment"):
+            aug, gen = draw()
+            key = self.capture_key(state, warm)
+            if key != self._key:
+                self._graph = None
+                self._buffers(state, x_u8, y, aug)
+            for dst, src in zip([self._x, self._y] + _tensors(self._aug),
+                                [x_u8, y] + _tensors(aug)):
+                dst.copy_(src)
+            self._drawn.draw(gen)
+        if self._graph is None:
+            self._capture(state)
+            self._key = key
+        with span("srt.pretrain.replay"):
+            self._graph.replay()
+        StepRunner.graph_replays += 1
+        for (owner, name), n in zip(BODY_COUNTERS, self._counts):
+            setattr(owner, name, getattr(owner, name) + n)
+        loss, acc1, acc5 = self._out.clone()
+        return {"loss": loss, "acc1": acc1, "acc5": acc5}
+
+    def _eager(self, state, x_u8, y, draw) -> Metrics:
+        dev = state.head["w"].device
+        shapes: List[tuple] = []
+
+        def recorded():
+            aug, gen = draw()
+            return aug, recording(gen, shapes)
+
+        with _side_stream(dev):
+            m = self.body(state, x_u8, y, recorded)
+        self._shapes = shapes
+        return m
+
+    def _buffers(self, state, x_u8, y, aug) -> None:
+        dev = state.head["w"].device
+        self._x, self._y = (torch.empty(t.shape, dtype=t.dtype, device=dev)
+                            for t in (x_u8, y))
+        self._aug = AugmentDraws(*(
+            torch.empty(t.shape, dtype=t.dtype, device=dev)
+            for t in _tensors(aug)))
+        self._drawn = DrawnAhead(self._shapes, dev)
+
+    def _capture(self, state) -> None:
+        dev = state.head["w"].device
+        graph = torch.cuda.CUDAGraph()
+        before = [getattr(owner, name) for owner, name in BODY_COUNTERS]
+        # a capture stream on the state's card (a lane of the multi-seed
+        # step may be on another than the current one); other threads, as
+        # the streamed loader's, keep their copies going meanwhile
+        stream = torch.cuda.Stream(dev)
+        pool, holders = _graph_pool(dev)
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            m = self.body(state, self._x, self._y,
+                          lambda: (self._aug, self._drawn))
+            self._out = torch.stack([m["loss"], m["acc1"], m["acc5"]])
+        holders.add(graph)
+        # the capture ran nothing: its replays count the body's work
+        self._counts = []
+        for (owner, name), n in zip(BODY_COUNTERS, before):
+            self._counts.append(getattr(owner, name) - n)
+            setattr(owner, name, n)
+        if not self._drawn.spent():
+            raise ValueError("the captured forward drew fewer uniforms "
+                             "than the eager one")
+        self._graph = graph
+
+
 def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
                     spec: AugmentSpec, with_bias: bool, draws,
                     label_pull: Optional[float] = None,
@@ -274,7 +530,9 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
     ``pretrain_dropout(step)``.  ``fused=True`` runs stages 1-2 through the
     fused block with ``fused_backend``: ``"pallas"`` launches the
     hand-written CUDA kernels K2/K3 (their plain versions on CPU tensors),
-    ``"xla"`` runs the same program as torch ops.
+    ``"xla"`` runs the same program as torch ops.  ``train_step.runner``
+    (``StepRunner``) runs the body, as a CUDA graph where the step allows
+    it.
 
     With ``mesh`` (parallel/mesh.py) ``x_u8`` and ``y`` are this rank's
     rows of the global batch (``mesh_lib.shard_batch``) and the metrics
@@ -291,17 +549,10 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
     n_data = 1 if mesh is None else mesh.n_data
     sync = None if mesh is None or mesh.n_data == 1 else mesh.data_group
 
-    def train_step(state: PretrainState, x_u8: torch.Tensor,
-                   y: torch.Tensor) -> Metrics:
-        s = state.step
+    def body(state: PretrainState, x_u8: torch.Tensor, y: torch.Tensor,
+             draw) -> Metrics:
         with span("srt.pretrain.augment"):
-            if schedule is not None:
-                set_lr(state.optimizer, schedule(s))
-            # the global batch's draws, this rank's rows
-            aug, gen = _global_draws(
-                mesh, s, x_u8.shape[0],
-                lambda s, n: (draws.pretrain_augment(s, n, spec),
-                              draws.pretrain_dropout(s)))
+            aug, gen = draw()
             x = aug_ops.augment_batch(x_u8, spec, aug)
             # NHWC in memory is an NCHW tensor in channels_last
             x = x.permute(0, 3, 1, 2)
@@ -358,13 +609,34 @@ def make_train_step(backbone: ResNetRFS, schedule: Optional[Schedule],
                            for p in g["params"]])
         with span("srt.pretrain.optimizer"):
             state.optimizer.step()
-        state.step += 1
         if mesh is not None and n_data > 1:
             data_loss, acc1, acc5 = mesh_lib.mean_over_data(
                 mesh, torch.stack([data_loss.detach(), acc1, acc5]))
             loss = data_loss if penalty is None else data_loss + penalty
         return {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
 
+    runner = StepRunner(body, backbone, capturable=(
+        mesh is None and not fused and teacher is None
+        and label_pull is None))
+
+    def train_step(state: PretrainState, x_u8: torch.Tensor,
+                   y: torch.Tensor) -> Metrics:
+        s = state.step
+
+        def draw():
+            if schedule is not None:
+                set_lr(state.optimizer, schedule(s))
+            # the global batch's draws, this rank's rows
+            return _global_draws(
+                mesh, s, x_u8.shape[0],
+                lambda s, n: (draws.pretrain_augment(s, n, spec),
+                              draws.pretrain_dropout(s)))
+
+        m = runner(state, x_u8, y, draw)
+        state.step += 1
+        return m
+
+    train_step.runner = runner
     return train_step
 
 

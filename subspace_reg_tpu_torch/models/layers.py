@@ -31,7 +31,9 @@ bit for bit (its sums are torch's own reductions), in 4 + 4 device kernels
 for ~70.  Every other call keeps the ops below
 (``TorchBatchNorm._normalize``, then ``leaky_relu``), which are K5's plain
 twin.  ``TorchBatchNorm.train_forwards`` counts the train-mode forwards of
-every instance, ``.kernel_forwards`` those K5 ran.
+every instance, ``.kernel_forwards`` those K5 ran; a forward in the
+pretraining step's CUDA graph (engine/pretrain.py::StepRunner) counts at
+each of its replays.
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ class TorchBatchNorm(nn.Module):
     own ``num_batches_tracked`` is read by nothing at a fixed momentum; a
     checkpoint's copy is dropped on load, as the JAX importer drops it."""
 
-    # train-mode forwards of every instance, and those K5 ran
+    # train-mode forwards of every instance, and those K5 ran (a CUDA
+    # graph's forwards count at each replay)
     train_forwards = 0
     kernel_forwards = 0
 
@@ -241,18 +244,21 @@ def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     keep_prob = 1.0 - rate
     u = uniform(x.shape, generator, x.device)
     scale = (keep_prob if x.dtype == torch.float32
-             else torch.tensor(keep_prob, dtype=x.dtype, device=x.device))
+             else torch.full((), keep_prob, dtype=x.dtype, device=x.device))
     return torch.where(u < keep_prob, x / scale, torch.zeros_like(x))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     """LeakyReLU(0.1).  bf16: ``where(x >= 0, x, x * bf16(0.1))`` as
     ``jax.nn.leaky_relu`` computes it (``F.leaky_relu`` multiplies by the
-    f32 slope and rounds differently on ~10% of inputs)."""
+    f32 slope and rounds differently on ~10% of inputs).  The bf16
+    constants here and in ``dropout`` are filled on the device: a tensor
+    copied from the host synchronizes the stream, and cannot be captured in
+    the pretraining step's CUDA graph (engine/pretrain.py)."""
     if x.dtype == torch.float32:
         return F.leaky_relu(x, 0.1)
-    return torch.where(x >= 0, x, x * torch.tensor(0.1, dtype=x.dtype,
-                                                   device=x.device))
+    return torch.where(x >= 0, x, x * torch.full((), 0.1, dtype=x.dtype,
+                                                 device=x.device))
 
 
 class SELayer(nn.Module):

@@ -11,7 +11,9 @@ pixels in both packages.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -33,9 +35,16 @@ class AugmentDraws:
             self.offsets, self.flip, self.jitter_factors, self.jitter_order)))
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """``values`` as an f32 vector on ``device``, copied from the host once:
+    a copy from pageable host memory synchronizes the stream, and a step
+    captured as a CUDA graph (engine/pretrain.py) may copy nothing."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def _gray(v: torch.Tensor) -> torch.Tensor:
-    w = torch.tensor(_GRAY_W, dtype=torch.float32, device=v.device)
-    return v @ w
+    return v @ _constant(_GRAY_W, v.device)
 
 
 def _jitter_batch(x: torch.Tensor, factors: torch.Tensor,
@@ -96,6 +105,6 @@ def normalize_batch(imgs_u8: torch.Tensor, spec: AugmentSpec) -> torch.Tensor:
 
 def _normalize(x: torch.Tensor, spec: AugmentSpec) -> torch.Tensor:
     x = x * (1.0 / 255.0)
-    mean = torch.tensor(spec.mean, dtype=torch.float32, device=x.device)
-    std = torch.tensor(spec.std, dtype=torch.float32, device=x.device)
+    mean = _constant(tuple(spec.mean), x.device)
+    std = _constant(tuple(spec.std), x.device)
     return (x - mean) / std

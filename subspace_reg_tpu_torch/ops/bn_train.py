@@ -314,7 +314,8 @@ def bn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     and the running statistics (C,) contiguous float32 on x's device.  The
     forward and the backward each launch the kernel pair around two of
     torch's reductions (``bn_train.launches`` counts the kernels'
-    launches); any other operand raises ``ValueError``."""
+    launches, in a CUDA graph at each replay); any other operand raises
+    ``ValueError``."""
     if x.dim() != 4:
         raise ValueError(f"bn_train: x (B, C, H, W) expected, got "
                          f"{tuple(x.shape)}")
@@ -342,5 +343,6 @@ def bn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 # launches of the kernels (two a forward, two a backward; torch's
-# reductions between them not counted)
+# reductions between them not counted); a CUDA graph's count at each of
+# its replays (engine/pretrain.py::StepRunner)
 bn_train.launches = 0

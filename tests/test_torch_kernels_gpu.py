@@ -601,3 +601,62 @@ def test_k5_module_routing_on_the_card(cuda):
         assert TorchBatchNorm.train_forwards - t0 == (
             22 if mode == "train" else 0)
         assert k5.bn_train.launches - launches == 2 * want
+
+
+@pytest.mark.parametrize("no_dropblock", [True, False])
+def test_pretrain_graph_step_matches_the_eager_step(cuda, monkeypatch,
+                                                    no_dropblock):
+    """The module step at full width, 84 px, batch 64, replayed as a CUDA
+    graph, against the eager step from one state and one ``TorchDraws``:
+    24 steps, the learning rate decayed at step 12, with the golden
+    one-pixel DropBlock and with 5 x 5 blocks.  The graph replays the
+    eager step's own kernels on the same draws, so its losses are the
+    eager ones bit for bit and its parameters, momentum buffers, BatchNorm
+    statistics and counters are no further from them than the eager step
+    is from itself (the floor); the eager first step, captures at steps 1
+    and 12 and 23 replays, K5's 88 launches counted at every step but the
+    captures; a returned loss keeps its value through the next replay."""
+    import numpy as np
+    from subspace_reg_tpu_torch.data.transforms import transforms_options
+    from subspace_reg_tpu_torch.engine import pretrain as pt
+    from subspace_reg_tpu_torch.engine.draws import TorchDraws
+    from torch_support import (BATCH, pretrain_backbone, pretrain_data,
+                               pretrain_gaps, pretrain_run)
+    data, labels = pretrain_data(cuda)
+    r = np.random.RandomState(3)
+    batches = [torch.from_numpy(r.randint(0, len(labels), BATCH)).to(cuda)
+               for _ in range(24)]
+    bb = pretrain_backbone(no_dropblock=no_dropblock)
+    captures = []
+    capture = pt.StepRunner._capture
+    monkeypatch.setattr(pt.StepRunner, "_capture",
+                        lambda self, state: (captures.append(state.step),
+                                             capture(self, state)))
+    replays, launches = pt.StepRunner.graph_replays, k5.bn_train.launches
+    start, graph, m_graph = pretrain_run(bb, cuda, data, labels, batches, 12)
+    assert pt.StepRunner.graph_replays - replays == 23
+    assert captures == [1, 12]
+    assert k5.bn_train.launches - launches == 24 * 88
+    runs = [pretrain_run(bb, cuda, data, labels, batches, 12, eager=True)
+            for _ in range(2)]
+    assert pt.StepRunner.graph_replays - replays == 23
+    (_, eager, m_eager), (_, again, m_again) = runs
+    gaps = pretrain_gaps(start, graph, eager, m_graph, m_eager)
+    floor = pretrain_gaps(start, again, eager, m_again, m_eager)
+    print(f"graph against eager {gaps}; eager against itself {floor}")
+    for a, b in zip(m_graph, m_eager):
+        for k in ("loss", "acc1", "acc5"):
+            assert torch.equal(a[k], b[k]), k
+    for k in gaps:
+        assert gaps[k] <= floor[k], (k, gaps, floor)
+    assert all(int(v) == 24 for k, v in graph.backbone.named_buffers()
+               if k.endswith("num_batches_tracked"))
+    # the returned metrics are copies, not the graph's own outputs
+    step = pt.make_train_step_device_data(
+        graph.backbone, None, transforms_options["A"][0], False,
+        TorchDraws(2, cuda))
+    m = step(graph, data, labels, batches[0])
+    m = step(graph, data, labels, batches[1])
+    kept = m["loss"].clone()
+    step(graph, data, labels, batches[2])
+    assert torch.equal(m["loss"], kept)

@@ -22,6 +22,8 @@ Tolerances:
 * validation metrics: rtol 1e-5, accuracies exact.
 """
 
+import contextlib
+import copy
 import functools
 import types
 
@@ -41,6 +43,7 @@ from subspace_reg_tpu.utils import optim as joptim
 from subspace_reg_tpu.utils.torch_import import import_checkpoint
 from subspace_reg_tpu_torch.data.transforms import transforms_options
 from subspace_reg_tpu_torch.engine import pretrain as pt
+from subspace_reg_tpu_torch.engine.draws import TorchDraws
 from subspace_reg_tpu_torch.models.layers import (TorchBatchNorm, dropout,
                                                   leaky_relu)
 from subspace_reg_tpu_torch.models.resnet import ResNetRFS
@@ -49,7 +52,10 @@ from subspace_reg_tpu_torch.utils import optim
 from subspace_reg_tpu_torch.weights import (from_jax_variables,
                                             load_checkpoint,
                                             save_checkpoint)
-from torch_support import pretrain_backbone, pretrain_data, step_agreement
+from subspace_reg_tpu_torch.parallel.mesh import Mesh
+from torch_support import (golden_tx, pretrain_backbone, pretrain_data,
+                           pretrain_gaps, pretrain_run, pretrain_state,
+                           pretrain_teacher, step_agreement)
 
 WIDTHS = (8, 16, 24, 32)
 N_CLS, IMG, BATCH, SEED = 12, 16, 8, 1
@@ -357,3 +363,202 @@ def test_saved_pth_reads_back_in_both_packages(tmp_path):
     again.load_state_dict(sd_t)
     for k, v in again.state_dict().items():
         assert torch.equal(v, sd[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the step's CUDA graph (engine/pretrain.py::StepRunner): what runs on the CPU
+# ---------------------------------------------------------------------------
+def test_drawn_ahead_uniforms_are_the_generators_own():
+    """The dropout and DropBlock uniforms drawn ahead of a train-mode bf16
+    forward (``DrawnAhead``, from the step's generator in the order and
+    shapes the forward drew them, ``recording``) give the forward's
+    output, running statistics and counters bit for bit; a draw of
+    another shape, or one more, is refused."""
+    bb = pretrain_backbone(widths=WIDTHS)
+    x = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (BATCH, 3, IMG, IMG)).astype(np.float32))
+    gen = lambda: torch.Generator().manual_seed(11)  # noqa: E731
+    eager, noted, ahead = (copy.deepcopy(bb).train() for _ in range(3))
+    shapes = []
+    out = [eager(x, generator=gen()),
+           noted(x, generator=pt.recording(gen(), shapes))]
+    # resnet18: a dropout in each of the 6 blocks, DropBlock's one-pixel
+    # blocks in the last of stages 3 and 4
+    assert len(shapes) == 6
+    drawn = pt.DrawnAhead(shapes, "cpu").draw(gen())
+    out.append(ahead(x, generator=drawn))
+    assert drawn.spent()
+    for o in out[1:]:
+        assert torch.equal(o, out[0])
+    for m in (noted, ahead):
+        for (k, a), b in zip(eager.state_dict().items(),
+                             m.state_dict().values()):
+            assert torch.equal(a, b), k
+    drawn.draw(gen())
+    with pytest.raises(ValueError, match="drawn ahead"):
+        drawn((1,) + shapes[0][1:], "cpu")
+    for s in shapes:
+        drawn(s, "cpu")
+    with pytest.raises(ValueError, match="drawn ahead"):
+        drawn(shapes[0], "cpu")
+
+
+@pytest.mark.parametrize("cosine", [False, True])
+def test_capture_key_follows_the_learning_rate(cosine):
+    """The graph's key changes where the schedule's learning rate does (the
+    step decay at its decay epochs, the cosine at every epoch) and nowhere
+    else: not within an epoch, not as steps update the state in place."""
+    epochs, spe = 6, 5
+    sched = (optim.cosine_schedule(LR, 0.1, epochs, spe) if cosine
+             else optim.step_decay_schedule(LR, [2, 4], 0.1, spe))
+    data, labels = pretrain_data("cpu", n_cls=N_CLS, per_class=4, img=IMG)
+    state = pretrain_state(pretrain_backbone(widths=WIDTHS), "cpu", N_CLS)
+    step = pt.make_train_step(state.backbone, sched,
+                              transforms_options["A"][0], False,
+                              TorchDraws(1, "cpu"))
+    x, y = data[:BATCH], labels[:BATCH]
+    step(state, x, y)     # the momentum buffers
+    runner = step.runner
+
+    def key(s):
+        optim.set_lr(state.optimizer, sched(s))
+        return runner.capture_key(state, runner.warm_key(state, "inputs"))
+
+    keys = [key(s) for s in range(epochs * spe)]
+    for s in range(1, epochs * spe):
+        moved = keys[s] != keys[s - 1]
+        assert moved == (sched(s) != sched(s - 1)), s
+        assert not moved or s % spe == 0, s
+    assert len(set(keys)) == (epochs if cosine else 3)
+    step(state, x, y)
+    assert key(1) == keys[1]
+
+
+def _mesh_of_one():
+    return Mesh(n_data=1, n_model=1, rank=0, world_size=1, data_index=0,
+                model_index=0, data_group=None, model_group=None,
+                world_group=None, device=torch.device("cpu"))
+
+
+def test_graph_stays_off_where_the_step_does_not_allow_it():
+    """The module step's runner may replay a CUDA graph (on a card only),
+    with DropBlock too; a mesh, the fused step, a KD teacher and the label
+    pull never.  On the CPU every one runs its body eagerly: two steps of each
+    equal its body's, run directly on the same draws, bit for bit, and
+    none replays."""
+    data, labels = pretrain_data("cpu", n_cls=N_CLS, per_class=4, img=IMG)
+    spec = transforms_options["A"][0]
+    bb = pretrain_backbone(widths=WIDTHS)
+    variants = {
+        "module": dict(), "mesh": dict(mesh=_mesh_of_one()),
+        "fused": dict(fused=True),
+        "teacher": dict(teacher=pretrain_teacher("cpu", WIDTHS, N_CLS)),
+        "pull": dict(label_pull=0.5, pull_embeds=torch.randn(N_CLS, 4))}
+    sched = optim.step_decay_schedule(LR, [60, 80], 0.1, SPE)
+    replays = pt.StepRunner.graph_replays
+    for name, kw in variants.items():
+        states = [pretrain_state(bb, "cpu", N_CLS) for _ in range(2)]
+        steps = [pt.make_train_step(s.backbone, sched, spec, False,
+                                    TorchDraws(1, "cpu"), **kw)
+                 for s in states]
+        assert steps[0].runner.capturable == (name == "module"), name
+        draws = TorchDraws(1, "cpu")
+        steps_before = pt.StepRunner.graph_steps
+        for t in range(2):
+            idxs = torch.arange(t * BATCH, (t + 1) * BATCH)
+            got = steps[0](states[0], data[idxs], labels[idxs])
+            st = states[1]
+
+            def draw(s=st.step, st=st):
+                optim.set_lr(st.optimizer, sched(s))
+                return (draws.pretrain_augment(s, BATCH, spec),
+                        draws.pretrain_dropout(s))
+
+            ref = steps[1].runner.body(st, data[idxs], labels[idxs], draw)
+            st.step += 1
+            for k in ("loss", "acc1", "acc5"):
+                assert torch.equal(got[k], ref[k]), (name, k)
+        assert pt.StepRunner.graph_steps - steps_before == 2
+        for (k, a), b in zip(states[0].backbone.state_dict().items(),
+                             states[1].backbone.state_dict().values()):
+            assert torch.equal(a, b), (name, k)
+    assert pt.StepRunner.graph_replays == replays
+    dropblock = ResNetRFS(n_blocks=(1, 1, 2, 2), drop_rate=0.1,
+                          dropblock_size=5, widths=WIDTHS,
+                          dtype=torch.bfloat16)
+    assert pt.make_train_step(dropblock, sched, spec, False,
+                              TorchDraws(1, "cpu")).runner.capturable
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_replayed_steps_stage_each_steps_inputs(monkeypatch, streamed):
+    """The graph path's staging, with the capture modelled on the CPU
+    (capture records the body and runs nothing; a replay runs it on the
+    staged buffers): 24 steps, the learning rate decayed at step 12, equal
+    the eager steps bit for bit, with the batch gathered from the store or
+    from the loader; the first step eager, captures at steps 1
+    and 12, 23 replays, and each step's metrics its own."""
+    captures = []
+
+    def capture(self, state):
+        captures.append(state.step)
+        out = torch.empty(3)
+
+        def replay():
+            m = self.body(state, self._x, self._y,
+                          lambda: (self._aug, self._drawn))
+            out.copy_(torch.stack([m["loss"], m["acc1"], m["acc5"]]))
+        self._graph, self._out = types.SimpleNamespace(replay=replay), out
+
+    monkeypatch.setattr(pt.StepRunner, "_capture", capture)
+    monkeypatch.setattr(pt.StepRunner, "engages",
+                        lambda self, state: self.capturable)
+    monkeypatch.setattr(pt, "_side_stream",
+                        lambda dev: contextlib.nullcontext())
+    data, labels = pretrain_data("cpu", n_cls=N_CLS, per_class=4, img=IMG)
+    r = np.random.RandomState(3)
+    batches = [torch.from_numpy(r.randint(0, len(labels), BATCH))
+               for _ in range(24)]
+    bb = pretrain_backbone(widths=WIDTHS)
+    replays = pt.StepRunner.graph_replays
+    start, graph, m_graph = pretrain_run(bb, "cpu", data, labels, batches,
+                                         12, n_cls=N_CLS, streamed=streamed)
+    assert pt.StepRunner.graph_replays - replays == 23
+    assert captures == [1, 12]
+    _, eager, m_eager = pretrain_run(bb, "cpu", data, labels, batches, 12,
+                                     eager=True, n_cls=N_CLS,
+                                     streamed=streamed)
+    assert pt.StepRunner.graph_replays - replays == 23
+    for a, b in zip(m_graph, m_eager):
+        for k in ("loss", "acc1", "acc5"):
+            assert torch.equal(a[k], b[k]), k
+    assert len({float(m["loss"]) for m in m_graph}) == 24
+    gaps = pretrain_gaps(start, graph, eager, m_graph, m_eager)
+    assert all(v == 0 for v in gaps.values()), gaps
+
+
+def test_graph_pool_is_shared_while_a_graph_holds_it(monkeypatch):
+    """The graphs of one card share a memory pool while a graph holds it;
+    once none does (the allocator would refuse it) the next capture gets a
+    new pool, and another card a pool of its own."""
+    tokens = iter(range(100))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: ("pool", next(tokens)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(pt, "_graph_pools", {})
+
+    class Graph:
+        pass
+
+    card = torch.device("cuda", 0)
+    pool, holders = pt._graph_pool(card)
+    graphs = [Graph(), Graph()]
+    holders.update(graphs)
+    assert pt._graph_pool(card) == (pool, holders)
+    assert pt._graph_pool(torch.device("cuda", 1))[0] != pool
+    graphs.pop()
+    assert pt._graph_pool(card)[0] == pool
+    graphs.pop()
+    again, holders = pt._graph_pool(card)
+    assert again != pool and not holders

@@ -657,14 +657,14 @@ def pretrain_data(device, n_cls: int = PRETRAIN_CLASSES, per_class: int = 20,
 
 
 def pretrain_backbone(widths=None, drop_rate: float = 0.1, seed: int = 0,
-                      n_blocks=(1, 1, 2, 2)):
+                      n_blocks=(1, 1, 2, 2), no_dropblock: bool = True):
     """resnet18-RFS in bf16 (golden flags: --no_dropblock, drop rate 0.1)
     with weights drawn from ``seed``; ``n_blocks=(1, 1, 1, 1)`` is
-    resnet12."""
+    resnet12; ``no_dropblock=False`` drops 5 x 5 blocks in stages 3-4."""
     from subspace_reg_tpu_torch.models.resnet import WIDTHS, ResNetRFS
     torch.manual_seed(seed)
     return ResNetRFS(n_blocks=n_blocks, drop_rate=drop_rate,
-                     no_dropblock=True, avg_pool=True,
+                     no_dropblock=no_dropblock, avg_pool=True,
                      widths=widths or WIDTHS, dtype=torch.bfloat16)
 
 
@@ -721,6 +721,84 @@ def _named_params(state):
     out = dict(state.backbone.named_parameters())
     out.update({f"head.{k}": v for k, v in state.head.items()})
     return out
+
+
+def pretrain_run(backbone, device, data, labels, batches, decay_at: int,
+                 eager: bool = False, n_cls: int = PRETRAIN_CLASSES,
+                 streamed: bool = False):
+    """``len(batches)`` device-data steps (golden SGD, ``TorchDraws(1)``,
+    transform 'A') from a fresh state over a copy of ``backbone``, the
+    learning rate 0.05 until step ``decay_at`` and 0.005 from it; with
+    ``streamed`` the step takes each batch gathered beforehand, as from
+    the loader; with ``eager`` the step's runner replays no CUDA graph.
+    Returns (the state at the start, the state, the steps' metrics)."""
+    from subspace_reg_tpu_torch.data.transforms import transforms_options
+    from subspace_reg_tpu_torch.engine.draws import TorchDraws
+    from subspace_reg_tpu_torch.engine.pretrain import (
+        StepRunner, make_train_step, make_train_step_device_data)
+    from subspace_reg_tpu_torch.utils.optim import step_decay_schedule
+    state = pretrain_state(backbone, device, n_cls)
+    args = (state.backbone, step_decay_schedule(0.05, [1], 0.1, decay_at),
+            transforms_options["A"][0], False, TorchDraws(1, device))
+    if streamed:
+        step = make_train_step(*args)
+        feed = [(data[i], labels[i]) for i in batches]
+    else:
+        step = make_train_step_device_data(*args)
+        feed = [(data, labels, i) for i in batches]
+    start = pretrain_snapshot(state)
+    with (mock.patch.object(StepRunner, "engages", lambda self, st: False)
+          if eager else contextlib.nullcontext()):
+        metrics = [step(state, *batch) for batch in feed]
+    return start, state, metrics
+
+
+def pretrain_snapshot(state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Copies of a pretraining state's parameters, momentum buffers (by
+    parameter) and backbone buffers."""
+    params = {k: v.detach().clone() for k, v in _named_params(state).items()}
+    by_id = {id(v): k for k, v in _named_params(state).items()}
+    momentum = {by_id[id(p)]: st["momentum_buffer"].detach().clone()
+                for p, st in state.optimizer.state.items()
+                if st.get("momentum_buffer") is not None}
+    buffers = {k: v.detach().clone()
+               for k, v in state.backbone.named_buffers()}
+    return {"params": params, "momentum": momentum, "buffers": buffers}
+
+
+def _worst_leaf_gap(got, ref) -> float:
+    """The worst leaf's ||got - ref|| over the larger of ||ref|| and the
+    median leaf's norm."""
+    norms = {k: float(v.double().norm()) for k, v in ref.items()}
+    med = float(np.median(list(norms.values())))
+    return max(float((got[k].double() - ref[k].double()).norm())
+               / max(norms[k], med, 1e-30) for k in ref)
+
+
+def pretrain_gaps(start, got, ref, got_metrics, ref_metrics) -> dict:
+    """Two runs of pretraining steps from one start (``pretrain_run``)
+    under the names of the benchmark's ``correct`` limits: ``loss_gap``
+    the worst step's relative loss difference, ``update_gap`` the worst
+    leaf's difference of the parameters' change, ``grad_gap`` of the
+    momentum buffers, ``bn_stat_gap`` of the running statistics (each
+    over the larger of the leaf's and the median leaf's norm), and
+    ``counter_gap`` the largest difference of the blocks' counters."""
+    g, r = pretrain_snapshot(got), pretrain_snapshot(ref)
+    p0 = start["params"]
+    stats = [k for k in r["buffers"] if "running" in k]
+    counters = [k for k in r["buffers"] if k.endswith("num_batches_tracked")]
+    return {
+        "loss_gap": max(abs(float(a["loss"]) - float(b["loss"]))
+                        / abs(float(b["loss"]))
+                        for a, b in zip(got_metrics, ref_metrics)),
+        "update_gap": _worst_leaf_gap(
+            {k: v - p0[k] for k, v in g["params"].items()},
+            {k: v - p0[k] for k, v in r["params"].items()}),
+        "grad_gap": _worst_leaf_gap(g["momentum"], r["momentum"]),
+        "bn_stat_gap": _worst_leaf_gap({k: g["buffers"][k] for k in stats},
+                                       {k: r["buffers"][k] for k in stats}),
+        "counter_gap": max(abs(int(g["buffers"][k]) - int(r["buffers"][k]))
+                           for k in counters)}
 
 
 def step_agreement(device, backbone, data, labels, idxs,
